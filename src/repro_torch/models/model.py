@@ -1,0 +1,166 @@
+"""The unified decoder model: embed → loop over block groups → LM head.
+
+Counterpart of the JAX package's ``models/model.py``. Functional API:
+
+  init(cfg, generator, device)            -> params
+  forward(cfg, params, inputs)            -> (logits [B, S, V], aux)
+  loss(cfg, params, batch)                -> (scalar, metrics)
+  parameter_count(cfg, params=None)       -> int
+
+``inputs`` is a dict: {"tokens": [B, S]}. Parameters keep the reference's
+stacked-group layout — ``params["blocks"]["b0_attn"]`` leaves carry a
+leading G axis — so the two packages' trees map key for key
+(``models/convert.py``); the groups are walked with a Python loop.
+Prefill, decode and the caches belong to the serving slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.utils.checkpoint
+
+from repro_torch import compat
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks, layers
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+
+def _generator(generator, device: torch.device):
+    if device.type == "meta":
+        return None
+    if isinstance(generator, int):
+        return torch.Generator(device=device).manual_seed(generator)
+    if not isinstance(generator, torch.Generator):
+        raise TypeError(
+            "init needs an explicit torch.Generator (or an integer seed); "
+            "the port draws nothing from the global RNG"
+        )
+    if generator.device.type != device.type:
+        raise ValueError(
+            f"generator lives on {generator.device}, parameters are "
+            f"initialised on {device}"
+        )
+    return generator
+
+
+def init(
+    cfg: ModelConfig,
+    generator: torch.Generator | int,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Random parameters drawn from ``generator`` on ``device`` (``None``
+    means CUDA). The bits differ from the JAX package's ``init`` for any
+    seed: parity goes through ``models.convert.params_from_jax``."""
+    if cfg.frontend == "vision_patches":
+        raise NotImplementedError(
+            "the vision-patch frontend is not ported yet (ROADMAP queue A)"
+        )
+    dev = (
+        torch.device("meta") if str(device) == "meta"
+        else compat.resolve_device(device)
+    )
+    gen = _generator(generator, dev)
+    pdt = compat.dtype_of(cfg.param_dtype)
+    params: dict = {
+        "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, pdt, dev),
+        "final_norm": layers.rmsnorm_init(cfg.d_model, pdt, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = layers.embed_init(
+            gen, cfg.vocab_size, cfg.d_model, pdt, dev
+        )
+    # Stacked per-group block params: every leaf has a leading G axis.
+    g = cfg.num_groups
+    params["blocks"] = {
+        f"b{i}_{kind}": blocks.init(gen, cfg, kind, dev, lead=(g,))
+        for i, kind in enumerate(cfg.block_pattern)
+    }
+    return params
+
+
+def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
+    cdt = compat.dtype_of(cfg.compute_dtype)
+    x = layers.embed_apply(params["embed"], inputs["tokens"], cdt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
+    return x
+
+
+def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
+    pattern = cfg.block_pattern
+
+    def group_body(x, gp):
+        aux_tot = blocks.no_aux(x.device)
+        for i, kind in enumerate(pattern):
+            x, aux = blocks.apply_train(gp[f"b{i}_{kind}"], x, cfg, kind)
+            aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
+        return x, aux_tot
+
+    # One unbind per stacked leaf (its backward is one stack), not one
+    # select per group (whose backward would zero-fill the whole leaf
+    # once per group).
+    unbound = [p.unbind(0) for p in tree_leaves(params["blocks"])]
+    aux = blocks.no_aux(x.device)
+    for gi in range(cfg.num_groups):
+        gp = tree_unflatten(params["blocks"], [u[gi] for u in unbound])
+        if remat and torch.is_grad_enabled():
+            x, aux_g = torch.utils.checkpoint.checkpoint(
+                group_body, x, gp, use_reentrant=False
+            )
+        else:
+            x, aux_g = group_body(x, gp)
+        aux = {k: aux[k] + aux_g[k] for k in aux}
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, inputs, remat: bool = True):
+    """Training/scoring forward pass → (logits, aux_losses)."""
+    cdt = compat.dtype_of(cfg.compute_dtype)
+    x = _embed_inputs(cfg, params, inputs)
+    x, aux = _loop_groups(cfg, params, x, remat=remat)
+    x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps, cdt)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    logits = layers.unembed_apply(table, x, cdt)
+    logits = layers.softcap(logits.to(torch.float32), cfg.final_logit_softcap)
+    return logits, aux
+
+
+def loss(
+    cfg: ModelConfig,
+    params,
+    batch,
+    moe_aux_weight: float = 1e-2,
+    router_z_weight: float = 1e-3,
+    remat: bool = True,
+):
+    """Next-token cross-entropy. batch: {"tokens": [B, S+1]}."""
+    tokens = batch["tokens"]
+    inputs = dict(batch)
+    inputs["tokens"] = tokens[:, :-1]
+    labels = tokens[:, 1:].to(torch.int64)
+
+    logits, aux = forward(cfg, params, inputs, remat=remat)
+
+    # lse − label_logit over the vocab dim, as the reference computes it
+    # (the max is a constant of the differentiation there too).
+    lg = logits.to(torch.float32)
+    m = lg.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    label_logit = lg.gather(-1, labels[..., None])[..., 0]
+    nll = lse - label_logit
+    ce = nll.mean()
+    total = (
+        ce
+        + moe_aux_weight * aux["load_balance_loss"]
+        + router_z_weight * aux["router_z_loss"]
+    )
+    metrics = {"ce": ce, **aux}
+    return total, metrics
+
+
+def parameter_count(cfg: ModelConfig, params=None) -> int:
+    if params is None:
+        params = init(cfg, 0, device="meta")
+    return sum(math.prod(l.shape) for l in tree_leaves(params))

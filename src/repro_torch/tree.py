@@ -1,0 +1,67 @@
+"""Minimal pytree helpers over nested dicts / lists / tuples of leaves.
+
+The JAX package leans on ``jax.tree``; the port's parameters are plain
+nested dicts of tensors and need only map / leaves / flatten. Dicts are
+walked in insertion order (``jax.tree`` sorts keys; the order only has
+to be consistent within the port).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+
+def _is_node(x: Any) -> bool:
+    return isinstance(x, (dict, list, tuple))
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf-wise over trees of identical structure."""
+    if isinstance(tree, dict):
+        for other in rest:
+            if tree.keys() != other.keys():
+                raise ValueError("tree_map: dict keys differ")
+        return {
+            k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()
+        }
+    if isinstance(tree, (list, tuple)):
+        for other in rest:
+            if len(other) != len(tree):
+                raise ValueError("tree_map: sequence lengths differ")
+        out = [
+            tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)
+        ]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [l for v in tree.values() for l in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """Rebuild a tree shaped as ``like`` from ``tree_leaves`` order."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: too many leaves")
+    return out
+
+
+def tree_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``[(slash/joined/path, leaf), …]`` in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [
+        pl
+        for k, v in items
+        for pl in tree_paths(v, f"{prefix}/{k}" if prefix else str(k))
+    ]

@@ -1,0 +1,187 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
+`jax`, `repro` nor `networkx`; no library attention, no `torch.compile`, no
+`try:` around a kernel launch; and without a GPU `device=None` raises
+instead of running on the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN_MODULES = ("jax", "jaxlib", "repro", "networkx")
+
+
+def _module_names():
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_package_has_the_slices_modules():
+    names = set(_module_names())
+    for want in (
+        "repro_torch.compat", "repro_torch.configs.base",
+        "repro_torch.configs.qwen2_0_5b", "repro_torch.kernels.ref",
+        "repro_torch.kernels.build", "repro_torch.kernels.mixing_combine",
+        "repro_torch.kernels.ops", "repro_torch.core.mixing",
+        "repro_torch.core.gossip", "repro_torch.core.dpsgd",
+        "repro_torch.core.priced_training", "repro_torch.models.layers",
+        "repro_torch.models.attention", "repro_torch.models.blocks",
+        "repro_torch.models.model", "repro_torch.models.convert",
+        "repro_torch.data.synthetic",
+    ):
+        assert want in names
+    assert (PKG / "kernels" / "csrc" / "mixing_combine.cu").is_file()
+
+
+def test_importing_everything_pulls_no_forbidden_module():
+    """In a fresh interpreter, so this process's own jax does not count."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for name in {_module_names()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN_MODULES!r}]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "assert torch.backends.cudnn.allow_tf32 is False\n"
+        "print('IMPORTS_OK')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ""},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "IMPORTS_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_ast_scan(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            roots = []
+        assert not set(roots) & set(FORBIDDEN_MODULES), (path, roots)
+        # no library attention, no compiler standing in for a kernel
+        if isinstance(node, ast.Attribute):
+            assert node.attr != "scaled_dot_product_attention", path
+            assert not (
+                node.attr == "compile"
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "torch"
+            ), path
+        if isinstance(node, ast.Name):
+            assert node.id != "scaled_dot_product_attention", path
+        # a kernel launch is never wrapped in a `try` that could fall back
+        assert not isinstance(node, ast.Try), (path, node.lineno)
+
+
+def test_default_update_calls_no_dense_mixing_on_the_fused_path():
+    """`fused_update` (the default eq. (2) path) reaches the kernel wrapper
+    and names neither `addmm` nor `einsum`."""
+    src = (PKG / "core" / "dpsgd.py").read_text()
+    fn = next(
+        n for n in ast.walk(ast.parse(src))
+        if isinstance(n, ast.FunctionDef) and n.name == "fused_update"
+    )
+    attrs = {n.attr for n in ast.walk(fn) if isinstance(n, ast.Attribute)}
+    assert "mixing_sgd_combine_stacked" in attrs
+    assert not attrs & {"addmm", "einsum", "matmul"}
+
+
+def _no_gpu():
+    return not torch.cuda.is_available()
+
+
+@pytest.mark.parametrize(
+    "entry", ["resolve_device", "model_init", "mixing_plan", "train_priced",
+              "train", "params_from_jax"],
+)
+def test_device_none_raises_without_a_gpu(entry):
+    from repro_torch import compat
+    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.core import dpsgd, priced_training
+    from repro_torch.models import convert, model
+
+    if not _no_gpu():
+        assert compat.resolve_device(None).type == "cuda"
+        return
+    cfg = qwen2_0_5b.SMOKE_CONFIG
+    with pytest.raises(compat.NoCudaDeviceError):
+        if entry == "resolve_device":
+            compat.resolve_device(None)
+        elif entry == "model_init":
+            model.init(cfg, 0)
+        elif entry == "mixing_plan":
+            dpsgd.mixing_plan(np.eye(2))
+        elif entry == "train_priced":
+            priced_training.train_priced(
+                {}, None, None, np.eye(2), priced_training.StaticTau(1.0), 1
+            )
+        elif entry == "train":
+            dpsgd.train({}, None, None, np.eye(2), 1)
+        else:
+            convert.params_from_jax({}, cfg)
+
+
+def test_explicit_cpu_and_dtype_names():
+    from repro_torch import compat
+
+    assert compat.resolve_device("cpu") == torch.device("cpu")
+    assert compat.dtype_of("bfloat16") is torch.bfloat16
+    assert compat.dtype_of(torch.float32) is torch.float32
+    with pytest.raises(ValueError):
+        compat.dtype_of("float8")
+
+
+def test_build_is_importable_and_raises_without_nvcc(tmp_path, monkeypatch):
+    """No quiet fallback when the build cannot happen: the error reaches the
+    caller. (Where nvcc exists this only checks the library's name.)"""
+    from repro_torch.kernels import build
+
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    assert build.build_dir() == ROOT / "build" / "repro_torch"
+    # An installed copy has no checkout around it and must be told where.
+    installed = tmp_path / "site-packages" / "repro_torch" / "kernels"
+    monkeypatch.setattr(build, "__file__", str(installed / "build.py"))
+    with pytest.raises(build.KernelCompileError, match="REPRO_TORCH_BUILD_DIR"):
+        build.build_dir()
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    lib = build.library_path("mixing_combine")
+    assert lib.parent == tmp_path and lib.name.startswith("libmixing_combine-")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    with pytest.raises(build.KernelCompileError):
+        build.source_path("no_such_kernel")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if not pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        with pytest.raises(build.KernelCompileError, match="nvcc not found"):
+            build.build("mixing_combine")
+
+
+def test_chip_smoke_refuses_without_a_gpu():
+    if not _no_gpu():
+        pytest.skip("a GPU is present: chip_smoke.py would run in full")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+        text=True, timeout=300, cwd=str(ROOT),
+    )
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
