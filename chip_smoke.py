@@ -3,26 +3,39 @@
 
     python3 chip_smoke.py [--seed N] [--steps N] [--seq N] [--profile]
 
-Drives the port's main path — priced D-PSGD training of Qwen2-0.5B at its
-full width and depth with 8 agents on one card — through the entry points
-a user calls (``model.loss`` → ``make_dpsgd_step`` → ``train_priced``),
-after building the hand-written kernel from ``src/repro_torch/kernels/
-csrc`` with ``nvcc`` and holding it against its plain PyTorch version on
-the card. Needs a CUDA device and ``nvcc``; there is no CPU path. Any
-failed phase raises and the script exits non-zero.
+Drives the port's two paths at the full width and depth of Qwen2-0.5B on
+one card, through the entry points a user calls:
+
+* training — priced D-PSGD with 8 agents (``model.loss`` →
+  ``make_dpsgd_step`` → ``train_priced``), every update through the
+  ``mixing_sgd_combine`` kernel;
+* serving — ``launch.serve.build_serve_artifacts``: prefill of 32 prompts
+  of 8192 tokens, then greedy decoding of 64 tokens against the KV caches,
+  attention through the ``flash_attention`` (prefill) and
+  ``decode_attention`` (decode) kernels.
+
+First it builds the three hand-written kernels from
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
+all at once) and holds each against its plain PyTorch version on the
+card, also at the shapes the paths give them, and shows that the checks
+refuse a faulty plain version. Needs a CUDA device and ``nvcc``; there is
+no CPU path. Any failed phase raises and the script exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
-``kernel_check``, ``small_reference``, ``train``), then the line
+``kernel_check``, ``attention_check``, ``small_reference``, ``train``,
+``serve_check``, ``serve``, ``attention_main_shapes``), then the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
-then ``{"kernels": [...]}`` (one entry per kernel: launches on the main
-path, error against the plain version, time on the card beside its bound,
-the plain version's time and one library call's), and last
-``{"ok": true, "device": {...}}``.
+then
+``{"kernels": [...]}`` (one entry per kernel: launches on its path, error
+against the plain version, time on the card beside its bound, the plain
+version's time and one library call's), and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,20 +48,30 @@ import numpy as np
 import torch
 
 from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs.base import DECODE_32K, ShapeConfig
 from repro_torch.core import dpsgd, gossip, mixing
 from repro_torch.core.priced_training import StaticTau, train_priced
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
+from repro_torch.launch import serve
 from repro_torch.models import model
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the roofline the
-# kernel's bound is stated against.
+# kernels' bounds are stated against.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/mixing_combine.cu"
-KERNEL_REPLACES = "src/repro/kernels/mixing_combine.py:38"
+# kernel -> (source in csrc/, the TPU kernel it replaces)
+KERNELS = {
+    "mixing_sgd_combine": (
+        "mixing_combine", "src/repro/kernels/mixing_combine.py:38"),
+    "flash_attention": (
+        "flash_attention", "src/repro/kernels/flash_attention.py:96"),
+    "decode_attention": (
+        "decode_attention", "src/repro/kernels/decode_attention.py:73"),
+}
 
 FP32_TOL = 1e-5   # the reference's own (tests/test_kernels.py)
 BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
@@ -59,6 +82,49 @@ BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
 # covers results that cancel to near zero.
 BF16_ULP_RTOL = 8e-3
 BF16_ULP_ATOL = 1e-4
+
+# Attention kernels against their plain versions on the case tables: the
+# JAX package's own tolerances (tests/test_kernels.py), rtol = atol.
+ATTN_FP32_TOL = 2e-5
+ATTN_BF16_TOL = 2e-2
+# At the main path's shapes (bf16) a row's output shrinks with its number
+# of keys L as sqrt(e/L) (N(0,1) inputs: about 0.02 at 8k keys), so a fixed
+# 2e-2 would be as large as the output. Kernel and plain version both
+# accumulate in float32 and round once to bf16 (at most one ulp, 2^-7 of
+# the value); the flash kernel also rounds P to bf16 for P.V (2^-9 per
+# term, about 1e-3 of the row's RMS). Limit: ATTN_ROW_RTOL x |want| +
+# ATTN_ROW_ATOL x the RMS of want over heads and D at each (request,
+# query position).
+ATTN_ROW_RTOL = 1e-2
+ATTN_ROW_ATOL = 2e-2
+# Cache slots per tile of the decode kernel (kTile in decode_attention.cu):
+# the faulty plain version of the main-path check drops one such tile.
+DECODE_TILE = 64
+# The case tables of tests/test_kernels.py:
+# (b, h, kv, s, d, window, softcap, dtype) and (b, h, kv, s, d, length,
+# softcap, dtype).
+FLASH_CASES = [
+    (2, 4, 2, 128, 64, None, None, torch.float32),
+    (1, 8, 4, 256, 64, 64, None, torch.float32),
+    (2, 4, 4, 128, 128, None, 50.0, torch.float32),
+    (1, 2, 1, 256, 32, 128, 30.0, torch.float32),
+    (1, 4, 2, 128, 64, None, None, torch.bfloat16),
+    (1, 4, 4, 128, 256, 96, None, torch.bfloat16),
+]
+DECODE_CASES = [
+    (2, 4, 2, 512, 64, 300, None, torch.float32),
+    (1, 8, 8, 1024, 128, 1024, None, torch.float32),
+    (3, 4, 1, 512, 32, 1, None, torch.float32),
+    (2, 4, 2, 512, 64, 511, 50.0, torch.bfloat16),
+]
+
+# Serving main path: B prompts of PROMPT tokens, caches MAX_LEN deep,
+# NEW_TOKENS greedy tokens (the first from prefill's logits).
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_NEW_TOKENS = 32, 8192, 8256, 64
+# End-to-end check: the JAX package's own model tolerances
+# (tests/test_models_smoke.py): prefill 2e-2, decode 3e-2, rtol = atol.
+CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 2, 512, 8
+FP32_ORDER_ATOL = 1e-4  # float32 logits summed in another order
 
 TIMING_REPS = 20
 
@@ -86,15 +152,19 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def compare(got, want, rtol: float, atol: float) -> tuple[bool, float]:
+def compare(got, want, rtol: float, atol) -> tuple[bool, float, float]:
     """Whether ``got`` is finite and within ``atol + rtol*|want|`` of
-    ``want`` everywhere (in float32), and the largest absolute error."""
+    ``want`` everywhere (in float32; ``atol`` a number or a tensor that
+    broadcasts to ``want``), the largest absolute error, and the largest
+    ratio of error to that limit."""
     g32, w32 = got.to(torch.float32), want.to(torch.float32)
     err = (g32 - w32).abs_()
-    bad = err > w32.abs().mul_(rtol).add_(atol)
-    max_err = float(err.max()) if err.numel() else 0.0
-    agree = not bool(bad.any()) and bool(torch.isfinite(g32).all())
-    return agree, max_err
+    limit = w32.abs().mul_(rtol).add_(atol)
+    agree = not bool((err > limit).any()) and bool(torch.isfinite(g32).all())
+    if not err.numel():
+        return agree, 0.0, 0.0
+    worst = float(err.div(limit.clamp_min_(1e-30)).max())
+    return agree, float(err.max()), worst
 
 
 def assert_close(got, want, tol: float, what: str, atol=None) -> float:
@@ -106,11 +176,13 @@ def assert_close(got, want, tol: float, what: str, atol=None) -> float:
             f"{what}: {tuple(got.shape)} {got.dtype} vs "
             f"{tuple(want.shape)} {want.dtype}"
         )
-    agree, max_err = compare(got, want, tol, atol)
+    agree, max_err, worst = compare(got, want, tol, atol)
     if not agree:
+        shown = "per row" if torch.is_tensor(atol) else atol
         raise AssertionError(
             f"{what}: kernel and plain version disagree beyond "
-            f"rtol={tol} atol={atol} (max abs err {max_err})"
+            f"rtol={tol} atol={shown} (max abs err {max_err}, largest "
+            f"error over limit {worst})"
         )
     return max_err
 
@@ -142,10 +214,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """All kernel sources at once, one nvcc process each."""
     t0 = time.perf_counter()
-    path = build.build("mixing_combine", verbose=True)
+    paths = build.build_all([src for src, _ in KERNELS.values()], verbose=True)
     emit(
-        "build", seconds=time.perf_counter() - t0, library=str(path),
+        "build", seconds=time.perf_counter() - t0,
+        libraries={name: str(path) for name, path in paths.items()},
         nvcc_seconds=build.build_seconds(),
     )
 
@@ -271,8 +345,8 @@ def phase_small_reference(seed: int) -> None:
     )
 
 
-def profile_step(step_fn, params, batch, plan, step_ms: list) -> dict:
-    """One more D-PSGD step under ``torch.profiler``: device time by
+def profile_step(step, step_ms: list) -> dict:
+    """One more step (``step()``) under ``torch.profiler``: device time by
     kernel. The profiler slows the host several times over, so the share
     of a step during which the device ran nothing cannot be read from the
     profiled step itself: it is given as a range, this step's device-busy
@@ -283,7 +357,7 @@ def profile_step(step_fn, params, batch, plan, step_ms: list) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_fn(params, batch, plan, 0)
+        step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [
@@ -410,7 +484,7 @@ def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
         params, timed_step, batcher, w, StaticTau(TAU), total_steps,
         design_label="ring-8", log_every=1,
     )
-    launches = ops.launch_count()
+    launches = ops.launch_count("mixing_sgd_combine")
     torch.cuda.synchronize()
     log.validate()
     if launches != total_steps * leaves:
@@ -428,9 +502,9 @@ def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
     if log.total_wall != sum(r.tau for r in log.records):
         raise AssertionError("wall-clock is not the sum of tau")
 
+    batch = batcher(total_steps)
     profiled = (
-        profile_step(step_fn, params, batcher(total_steps), plan,
-                     step_ms[1:])
+        profile_step(lambda: step_fn(params, batch, plan, 0), step_ms[1:])
         if with_profile else None
     )
 
@@ -569,10 +643,7 @@ def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
         torch.cuda.empty_cache()
     top = shapes[0]
     return {
-        "name": "mixing_sgd_combine",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
+        **kernel_fields("mixing_sgd_combine"),
         "launches": launches,
         "launches_per_step": leaves,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
@@ -588,13 +659,547 @@ def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
     }
 
 
+def kernel_fields(name: str) -> dict:
+    src, replaces = KERNELS[name]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+        "replaces": replaces,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def attn_inputs(gen, b, h, kv, sq, sk, d, dtype, model_layout=True):
+    """q ``[b,h,sq,d]``, k/v ``[b,kv,sk,d]`` drawn N(0,1), so attention is
+    far from uniform and a wrong head map or mask moves the output past
+    the tolerance. ``model_layout``: stored ``[B,S,H,D]`` and handed over
+    as transposed views, as the model does."""
+    def draw(n_heads, s):
+        shape = (b, s, n_heads, d) if model_layout else (b, n_heads, s, d)
+        t = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return t.transpose(1, 2) if model_layout else t
+
+    return draw(h, sq), draw(kv, sk), draw(kv, sk)
+
+
+def attn_limit(want, scaled: bool) -> tuple[float, float | torch.Tensor]:
+    """(rtol, atol) for an attention output ``want [B,H,S,D]``: the case
+    tables' fixed tolerance, or (``scaled``, the main path's shapes)
+    ATTN_ROW_RTOL and ATTN_ROW_ATOL x the RMS of ``want`` over heads and D
+    at each (request, position)."""
+    if scaled:
+        rms = want.to(torch.float32).square().mean(dim=(1, 3), keepdim=True)
+        return ATTN_ROW_RTOL, rms.sqrt_().mul_(ATTN_ROW_ATOL)
+    tol = ATTN_FP32_TOL if want.dtype == torch.float32 else ATTN_BF16_TOL
+    return tol, tol
+
+
+def hold(what: str, got, want, scaled: bool) -> dict:
+    """Kernel output against its plain version at ``attn_limit``."""
+    rtol, atol = attn_limit(want, scaled)
+    err = assert_close(got, want, rtol, what, atol=atol)
+    worst = compare(got, want, rtol, atol)[2]
+    return {
+        "case": what, "rtol": rtol,
+        "atol": f"{ATTN_ROW_ATOL} x row RMS" if scaled else atol,
+        "max_abs_err": err, "largest_err_over_limit": worst,
+    }
+
+
+def check_flash(what, q, k, v, window=None, softcap=None, requests=None):
+    """Kernel on the whole batch. Plain version on the whole batch at the
+    tables' tolerance, or (``requests``, the main path's shapes) request by
+    request on those listed, at the data-scaled limit. Returns (result,
+    kernel output)."""
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softcap=softcap)
+    picked = [slice(None)] if requests is None else [
+        slice(i, i + 1) for i in requests]
+    held = []
+    for r in picked:
+        want = ref.flash_attention_ref(q[r], k[r], v[r], causal=True,
+                                       window=window, softcap=softcap)
+        held.append(hold(what, got[r], want, scaled=requests is not None))
+        del want
+    res = max(held, key=lambda h: h["largest_err_over_limit"])
+    res["max_abs_err"] = max(h["max_abs_err"] for h in held)
+    if requests is not None:
+        res["plain_version_on_requests"] = list(requests)
+    return res, got
+
+
+def check_decode(what, q, k, v, length, softcap=None, scaled=False):
+    got = ops.decode_attention(q, k, v, length, softcap=softcap)
+    want = ref.decode_attention_ref(q, k, v, length, softcap=softcap)
+    return hold(what, got, want, scaled), got
+
+
+def refuse(what: str, got, faulty, scaled: bool) -> dict:
+    """The comparison must be able to fail: ``got`` held against the plain
+    version of a faulty kernel, at the same limit, has to be refused."""
+    rtol, atol = attn_limit(faulty, scaled)
+    agree, _, worst = compare(got, faulty, rtol, atol)
+    if agree:
+        raise AssertionError(
+            f"the check cannot tell the kernel's output from {what}"
+        )
+    return {"fault": what, "largest_err_over_limit": worst}
+
+
+def strict_causal_plain(q, k, v):
+    """The plain flash version with the causal diagonal excluded
+    (key j valid for query i only when j < i)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, kv, h // kv, sq, d)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * d**-0.5
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(-1)
+    s = s.masked_fill_(~valid, ref.NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill_(~valid, 0.0)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def head_mod_plain(q, k, v):
+    """The plain flash version with query head h on KV head h % KV."""
+    h, kv = q.shape[1], k.shape[1]
+    heads = torch.tensor([i % kv for i in range(h)], device=q.device)
+    return ref.flash_attention_ref(
+        q, k.index_select(1, heads), v.index_select(1, heads), causal=True
+    )
+
+
+def phase_attention_check(seed: int) -> list[dict]:
+    """Both attention kernels against their plain versions on the card at
+    small shapes: the case tables of tests/test_kernels.py, ragged S,
+    ``length`` as a [B] vector with a 0 in it, and head_dim 16 of the smoke
+    configs. Also shows that the check refuses a decode plain version with
+    ``length - 1``. The main path's shapes are held in
+    ``phase_attention_kernels``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    results, refused = [], []
+
+    for b, h, kv, s, d, window, cap, dt in FLASH_CASES:
+        q, k, v = attn_inputs(gen, b, h, kv, s, s, d, dt, model_layout=False)
+        results.append(check_flash(
+            f"flash table b={b} h={h} kv={kv} s={s} d={d} window={window} "
+            f"softcap={cap} {dt}", q, k, v, window, cap)[0])
+    for b, h, kv, s, d, window, cap, dt in (
+        (2, 14, 2, 1000, 64, None, None, bf16),   # ragged S, group of 7
+        (1, 4, 2, 77, 128, 20, 30.0, f32),        # ragged S, window, softcap
+        (1, 2, 1, 130, 256, None, None, f32),     # fp32 at head_dim 256
+        (2, 4, 2, 33, 16, None, None, f32),       # the smoke configs' head_dim
+        (2, 4, 2, 33, 16, 16, 50.0, bf16),
+    ):
+        q, k, v = attn_inputs(gen, b, h, kv, s, s, d, dt)
+        results.append(check_flash(
+            f"flash b={b} h={h} kv={kv} s={s} d={d} window={window} "
+            f"softcap={cap} {dt} (model layout)", q, k, v, window, cap)[0])
+
+    for b, h, kv, s, d, length, cap, dt in DECODE_CASES:
+        q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, dt, model_layout=False)
+        results.append(check_decode(
+            f"decode table b={b} h={h} kv={kv} s={s} d={d} length={length} "
+            f"softcap={cap} {dt}", q, k, v, length, cap)[0])
+    vec_cases = (
+        (3, 14, 2, 1000, 64, [0, 517, 1000], None, bf16),
+        (3, 8, 2, 300, 128, [1, 2, 300], 50.0, f32),
+        (2, 4, 2, 40, 16, [1, 40], None, f32),
+    )
+    for b, h, kv, s, d, lengths, cap, dt in vec_cases:
+        q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, dt)
+        length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        res, got = check_decode(
+            f"decode b={b} h={h} kv={kv} s={s} d={d} length={lengths} "
+            f"softcap={cap} {dt} (model layout)", q, k, v, length, cap)
+        results.append(res)
+        for i, n in enumerate(lengths):
+            if n == 0 and bool(got[i].ne(0).any()):
+                raise AssertionError("decode with length 0 is not zeros")
+        if min(lengths) >= 1:
+            refused.append(refuse(
+                f"a decode plain version with length - 1 ({res['case']})",
+                got, ref.decode_attention_ref(q, k, v, length - 1,
+                                              softcap=cap), scaled=False))
+    q, k, v = attn_inputs(gen, 2, 4, 2, 1, 700, 64, f32)
+    results.append(check_decode(
+        "decode length as a 0-d int32 tensor", q, k, v,
+        torch.tensor(650, dtype=torch.int32, device="cuda"))[0])
+    torch.cuda.synchronize()
+    emit("attention_check", cases=results, refused=refused)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def serve_params(cfg, seed: int):
+    """Random parameters of ``cfg`` on the card from an explicit generator
+    (the repo holds no checkpoint)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    return model.init(cfg, gen, device="cuda")
+
+
+def phase_serve_check(seed: int) -> None:
+    """The serving path end to end on the card: prefill of a 512-token
+    prompt and 8 teacher-forced decode steps of Qwen2-0.5B at full width
+    and depth, against ``model.forward`` (torch ops, no kernel) at the
+    same positions.
+
+    * float32 (the config with float32 parameters and compute, so the
+      kernels' float32 paths): within the JAX package's own model
+      tolerances, 2e-2 prefill / 3e-2 decode (tests/test_models_smoke.py).
+    * bfloat16 (the served config): two bf16 paths through 24 layers
+      round the residual stream differently and part by several bf16
+      ulps at the logits, more than 2e-2 (0.0625 in the first run), so
+      each is held against the float32 forward of the same parameters:
+      the kernel path may be at most twice as far from it as the torch-op
+      path is, plus 1e-4 (float32 summation order).
+    """
+    cfg = qwen2_0_5b.CONFIG
+    cfg32 = dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"
+    )
+    b, s, steps = CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS
+    params = serve_params(cfg, seed)
+    rng = np.random.default_rng(seed + 6)
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s + steps), dtype=np.int32)
+    ).to("cuda")
+
+    def run(c, p):
+        """(serving path's logits, forward's) at positions s-1 .. s+steps-1."""
+        art = serve.build_serve_artifacts(
+            c, ShapeConfig("serve_check", s + steps, b, "prefill")
+        )
+        with torch.inference_mode():
+            want, _ = model.forward(c, p, {"tokens": toks}, remat=False)
+        logits, caches = art.prefill_fn(p, {"tokens": toks[:, :s]})
+        got = [logits[:, 0]]
+        for t in range(steps):
+            logits, caches = art.step_fn(p, caches, toks[:, s + t:s + t + 1])
+            got.append(logits[:, 0])
+        pos = {key: c_["pos"].tolist() for key, c_ in caches.items()}
+        if any(v != [s + steps] * c.num_groups for v in pos.values()):
+            raise AssertionError(f"serve_check: cache positions {pos}")
+        return torch.stack(got, dim=1), want[:, s - 1:s + steps]
+
+    got32, truth = run(cfg32, tree_map(lambda p: p.to(torch.float32), params))
+    err32 = {
+        "prefill": assert_close(got32[:, 0], truth[:, 0], 2e-2,
+                                "serve_check float32 prefill logits"),
+        "decode": assert_close(got32[:, 1:], truth[:, 1:], 3e-2,
+                               "serve_check float32 decode logits"),
+    }
+    got16, want16 = run(cfg, params)
+    kernel_err = (got16 - truth).abs()
+    forward_err = (want16 - truth).abs()
+    bf16 = {
+        "kernel_path_vs_fp32_max": float(kernel_err.max()),
+        "kernel_path_vs_fp32_mean": float(kernel_err.mean()),
+        "forward_vs_fp32_max": float(forward_err.max()),
+        "forward_vs_fp32_mean": float(forward_err.mean()),
+        "kernel_path_vs_forward_max": float((got16 - want16).abs().max()),
+    }
+    if not bool(torch.isfinite(got16).all()) or not (
+        bf16["kernel_path_vs_fp32_max"]
+        <= 2 * bf16["forward_vs_fp32_max"] + FP32_ORDER_ATOL
+    ):
+        raise AssertionError(f"serve_check bfloat16: {bf16}")
+    emit(
+        "serve_check", config=cfg.name, batch=b, prompt=s,
+        decode_steps=steps, float32_max_abs_err=err32,
+        float32_tolerance={"prefill": 2e-2, "decode": 3e-2},
+        bfloat16=bf16, bfloat16_rule="kernel path vs fp32 <= 2 x forward vs fp32 + 1e-4",
+        logit_scale=float(truth.abs().mean()),
+    )
+
+
+def phase_serve(seed: int, with_profile: bool = False) -> dict:
+    """The serving main path: B prompts through ``prefill_fn``, then greedy
+    decoding (the first token from prefill's logits, then one ``step_fn``
+    call per token), as examples/serve_decode.py does. Launch counters are
+    set to 0 just before and read just after. ``with_profile``: one more
+    decode step (into the cache's last slot) under the profiler. Returns
+    the counts: every kernel's launches in the run, flash launches in the
+    prefill and decode launches in the first step."""
+    cfg = qwen2_0_5b.CONFIG
+    b, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+    steps = SERVE_NEW_TOKENS - 1
+    art = serve.build_serve_artifacts(
+        cfg, ShapeConfig("serve_8k", max_len, b, "prefill")
+    )
+    params = serve_params(cfg, seed)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, prompt), dtype=np.int32)
+    ).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_count()
+    t0 = time.perf_counter()
+    logits, caches = art.prefill_fn(params, {"tokens": tokens})
+    token = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    flash_per_prefill = ops.launch_count("flash_attention")
+    generated = [token]
+    step_ms, decode_per_step = [], []
+    for _ in range(steps):
+        before = ops.launch_count("decode_attention")
+        t = time.perf_counter()
+        logits, caches = art.step_fn(params, caches, token)
+        token = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        decode_per_step.append(ops.launch_count("decode_attention") - before)
+        generated.append(token)
+    launches = {name: ops.launch_count(name) for name in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    layers = cfg.num_layers
+    if flash_per_prefill != layers:
+        raise AssertionError(
+            f"prefill launched flash_attention {flash_per_prefill} times, "
+            f"not once per layer ({layers})")
+    if any(n != layers for n in decode_per_step):
+        raise AssertionError(
+            f"decode steps launched decode_attention {decode_per_step} "
+            f"times, not once per layer ({layers})")
+    if launches["flash_attention"] != layers or launches["mixing_sgd_combine"]:
+        raise AssertionError(f"serving path launch counts {launches}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite decode logits")
+    out = torch.cat(generated, dim=1)
+    if out.shape != (b, SERVE_NEW_TOKENS) or not bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()
+    ):
+        raise AssertionError(f"bad generated tokens {tuple(out.shape)}")
+    pos = {key: c["pos"].tolist() for key, c in caches.items()}
+    if any(p != [prompt + steps] * cfg.num_groups for p in pos.values()):
+        raise AssertionError(f"cache positions after decoding: {pos}")
+    cache_gb = sum(t.numel() * t.element_size()
+                   for c in caches.values() for t in c.values()) / 1e9
+    decode_s = sum(step_ms) / 1e3
+    profiled = (
+        profile_step(lambda: art.step_fn(params, caches, token), step_ms[1:])
+        if with_profile else None
+    )
+    emit(
+        "serve", config=cfg.name, batch=b, prompt=prompt, max_len=max_len,
+        new_tokens=SERVE_NEW_TOKENS, prefill_seconds=prefill_s,
+        prefill_tokens_per_s=b * prompt / prefill_s,
+        decode_step_ms=step_ms,
+        decode_step_ms_mean_after_first=float(np.mean(step_ms[1:])),
+        decode_tokens_per_s=b * steps / decode_s,
+        peak_memory_gb=peak_gb, cache_gb=cache_gb,
+        flash_launches_per_prefill=flash_per_prefill,
+        decode_launches_per_step=decode_per_step[0],
+        launches=launches, sample=out[0, :16].tolist(), profile=profiled,
+    )
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return {"launches": launches, "flash_per_prefill": flash_per_prefill,
+            "decode_per_step": decode_per_step[0]}
+
+
+# ---------------------------------------------------------------------------
+# Kernel times
+# ---------------------------------------------------------------------------
+
+
+def library_attention(q, k, v, causal: bool):
+    """One PyTorch call for the same function: a yardstick timed here,
+    never called by the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True
+        )
+
+
+def flash_bound(q, k, window=None) -> tuple[float, str]:
+    """Least ms: 4·B·H·D flops per live causal (window) pair at the bf16
+    tensor-core peak, or q, k, v, o moved once at the memory rate."""
+    b, h, sq, d = q.shape
+    live = sum(min(i + 1, window or i + 1) for i in range(sq))
+    t_ops = 4 * b * h * d * live / PEAK_BF16_FLOPS * 1e3
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def decode_bound(q, k, length: int) -> tuple[float, str]:
+    """Least ms: K and V up to ``length`` plus q and o moved once."""
+    b, kv, _, d = k.shape
+    moved = (2 * b * kv * length * d + 2 * q.numel()) * q.element_size()
+    return moved / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def tile_dropped_plain(q, k, v, length: int, start: int):
+    """The plain decode version with cache slots ``start`` ..
+    ``start + DECODE_TILE - 1`` left out (a kernel that skips one tile)."""
+    s, dev = k.shape[2], k.device
+    keep = torch.cat([torch.arange(start, device=dev),
+                      torch.arange(start + DECODE_TILE, s, device=dev)])
+    return ref.decode_attention_ref(
+        q, k.index_select(2, keep), v.index_select(2, keep),
+        length - DECODE_TILE)
+
+
+def phase_attention_kernels(seed: int, serve_run: dict | None = None
+                            ) -> list[dict]:
+    """The attention kernels at the main path's shapes, each held against
+    its plain version at the data-scaled limit (``attn_limit``) and timed
+    with its plain version and one library call:
+
+    * Qwen2-0.5B's prefill layer, plain version on the first and the last
+      request (a full-batch fp32 logit tensor would be 120 GB); the limit
+      refuses, on the query rows of the later half, a plain version with
+      ``kv = h % KV`` and one with the causal diagonal excluded;
+    * the served decode step and DECODE_32K's decode layer (also with
+      ragged [B] lengths); at both, the limit refuses a plain version with
+      ``length - 1`` and one with a tile of the cache left out;
+    * Gemma2-2B's local layer (window 4096, softcap 50), both requests.
+
+    ``serve_run``: ``phase_serve``'s counts, put in the entries; without
+    it the entries carry no launch counts."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    cfg = qwen2_0_5b.CONFIG
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bf16 = torch.bfloat16
+    cases, refused = [], []
+
+    q, k, v = attn_inputs(gen, SERVE_BATCH, h, kv, SERVE_PROMPT,
+                          SERVE_PROMPT, d, bf16)
+    res, got = check_flash(
+        f"flash Qwen2-0.5B prefill layer q={list(q.shape)} "
+        f"k={list(k.shape)} bf16", q, k, v, requests=(0, SERVE_BATCH - 1))
+    cases.append(res)
+    late = slice(SERVE_PROMPT // 2, None)
+    for fault, faulty in (("kv = h % KV", head_mod_plain),
+                          ("the causal diagonal excluded", strict_causal_plain)):
+        bad = faulty(q[:1], k[:1], v[:1])
+        refused.append(refuse(
+            f"a flash plain version with {fault} (prefill layer, request 0, "
+            f"query rows from {SERVE_PROMPT // 2})",
+            got[:1, :, late], bad[:, :, late], scaled=True))
+        del bad
+    del got
+    torch.cuda.empty_cache()
+    flash_ms = time_cuda(lambda: ops.flash_attention(q, k, v),
+                         reps=TIMING_REPS)
+
+    def plain_by_request():
+        for i in range(q.shape[0]):
+            ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+
+    flash_plain_ms = time_cuda(plain_by_request, reps=2)
+    flash_lib_ms = time_cuda(lambda: library_attention(q, k, v, True),
+                             reps=TIMING_REPS)
+    bound, by = flash_bound(q, k)
+    flash = {
+        **kernel_fields("flash_attention"),
+        "max_abs_err": res["max_abs_err"], "ms": flash_ms,
+        "plain_ms": flash_plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": flash_lib_ms,
+        "library_call": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), flash backend",
+        "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": "bf16"},
+        "plain_note": f"plain version run request by request, {SERVE_BATCH} calls",
+    }
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    shapes = []
+    for name, b, s in (
+        ("served decode step", SERVE_BATCH, SERVE_MAX_LEN),
+        ("DECODE_32K layer", DECODE_32K.global_batch, DECODE_32K.seq_len),
+    ):
+        q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, bf16)
+        n = torch.tensor(s, dtype=torch.int32, device="cuda")
+        what = f"decode {name} q={list(q.shape)} k={list(k.shape)} bf16"
+        res, got = check_decode(f"{what} length={s}", q, k, v, n, scaled=True)
+        cases.append(res)
+        start = s // 2 // DECODE_TILE * DECODE_TILE
+        refused.append(refuse(
+            f"a decode plain version with length - 1 ({name})", got,
+            ref.decode_attention_ref(q, k, v, n - 1), scaled=True))
+        refused.append(refuse(
+            f"a decode plain version without cache slots {start} .. "
+            f"{start + DECODE_TILE - 1} ({name})", got,
+            tile_dropped_plain(q, k, v, n, start), scaled=True))
+        del got
+        if b == DECODE_32K.global_batch:
+            ragged = torch.randint(1, s + 1, (b,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            cases.append(check_decode(f"{what} ragged [B] lengths", q, k, v,
+                                      ragged, scaled=True)[0])
+        torch.cuda.empty_cache()
+        ms = time_cuda(lambda: ops.decode_attention(q, k, v, n),
+                       reps=TIMING_REPS)
+        plain_ms = time_cuda(
+            lambda: ref.decode_attention_ref(q, k, v, n), reps=TIMING_REPS)
+        lib_ms = time_cuda(lambda: library_attention(q, k, v, False),
+                           reps=TIMING_REPS)
+        bound, by = decode_bound(q, k, s)
+        shapes.append({
+            "case": name, "q": list(q.shape), "k": list(k.shape),
+            "length": s, "max_abs_err": res["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by,
+            "achieved_bytes_per_s": bound * PEAK_BYTES_PER_S / ms,
+        })
+        del q, k, v
+        torch.cuda.empty_cache()
+    top = shapes[0]
+    decode = {
+        **kernel_fields("decode_attention"),
+        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"],
+        "library_call": "scaled_dot_product_attention(enable_gqa=True), "
+                        "flash backend",
+        "shapes": shapes,
+    }
+
+    q, k, v = attn_inputs(gen, 2, 8, 4, 8192, 8192, 256, bf16)
+    cases.append(check_flash(
+        "flash Gemma2-2B local layer q=[2, 8, 8192, 256] bf16 "
+        "window=4096 softcap=50", q, k, v, window=4096, softcap=50.0,
+        requests=(0, 1))[0])
+    del q, k, v
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    emit("attention_main_shapes", cases=cases, refused=refused,
+         limit={"rtol": ATTN_ROW_RTOL, "atol_over_row_rms": ATTN_ROW_ATOL})
+
+    if serve_run is not None:
+        flash["launches"] = serve_run["launches"]["flash_attention"]
+        flash["launches_per_prefill"] = serve_run["flash_per_prefill"]
+        decode["launches"] = serve_run["launches"]["decode_attention"]
+        decode["launches_per_step"] = serve_run["decode_per_step"]
+    return [flash, decode]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3, help="timed steps")
     ap.add_argument("--seq", type=int, default=512, help="tokens per agent")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one extra step with torch.profiler")
+                    help="profile one extra training step and one extra "
+                         "decode step with torch.profiler")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -606,16 +1211,24 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     phase_kernel_check(args.seed)
+    phase_attention_check(args.seed)
     phase_small_reference(args.seed)
     params, plan, launches, leaves = phase_train(
         args.seed, args.steps, args.seq, args.profile
     )
-    kernel = phase_kernels(params, plan, launches, leaves, args.seed)
-    if kernel["launches"] < 1:
-        raise AssertionError("the main path never launched the kernel")
+    kernels = [phase_kernels(params, plan, launches, leaves, args.seed)]
+    del params, plan
+    torch.cuda.empty_cache()
+    phase_serve_check(args.seed)
+    serve_run = phase_serve(args.seed, args.profile)
+    kernels += phase_attention_kernels(args.seed, serve_run)
+    for kernel in kernels:
+        if kernel["launches"] < 1:
+            raise AssertionError(
+                f"its path never launched the kernel {kernel['name']}")
     emit("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so one ``nvcc`` call per source takes seconds. The shared library
 is named by a hash of the source and the flags, so a changed source is
 rebuilt and an unchanged one is reused. Nothing is built when this module
-is imported: ``load(name)`` builds at first use.
+is imported: ``load(name)`` builds one source at its first use, and
+``build_all(names)`` builds several at once, one ``nvcc`` process each.
 
 Where the libraries go: run from a source checkout (``src/repro_torch``
 under a directory that holds ``pyproject.toml``), into
@@ -19,6 +20,7 @@ There is no fallback: if ``nvcc`` is missing or the compilation fails,
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -84,14 +86,8 @@ def library_path(name: str) -> pathlib.Path:
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, verbose: bool = False) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.is_file():
-        _BUILD_SECONDS.setdefault(name, 0.0)
-        return out
-    nvcc = find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
+def _compile(nvcc: str, name: str, out: pathlib.Path, verbose: bool):
+    """One ``nvcc`` run into ``out``; returns (exit code, its output)."""
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     cmd = [nvcc, *NVCC_FLAGS]
     if verbose:
@@ -102,14 +98,44 @@ def build(name: str, verbose: bool = False) -> pathlib.Path:
     _BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise KernelCompileError(
-            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
-    return out
+    else:
+        os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def build_all(names, verbose: bool = False) -> dict[str, pathlib.Path]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet: one
+    ``nvcc`` process per source, all started together; returns once every
+    one has ended. ``verbose`` prints ``-Xptxas -v`` (registers, spills)."""
+    outs = {name: library_path(name) for name in names}
+    todo = [name for name, out in outs.items() if not out.is_file()]
+    for name in outs:
+        if name not in todo:
+            _BUILD_SECONDS.setdefault(name, 0.0)
+    if not todo:
+        return outs
+    nvcc = find_nvcc()
+    build_dir().mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+        runs = {
+            name: pool.submit(_compile, nvcc, name, outs[name], verbose)
+            for name in todo
+        }
+    failed = []
+    for name, run in runs.items():
+        code, text = run.result()
+        if code != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit {code}):\n{text}")
+        elif verbose:
+            print(f"== {name}.cu\n{text}", end="")
+    if failed:
+        raise KernelCompileError("\n".join(failed))
+    return outs
+
+
+def build(name: str, verbose: bool = False) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    return build_all([name], verbose)[name]
 
 
 def load(name: str) -> ctypes.CDLL:

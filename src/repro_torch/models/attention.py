@@ -1,13 +1,26 @@
-"""GQA attention: full / sliding-window / local-global, training form.
+"""GQA attention: full / sliding-window / local-global, train + serve.
 
-Counterpart of the JAX package's ``models/attention.py``, written as
-plain torch ops exactly as the reference is plain jnp (float32 logits,
-the same mask constant, probabilities cast to the compute dtype before
-``@ v``) — not a fused library attention, whose numerics differ. The
-chunked long-sequence path, the decode caches and prefill belong to the
-serving slice and are not here yet.
+Counterpart of the JAX package's ``models/attention.py``. The training
+form is written as plain torch ops exactly as the reference is plain jnp
+(float32 logits, the same mask constant, probabilities cast to the
+compute dtype before ``@ v``), and so is the chunked long-sequence form
+``_sdpa_chunked`` — not a fused library attention, whose numerics differ.
+The serving path is where the port departs: ``prefill_cache`` runs its
+attention through ``kernels.ops.flash_attention`` and ``apply_decode``
+through ``kernels.ops.decode_attention`` (the hand-written CUDA kernels on
+the card, their plain versions on the CPU), where the reference computes
+both in jnp.
 
-Layout: activations ``[B, S, H, Dh]``.
+Layout: activations ``[B, S, H, Dh]``. Cache (per layer): ``{"k": [B,
+S_cache, H_kv, Dh], "v": same, "pos": int32 [] next write position}``.
+Sliding-window layers allocate ``S_cache = min(max_len, window)`` and
+write round-robin; global layers allocate the full context. The kernels
+take these as transposed ``[B, H, S, Dh]`` views: nothing is copied.
+
+Caches are written **in place** (``index_copy_`` at a slot held on the
+device) and the same dict is returned, where the reference returns new
+arrays; ``pos`` stays an int32 device tensor, so a decode step reads
+nothing back to the host.
 """
 
 from __future__ import annotations
@@ -16,12 +29,16 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 NEG_INF = -2.0e38
 
-# Sequences at or above this length need the chunked (flash-style) path.
+# Training sequences at or above this length use the chunked
+# (flash-style) path: the monolithic [Sq, Sk] logits would not fit.
 CHUNKED_ATTN_THRESHOLD = 8192
+CHUNK_Q = 1024
+CHUNK_K = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,22 +110,158 @@ def causal_mask(sq: int, sk: int, window: int | None, device=None) -> torch.Tens
     return mask
 
 
+def _sdpa_chunked(q, k, v, spec: AttnSpec, compute_dtype, window):
+    """Online-softmax attention in plain torch ops: a loop over k chunks
+    inside a loop over q chunks, never more than ``[B, H, CQ, CK]`` logits
+    at once — the reference's ``_sdpa_chunked`` (same math, float32
+    probabilities). Chunks wholly beyond causal reach are not visited: in
+    the reference they add ``exp(NEG_INF − m) = 0`` with ``alpha = 1``, so
+    the result is the same. Differentiable (the training form)."""
+    b, s, h, d = q.shape
+    kv = spec.num_kv_heads
+    groups = h // kv
+    cq, ck = min(CHUNK_Q, s), min(CHUNK_K, s)
+    nq, nk = s // cq, s // ck
+    qg = q.reshape(b, nq, cq, kv, groups, d).to(torch.float32)
+    kg = k.reshape(b, nk, ck, kv, d).to(torch.float32)
+    vg = v.reshape(b, nk, ck, kv, d).to(torch.float32)
+    outs = []
+    for iq in range(nq):
+        qpos = iq * cq + torch.arange(cq, device=q.device)
+        m = torch.full((b, kv, groups, cq), -torch.inf, device=q.device)
+        l = torch.zeros((b, kv, groups, cq), device=q.device)
+        acc = torch.zeros((b, kv, groups, cq, d), device=q.device)
+        for ik in range(nk):
+            if ik * ck > (iq + 1) * cq - 1:
+                break
+            logits = torch.einsum(
+                "bqkgd,bskd->bkgqs", qg[:, iq], kg[:, ik]
+            ) * (d**-0.5)
+            logits = layers.softcap(logits, spec.softcap)
+            kpos = ik * ck + torch.arange(ck, device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            logits = logits.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vg[:, ik]
+            )
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # [b, cq, kv, groups, d]
+    out = torch.stack(outs, dim=1).reshape(b, s, h, d)
+    return out.to(compute_dtype)
+
+
 def apply_train(
     params, x, spec: AttnSpec, compute_dtype, window_override=None
 ) -> torch.Tensor:
-    """Full-sequence training attention. x: [B, S, D], S < 8192."""
+    """Full-sequence training attention. x: [B, S, D]."""
     b, s, _ = x.shape
-    if s >= CHUNKED_ATTN_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence length {s} >= {CHUNKED_ATTN_THRESHOLD} needs the "
-            "chunked attention path, which arrives with the serving slice "
-            "(ROADMAP queue A, serving)"
-        )
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, spec, positions, compute_dtype)
     window = spec.window if window_override is None else window_override
-    mask = causal_mask(s, s, window, x.device).expand(b, s, s)
-    out = _sdpa(q, k, v, mask, spec, compute_dtype)
+    if s >= CHUNKED_ATTN_THRESHOLD and s % CHUNK_Q == 0 and s % CHUNK_K == 0:
+        out = _sdpa_chunked(q, k, v, spec, compute_dtype, window)
+    else:
+        mask = causal_mask(s, s, window, x.device).expand(b, s, s)
+        out = _sdpa(q, k, v, mask, spec, compute_dtype)
     return layers.dense_apply(
         params["wo"], out.reshape(b, s, -1), compute_dtype
     )
+
+
+def init_cache(batch: int, max_len: int, spec: AttnSpec, dtype, device) -> dict:
+    s_cache = min(max_len, spec.window) if spec.window else max_len
+    shape = (batch, s_cache, spec.num_kv_heads, spec.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def apply_decode(
+    params, x, cache, spec: AttnSpec, compute_dtype
+) -> tuple[torch.Tensor, dict]:
+    """Single-token decode. x: [B, 1, D]; cache as from ``init_cache``.
+
+    Sliding-window layers use the cache as a ring buffer (slot = pos mod
+    S_cache, valid slots < min(pos+1, S_cache)); global layers append at
+    pos (valid slots ≤ pos) — the reference's valid set. The new K/V row
+    is written into ``cache`` in place and ``cache["pos"]`` is advanced in
+    place; the same dict is returned. Attention goes through
+    ``ops.decode_attention`` with ``length`` as a device tensor.
+    """
+    b = x.shape[0]
+    pos = cache["pos"]
+    q, k_new, v_new = _project_qkv(
+        params, x, spec, pos.expand(b, 1), compute_dtype
+    )
+    s_cache = cache["k"].shape[1]
+    if spec.window is not None:
+        slot = torch.remainder(pos, s_cache)
+        length = torch.clamp(pos + 1, max=s_cache)
+    else:
+        slot = pos
+        length = pos + 1
+    slot = slot.reshape(1).to(torch.int64)
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    out = ops.decode_attention(
+        q.transpose(1, 2), cache["k"].transpose(1, 2),
+        cache["v"].transpose(1, 2), length.to(torch.int32),
+        softcap=spec.softcap,
+    )
+    out = layers.dense_apply(
+        params["wo"], out.transpose(1, 2).reshape(b, 1, -1), compute_dtype
+    )
+    cache["pos"].add_(1)
+    return out, cache
+
+
+def prefill_cache(
+    params, x, spec: AttnSpec, compute_dtype, max_len: int, cache=None
+) -> tuple[torch.Tensor, dict]:
+    """Full-sequence attention AND the decode cache. x: [B, S, D].
+
+    Attention goes through ``ops.flash_attention`` (causal, the layer's
+    window and softcap) at every length. The cache is written into
+    ``cache`` when given (a slice of the stacked caches, so nothing is
+    copied afterwards), else into a new one from ``init_cache``: the
+    prompt's K/V at slots ``0..S-1`` and zeros after them, or for a
+    sliding-window layer whose window the prompt fills, the last
+    ``S_cache`` positions each at its ring slot ``p mod S_cache``.
+    """
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(params, x, spec, positions, compute_dtype)
+    out = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=spec.window, softcap=spec.softcap,
+    )
+    y = layers.dense_apply(
+        params["wo"], out.transpose(1, 2).reshape(b, s, -1), compute_dtype
+    )
+
+    if cache is None:
+        cache = init_cache(b, max_len, spec, compute_dtype, x.device)
+    s_cache = cache["k"].shape[1]
+    if spec.window is not None and s >= s_cache:
+        tail = s - s_cache
+        slots = torch.arange(tail, s, device=x.device) % s_cache
+        cache["k"].index_copy_(1, slots, k[:, tail:].to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slots, v[:, tail:].to(cache["v"].dtype))
+    else:
+        if s > s_cache:
+            raise ValueError(f"prompt of {s} tokens > max_len {s_cache}")
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        cache["k"][:, s:] = 0
+        cache["v"][:, s:] = 0
+    cache["pos"].fill_(s)
+    return y, cache

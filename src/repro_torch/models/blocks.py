@@ -1,10 +1,17 @@
-"""Per-kind residual blocks: ``init`` and ``apply_train``.
+"""Per-kind residual blocks with one (init / train / serve) API.
 
 Counterpart of the JAX package's ``models/blocks.py`` for the attention
-kinds with a dense FFN (``attn``, ``swa``, ``local``, ``global``). The
-MoE kinds and the recurrent kinds (Mamba, xLSTM) raise
+kinds with a dense FFN (``attn``, ``swa``, ``local``, ``global``):
+
+  init(generator, cfg, kind, device)            -> params
+  apply_train(params, x, cfg, kind)             -> (x, aux_losses)
+  init_cache(batch, max_len, cfg, kind, device) -> cache
+  apply_decode(params, x, cache, cfg, kind)     -> (x, cache)   (in place)
+  prefill(params, x, cfg, kind, max_len, cache) -> (x, cache)
+
+The MoE kinds and the recurrent kinds (Mamba, xLSTM) raise
 ``NotImplementedError`` until their modules are ported (ROADMAP queue A,
-"MoE/SSM blocks"); caches, decode and prefill belong to the serving slice.
+"MoE/SSM blocks").
 """
 
 from __future__ import annotations
@@ -75,6 +82,40 @@ def apply_train(params, x, cfg: ModelConfig, kind: str):
     x = x + attention.apply_train(
         params["mixer"], h, _attn_spec(cfg, kind), cdt
     )
+    return _ffn(params, x, cfg, cdt), no_aux(x.device)
+
+
+def _ffn(params, x, cfg: ModelConfig, cdt):
     h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps, cdt)
-    x = x + layers.mlp_apply(params["ffn"], h, cdt)
-    return x, no_aux(x.device)
+    return x + layers.mlp_apply(params["ffn"], h, cdt)
+
+
+def init_cache(batch: int, max_len: int, cfg: ModelConfig, kind: str, device):
+    _check_kind(kind)
+    _, cdt = _dtype(cfg)
+    return attention.init_cache(
+        batch, max_len, _attn_spec(cfg, kind), cdt, device
+    )
+
+
+def apply_decode(params, x, cache, cfg: ModelConfig, kind: str):
+    """One token through the block; ``cache`` is updated in place."""
+    _check_kind(kind)
+    _, cdt = _dtype(cfg)
+    h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps, cdt)
+    y, cache = attention.apply_decode(
+        params["mixer"], h, cache, _attn_spec(cfg, kind), cdt
+    )
+    return _ffn(params, x + y, cfg, cdt), cache
+
+
+def prefill(params, x, cfg: ModelConfig, kind: str, max_len: int, cache=None):
+    """Full-sequence pass that also fills the decode cache (``cache`` when
+    given, written in place, else a new one)."""
+    _check_kind(kind)
+    _, cdt = _dtype(cfg)
+    h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps, cdt)
+    y, cache = attention.prefill_cache(
+        params["mixer"], h, _attn_spec(cfg, kind), cdt, max_len, cache
+    )
+    return _ffn(params, x + y, cfg, cdt), cache

@@ -5,13 +5,17 @@ Counterpart of the JAX package's ``models/model.py``. Functional API:
   init(cfg, generator, device)            -> params
   forward(cfg, params, inputs)            -> (logits [B, S, V], aux)
   loss(cfg, params, batch)                -> (scalar, metrics)
+  init_caches(cfg, batch, max_len, device) -> caches
+  prefill(cfg, params, inputs, max_len)   -> (last_logits [B, 1, V], caches)
+  decode_step(cfg, params, caches, token) -> (logits [B, 1, V], caches)
   parameter_count(cfg, params=None)       -> int
 
-``inputs`` is a dict: {"tokens": [B, S]}. Parameters keep the reference's
-stacked-group layout — ``params["blocks"]["b0_attn"]`` leaves carry a
-leading G axis — so the two packages' trees map key for key
-(``models/convert.py``); the groups are walked with a Python loop.
-Prefill, decode and the caches belong to the serving slice.
+``inputs`` is a dict: {"tokens": [B, S]}. Parameters and caches keep the
+reference's stacked-group layout — ``params["blocks"]["b0_attn"]`` leaves
+and ``caches["b0_attn"]["k"|"v"|"pos"]`` carry a leading G axis — so the
+two packages' trees map key for key (``models/convert.py``); the groups
+are walked with a Python loop. ``decode_step`` writes the caches in place
+and returns the same dict (the reference returns new arrays).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch.utils.checkpoint
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, layers
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _generator(generator, device: torch.device):
@@ -88,6 +92,17 @@ def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
     return x
 
 
+def _group_params(cfg: ModelConfig, params) -> list[dict]:
+    """The block parameters of each group, as views. One unbind per
+    stacked leaf (its backward is one stack), not one select per group
+    (whose backward would zero-fill the whole leaf once per group)."""
+    unbound = [p.unbind(0) for p in tree_leaves(params["blocks"])]
+    return [
+        tree_unflatten(params["blocks"], [u[gi] for u in unbound])
+        for gi in range(cfg.num_groups)
+    ]
+
+
 def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
     pattern = cfg.block_pattern
 
@@ -98,13 +113,8 @@ def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
             aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
         return x, aux_tot
 
-    # One unbind per stacked leaf (its backward is one stack), not one
-    # select per group (whose backward would zero-fill the whole leaf
-    # once per group).
-    unbound = [p.unbind(0) for p in tree_leaves(params["blocks"])]
     aux = blocks.no_aux(x.device)
-    for gi in range(cfg.num_groups):
-        gp = tree_unflatten(params["blocks"], [u[gi] for u in unbound])
+    for gp in _group_params(cfg, params):
         if remat and torch.is_grad_enabled():
             x, aux_g = torch.utils.checkpoint.checkpoint(
                 group_body, x, gp, use_reentrant=False
@@ -115,16 +125,20 @@ def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
     return x, aux
 
 
-def forward(cfg: ModelConfig, params, inputs, remat: bool = True):
-    """Training/scoring forward pass → (logits, aux_losses)."""
+def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
+    """Final norm, LM head, float32 logits with the final softcap."""
     cdt = compat.dtype_of(cfg.compute_dtype)
-    x = _embed_inputs(cfg, params, inputs)
-    x, aux = _loop_groups(cfg, params, x, remat=remat)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps, cdt)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = layers.unembed_apply(table, x, cdt)
-    logits = layers.softcap(logits.to(torch.float32), cfg.final_logit_softcap)
-    return logits, aux
+    return layers.softcap(logits.to(torch.float32), cfg.final_logit_softcap)
+
+
+def forward(cfg: ModelConfig, params, inputs, remat: bool = True):
+    """Training/scoring forward pass → (logits, aux_losses)."""
+    x = _embed_inputs(cfg, params, inputs)
+    x, aux = _loop_groups(cfg, params, x, remat=remat)
+    return _logits(cfg, params, x), aux
 
 
 def loss(
@@ -158,6 +172,60 @@ def loss(
     )
     metrics = {"ce": ce, **aux}
     return total, metrics
+
+
+def init_caches(
+    cfg: ModelConfig,
+    batch: int,
+    max_len: int,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Stacked decode caches, zeros: ``{"b{i}_{kind}": {"k", "v": [G, B,
+    S_cache, KV, Dh], "pos": int32 [G]}}`` on ``device`` (``None`` means
+    CUDA; ``"meta"`` gives shapes only)."""
+    dev = (
+        torch.device("meta") if str(device) == "meta"
+        else compat.resolve_device(device)
+    )
+    g = cfg.num_groups
+    return {
+        f"b{i}_{kind}": tree_map(
+            lambda t: torch.zeros((g, *t.shape), dtype=t.dtype, device=dev),
+            blocks.init_cache(batch, max_len, cfg, kind, "meta"),
+        )
+        for i, kind in enumerate(cfg.block_pattern)
+    }
+
+
+def _group_caches(caches: dict, gi: int) -> dict:
+    """Group ``gi``'s caches as views: writes to them land in ``caches``."""
+    return tree_map(lambda t: t[gi], caches)
+
+
+def prefill(cfg: ModelConfig, params, inputs, max_len: int):
+    """Process the prompt → (logits at the last position ``[B, 1, V]``,
+    caches of depth ``max_len`` holding the prompt)."""
+    x = _embed_inputs(cfg, params, inputs)
+    caches = init_caches(cfg, x.shape[0], max_len, x.device)
+    for gi, gp in enumerate(_group_params(cfg, params)):
+        gc = _group_caches(caches, gi)
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"b{i}_{kind}"
+            x, _ = blocks.prefill(gp[key], x, cfg, kind, max_len, gc[key])
+    return _logits(cfg, params, x[:, -1:, :]), caches
+
+
+def decode_step(cfg: ModelConfig, params, caches, token):
+    """One decode step. token: ``[B, 1]`` int → (logits ``[B, 1, V]``,
+    caches). The caches are written in place and returned; nothing is
+    read back to the host."""
+    x = _embed_inputs(cfg, params, {"tokens": token})
+    for gi, gp in enumerate(_group_params(cfg, params)):
+        gc = _group_caches(caches, gi)
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"b{i}_{kind}"
+            x, _ = blocks.apply_decode(gp[key], x, gc[key], cfg, kind)
+    return _logits(cfg, params, x), caches
 
 
 def parameter_count(cfg: ModelConfig, params=None) -> int:

@@ -1,0 +1,257 @@
+"""Port attention kernels, CPU side: the plain versions (which the wrappers
+take for CPU tensors) against the JAX package's oracles and its Pallas
+kernels in interpret mode, on the case tables of tests/test_kernels.py,
+plus what the port accepts beyond them (any S, `length` as [B], length 0)
+and what its wrappers refuse.
+
+The CUDA kernels themselves run only on a GPU; `chip_smoke.py` holds them
+against these same plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jax_ref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import decode_attention as decode_mod
+from repro_torch.kernels import ops
+
+FP32_TOL = 2e-5  # rtol = atol: the JAX package's own (tests/test_kernels.py)
+BF16_TOL = 2e-2
+
+# (b, h, kv, s, d, window, softcap, dtype) — tests/test_kernels.py
+FLASH_CASES = [
+    (2, 4, 2, 128, 64, None, None, "float32"),
+    (1, 8, 4, 256, 64, 64, None, "float32"),
+    (2, 4, 4, 128, 128, None, 50.0, "float32"),
+    (1, 2, 1, 256, 32, 128, 30.0, "float32"),
+    (1, 4, 2, 128, 64, None, None, "bfloat16"),
+    (1, 4, 4, 128, 256, 96, None, "bfloat16"),
+]
+# (b, h, kv, s, d, length, softcap, dtype)
+DECODE_CASES = [
+    (2, 4, 2, 512, 64, 300, None, "float32"),
+    (1, 8, 8, 1024, 128, 1024, None, "float32"),
+    (3, 4, 1, 512, 32, 1, None, "float32"),
+    (2, 4, 2, 512, 64, 511, 50.0, "bfloat16"),
+]
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _qkv(seed, b, h, kv, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((b, h, sq, d)).astype(np.float32),
+        rng.standard_normal((b, kv, sk, d)).astype(np.float32),
+        rng.standard_normal((b, kv, sk, d)).astype(np.float32),
+    )
+
+
+def _torch(arrays, dtype):
+    return [torch.from_numpy(a).to(TORCH_DTYPE[dtype]) for a in arrays]
+
+
+def _jax(arrays, dtype):
+    return [jnp.asarray(a).astype(jnp.dtype(dtype)) for a in arrays]
+
+
+def _close(got, exp, dtype):
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    assert got.dtype == TORCH_DTYPE[dtype]
+    np.testing.assert_allclose(
+        got.to(torch.float32).numpy(), np.asarray(exp, np.float32),
+        rtol=tol, atol=tol,
+    )
+
+
+@pytest.mark.parametrize("oracle", ["jax_ref", "pallas_interpret"])
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_flash_plain_matches_jax(case, oracle):
+    b, h, kv, s, d, window, cap, dt = FLASH_CASES[case]
+    arrays = _qkv(100 + case, b, h, kv, s, s, d)
+    got = ops.flash_attention(*_torch(arrays, dt), window=window, softcap=cap)
+    if oracle == "jax_ref":
+        exp = jax_ref.flash_attention_ref(
+            *_jax(arrays, dt), window=window, softcap=cap
+        )
+    else:
+        exp = pallas_flash(*_jax(arrays, dt), window=window, softcap=cap,
+                           block_q=64, block_k=64, interpret=True)
+    assert got.shape == (b, h, s, d)
+    _close(got, exp, dt)
+
+
+@pytest.mark.parametrize("oracle", ["jax_ref", "pallas_interpret"])
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)))
+def test_decode_plain_matches_jax(case, oracle):
+    b, h, kv, s, d, length, cap, dt = DECODE_CASES[case]
+    arrays = _qkv(200 + case, b, h, kv, 1, s, d)
+    got = ops.decode_attention(*_torch(arrays, dt), length, softcap=cap)
+    if oracle == "jax_ref":
+        exp = jax_ref.decode_attention_ref(*_jax(arrays, dt), length,
+                                           softcap=cap)
+    else:
+        exp = pallas_decode(*_jax(arrays, dt), length, softcap=cap,
+                            block_k=256, interpret=True)
+    assert got.shape == (b, h, 1, d)
+    _close(got, exp, dt)
+
+
+@pytest.mark.parametrize(
+    "b,h,kv,s,d,window,cap",
+    [(2, 14, 2, 100, 64, None, None),   # ragged S, a GQA group of 7
+     (1, 4, 2, 77, 16, 20, 30.0),       # head_dim 16, window, softcap
+     (1, 2, 1, 1, 32, None, None)],     # one token
+)
+def test_flash_plain_any_length(b, h, kv, s, d, window, cap):
+    """Any S is accepted (the Pallas kernel needs S % block == 0)."""
+    arrays = _qkv(s + d, b, h, kv, s, s, d)
+    got = ops.flash_attention(*_torch(arrays, "float32"), window=window,
+                              softcap=cap)
+    exp = jax_ref.flash_attention_ref(*_jax(arrays, "float32"),
+                                      window=window, softcap=cap)
+    _close(got, exp, "float32")
+
+
+def test_flash_plain_unequal_lengths_and_non_causal():
+    """Sq != Sk aligns positions at the start, as the JAX oracle does."""
+    arrays = _qkv(5, 1, 4, 2, 40, 70, 32)
+    for causal in (True, False):
+        got = ops.flash_attention(*_torch(arrays, "float32"), causal=causal)
+        exp = jax_ref.flash_attention_ref(*_jax(arrays, "float32"),
+                                          causal=causal)
+        _close(got, exp, "float32")
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_decode_plain_length_vector_and_ragged_s(dt):
+    """`length` as [B] with a ragged cache: row b sees slots < length[b]."""
+    b, h, kv, s, d = 3, 14, 2, 300, 64
+    arrays = _qkv(7, b, h, kv, 1, s, d)
+    lengths = np.array([1, 173, 300], np.int32)
+    got = ops.decode_attention(
+        *_torch(arrays, dt), torch.from_numpy(lengths)
+    )
+    exp = jax_ref.decode_attention_ref(*_jax(arrays, dt), jnp.asarray(lengths))
+    _close(got, exp, dt)
+    for i, n in enumerate(lengths):   # row by row with a scalar length
+        row = ops.decode_attention(
+            *(t[i:i + 1] for t in _torch(arrays, dt)), int(n)
+        )
+        assert torch.equal(row, got[i:i + 1])
+
+
+def test_decode_length_zero_gives_zeros_as_the_pallas_kernel():
+    """Pinned by design: length 0 → zeros in both the plain version and
+    the CUDA kernel, as the Pallas kernel returns; the JAX oracle averages
+    V uniformly instead."""
+    arrays = _qkv(8, 2, 4, 2, 1, 256, 64)
+    got = ops.decode_attention(
+        *_torch(arrays, "float32"), torch.tensor([0, 256], dtype=torch.int32)
+    )
+    assert torch.count_nonzero(got[0]) == 0
+    pallas = pallas_decode(*_jax(arrays, "float32"), jnp.asarray([0, 256]),
+                           block_k=128, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    oracle = jax_ref.decode_attention_ref(*_jax(arrays, "float32"), 0)
+    assert float(np.abs(np.asarray(oracle)).max()) > 0.01
+
+
+def test_flash_row_without_a_valid_key_gives_zeros():
+    """A query row outside every key's reach (non-causal window with
+    Sq > Sk) gives zeros, the same rule as decode's length 0."""
+    q, k, v = _torch(_qkv(9, 1, 2, 1, 40, 8, 32), "float32")
+    got = ops.flash_attention(q, k, v, causal=False, window=4)
+    assert torch.count_nonzero(got[:, :, 11:]) == 0
+    assert torch.count_nonzero(got[:, :, :11]) > 0
+
+
+def test_strided_views_equal_contiguous():
+    """The model hands [B, S, H, D] activations over as transposed views."""
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(rng.standard_normal((2, 33, 14, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 33, 2, 64)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 33, 2, 64)).astype(np.float32))
+    views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    dense = tuple(t.contiguous() for t in views)
+    assert torch.equal(ops.flash_attention(*views),
+                       ops.flash_attention(*dense))
+    length = torch.tensor(20, dtype=torch.int32)
+    assert torch.equal(
+        ops.decode_attention(views[0][:, :, :1], *views[1:], length),
+        ops.decode_attention(dense[0][:, :, :1], *dense[1:], length),
+    )
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["head_dim", "dtype", "mixed_dtype", "kv_not_dividing", "d_stride",
+     "window_zero", "softcap_zero", "length_int64", "length_shape",
+     "decode_two_queries", "group_too_large", "length_float"],
+)
+def test_wrappers_reject_bad_operands(case):
+    q = torch.zeros(2, 4, 8, 32)
+    k = torch.zeros(2, 2, 8, 32)
+    qd = torch.zeros(2, 4, 1, 32)
+    n = torch.tensor(3, dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        if case == "head_dim":
+            ops.flash_attention(q[..., :24], k[..., :24], k[..., :24])
+        elif case == "dtype":
+            ops.flash_attention(q.double(), k.double(), k.double())
+        elif case == "mixed_dtype":
+            ops.flash_attention(q, k.to(torch.bfloat16), k)
+        elif case == "kv_not_dividing":
+            ops.flash_attention(q, k[:, :1].expand(2, 3, 8, 32), k[:, :1].expand(2, 3, 8, 32))
+        elif case == "d_stride":
+            ops.flash_attention(q, torch.zeros(2, 2, 32, 8).transpose(2, 3), k)
+        elif case == "window_zero":
+            ops.flash_attention(q, k, k, window=0)
+        elif case == "softcap_zero":
+            ops.flash_attention(q, k, k, softcap=0.0)
+        elif case == "length_int64":
+            ops.decode_attention(qd, k, k, n.long())
+        elif case == "length_shape":
+            ops.decode_attention(qd, k, k, torch.zeros(3, dtype=torch.int32))
+        elif case == "decode_two_queries":
+            ops.decode_attention(q[:, :, :2], k, k, n)
+        elif case == "group_too_large":
+            ops.decode_attention(torch.zeros(2, 17, 1, 32),
+                                 torch.zeros(2, 1, 8, 32),
+                                 torch.zeros(2, 1, 8, 32), n)
+        else:
+            ops.decode_attention(qd, k, k, 3.0)
+
+
+@pytest.mark.parametrize(
+    "b,kv,s",
+    [(32, 2, 8256), (128, 2, 32768), (1, 1, 1), (3, 4, 700), (1, 8, 64),
+     (600, 2, 100)],
+)
+def test_decode_split_plan_covers_the_cache(b, kv, s):
+    """Splits are whole tiles, cover [0, S) exactly once, never outnumber
+    the tiles; at the served and DECODE_32K shapes, 576 and 768 blocks
+    for 132 SMs."""
+    chunk, splits = decode_mod.split_plan(b, kv, s, sm_count=132)
+    assert chunk % decode_mod.TILE == 0 and chunk > 0
+    assert (splits - 1) * chunk < max(s, 1) <= splits * chunk
+    assert splits <= max(1, -(-s // decode_mod.TILE))
+    want = {(32, 2, 8256): 9, (128, 2, 32768): 3}.get((b, kv, s))
+    assert want is None or splits == want  # the two shapes chip_smoke times
+
+
+def test_launch_counters_count_no_plain_call():
+    """The counters count kernel launches only: CPU calls leave them."""
+    ops.reset_launch_count()
+    q, k, v = _torch(_qkv(11, 1, 2, 1, 16, 16, 32), "float32")
+    ops.flash_attention(q, k, v)
+    ops.decode_attention(q[:, :, :1], k, v, 16)
+    assert {name: ops.launch_count(name) for name in ops.KERNELS} == {
+        "mixing_sgd_combine": 0, "flash_attention": 0, "decode_attention": 0,
+    }
+    with pytest.raises(KeyError):
+        ops.launch_count("no_such_kernel")

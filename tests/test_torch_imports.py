@@ -1,7 +1,8 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
-`jax`, `repro` nor `networkx`; no library attention, no `torch.compile`, no
-`try:` around a kernel launch; and without a GPU `device=None` raises
-instead of running on the CPU."""
+`jax`, `repro` nor `networkx`; no library attention in the port (only
+`chip_smoke.py` times one, as a yardstick), no `torch.compile`, no `try:`
+around a kernel launch; and without a GPU `device=None` raises instead of
+running on the CPU."""
 
 import ast
 import pathlib
@@ -40,10 +41,14 @@ def test_package_has_the_slices_modules():
         "repro_torch.core.priced_training", "repro_torch.models.layers",
         "repro_torch.models.attention", "repro_torch.models.blocks",
         "repro_torch.models.model", "repro_torch.models.convert",
-        "repro_torch.data.synthetic",
+        "repro_torch.data.synthetic", "repro_torch.configs.gemma2_2b",
+        "repro_torch.kernels.flash_attention",
+        "repro_torch.kernels.decode_attention", "repro_torch.launch",
+        "repro_torch.launch.serve",
     ):
         assert want in names
-    assert (PKG / "kernels" / "csrc" / "mixing_combine.cu").is_file()
+    for src in ("mixing_combine", "flash_attention", "decode_attention"):
+        assert (PKG / "kernels" / "csrc" / f"{src}.cu").is_file()
 
 
 def test_importing_everything_pulls_no_forbidden_module():
@@ -80,9 +85,11 @@ def test_ast_scan(path):
         else:
             roots = []
         assert not set(roots) & set(FORBIDDEN_MODULES), (path, roots)
-        # no library attention, no compiler standing in for a kernel
+        # no library attention (chip_smoke.py times one as a yardstick
+        # beside the kernel), no compiler standing in for a kernel
+        yardstick = path.name == "chip_smoke.py"
         if isinstance(node, ast.Attribute):
-            assert node.attr != "scaled_dot_product_attention", path
+            assert yardstick or node.attr != "scaled_dot_product_attention", path
             assert not (
                 node.attr == "compile"
                 and isinstance(node.value, ast.Name)
@@ -107,18 +114,39 @@ def test_default_update_calls_no_dense_mixing_on_the_fused_path():
     assert not attrs & {"addmm", "einsum", "matmul"}
 
 
+@pytest.mark.parametrize(
+    "fn,kernel", [("prefill_cache", "flash_attention"),
+                  ("apply_decode", "decode_attention")],
+)
+def test_serving_attention_goes_through_the_kernel(fn, kernel):
+    """Prefill and decode reach the kernel wrapper and compute no attention
+    of their own (no einsum, softmax or matmul)."""
+    src = (PKG / "models" / "attention.py").read_text()
+    node = next(
+        n for n in ast.walk(ast.parse(src))
+        if isinstance(n, ast.FunctionDef) and n.name == fn
+    )
+    attrs = {n.attr for n in ast.walk(node) if isinstance(n, ast.Attribute)}
+    assert kernel in attrs
+    assert not attrs & {"einsum", "softmax", "matmul", "_sdpa",
+                        "_sdpa_chunked"}
+
+
 def _no_gpu():
     return not torch.cuda.is_available()
 
 
 @pytest.mark.parametrize(
     "entry", ["resolve_device", "model_init", "mixing_plan", "train_priced",
-              "train", "params_from_jax"],
+              "train", "params_from_jax", "init_caches",
+              "build_serve_artifacts", "caches_from_jax"],
 )
 def test_device_none_raises_without_a_gpu(entry):
     from repro_torch import compat
     from repro_torch.configs import qwen2_0_5b
+    from repro_torch.configs.base import DECODE_32K
     from repro_torch.core import dpsgd, priced_training
+    from repro_torch.launch import serve
     from repro_torch.models import convert, model
 
     if not _no_gpu():
@@ -138,8 +166,14 @@ def test_device_none_raises_without_a_gpu(entry):
             )
         elif entry == "train":
             dpsgd.train({}, None, None, np.eye(2), 1)
-        else:
+        elif entry == "params_from_jax":
             convert.params_from_jax({}, cfg)
+        elif entry == "init_caches":
+            model.init_caches(cfg, 1, 8)
+        elif entry == "build_serve_artifacts":
+            serve.build_serve_artifacts(cfg, DECODE_32K)
+        else:
+            convert.caches_from_jax({}, cfg)
 
 
 def test_explicit_cpu_and_dtype_names():

@@ -8,11 +8,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma2_2b as jax_gemma
 from repro.configs import qwen2_0_5b as jax_cfg
 from repro.models import attention as jax_attention
 from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro_torch.configs import base as torch_base
+from repro_torch.configs import gemma2_2b as torch_gemma
 from repro_torch.configs import qwen2_0_5b as torch_cfg
 from repro_torch.models import attention, blocks, convert, layers, model
 from repro_torch.tree import tree_leaves, tree_paths
@@ -122,6 +124,16 @@ def test_configs_are_own_equal_copies():
     )
     assert dataclasses.asdict(TCFG) == dataclasses.asdict(JCFG)
     assert torch_base.get_config("qwen2-0.5b") is torch_cfg.CONFIG
+    for name in ("CONFIG", "SMOKE_CONFIG"):
+        assert dataclasses.asdict(getattr(torch_gemma, name)) == (
+            dataclasses.asdict(getattr(jax_gemma, name))
+        )
+    assert torch_base.get_config("gemma2-2b", smoke=True) is (
+        torch_gemma.SMOKE_CONFIG
+    )
+    assert dataclasses.asdict(torch_base.get_train_config("gemma2-2b")) == (
+        dataclasses.asdict(jax_gemma.TRAIN_CONFIG)
+    )
     with pytest.raises(NotImplementedError):
         torch_base.get_config("mixtral-8x7b")
 
@@ -196,7 +208,18 @@ def test_unported_block_kinds_name_the_roadmap(kind):
         blocks.init(0, TCFG, kind, "cpu")
 
 
-def test_long_sequence_names_the_serving_slice():
-    spec = attention.AttnSpec(8, 1, 1, 8, None, 1e4, None, False)
-    with pytest.raises(NotImplementedError, match="serving"):
-        attention.apply_train({}, torch.zeros(1, 8192, 8), spec, torch.float32)
+def test_long_sequence_takes_the_chunked_path_as_jax():
+    """At S = 8192 (the real threshold and chunk sizes) both packages run
+    their chunked attention; window and softcap on, outputs agree."""
+    rng = np.random.default_rng(13)
+    spec_kw = dict(d_model=8, num_heads=2, num_kv_heads=1, head_dim=4,
+                   window=3000, rope_theta=1e4, softcap=30.0, qkv_bias=False)
+    jspec = jax_attention.AttnSpec(**spec_kw)
+    tspec = attention.AttnSpec(**spec_kw)
+    jp = jax_attention.init(jax.random.key(3), jspec, jnp.float32)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.asarray(a).copy()), jp)
+    x = rng.standard_normal((1, attention.CHUNKED_ATTN_THRESHOLD, 8))
+    x = x.astype(np.float32)
+    exp = jax_attention.apply_train(jp, jnp.asarray(x), jspec, jnp.float32)
+    got = attention.apply_train(tp, torch.from_numpy(x), tspec, torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=TOL, atol=TOL)
