@@ -14,11 +14,13 @@ one card, through the entry points a user calls:
   attention through the ``flash_attention`` (prefill) and
   ``decode_attention`` (decode) kernels.
 
-First it builds the three hand-written kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per source,
-all at once) and holds each against its plain PyTorch version on the
-card, also at the shapes the paths give them, and shows that the checks
-refuse a faulty plain version. Needs a CUDA device and ``nvcc``; there is
+First it builds the hand-written kernels from
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (four sources, one process
+each, all at once; ``flash_attention`` has two, its ``wgmma`` design for
+bf16 at head_dim 64/128 and its ``mma.sync``/FFMA designs for the rest)
+and holds each against its plain PyTorch version on the card, also at
+the shapes the paths give them, and shows that the checks refuse a faulty
+plain version. Needs a CUDA device and ``nvcc``; there is
 no CPU path. Any failed phase raises and the script exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
@@ -53,6 +55,7 @@ from repro_torch.core import dpsgd, gossip, mixing
 from repro_torch.core.priced_training import StaticTau, train_priced
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import serve
 from repro_torch.models import model
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
@@ -63,15 +66,20 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
-# kernel -> (source in csrc/, the TPU kernel it replaces)
+# kernel -> (source in csrc/ that serves its main path, the TPU kernel it
+# replaces). flash_attention has two sources, chosen by (dtype, head_dim):
+# the main path (bf16, head_dim 64) runs flash_attention_wgmma.cu.
 KERNELS = {
     "mixing_sgd_combine": (
         "mixing_combine", "src/repro/kernels/mixing_combine.py:38"),
     "flash_attention": (
-        "flash_attention", "src/repro/kernels/flash_attention.py:96"),
+        "flash_attention_wgmma", "src/repro/kernels/flash_attention.py:96"),
     "decode_attention": (
         "decode_attention", "src/repro/kernels/decode_attention.py:73"),
 }
+# Every kernel source, built at once (one nvcc process each).
+SOURCES = ("mixing_combine", "flash_attention", "flash_attention_wgmma",
+           "decode_attention")
 
 FP32_TOL = 1e-5   # the reference's own (tests/test_kernels.py)
 BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
@@ -116,6 +124,27 @@ DECODE_CASES = [
     (1, 8, 8, 1024, 128, 1024, None, torch.float32),
     (3, 4, 1, 512, 32, 1, None, torch.float32),
     (2, 4, 2, 512, 64, 511, 50.0, torch.bfloat16),
+]
+# The wgmma design of flash_attention (bf16, head_dim 64 and 128), run at
+# both head_dims: (b, h, kv, sq, sk, causal, window, softcap, layout), with
+# layout "model" ([B,S,H,D] storage, transposed views), "dense"
+# ([B,H,S,D]) or "fused" (q, k, v sliced from one [B,S,H+2KV,D] tensor).
+FLASH_WGMMA_CASES = [
+    (2, 14, 2, 1000, 1000, True, 256, 50.0, "model"),  # group 7
+    (1, 4, 4, 129, 129, True, None, None, "model"),    # group 1
+    (2, 7, 1, 77, 77, True, None, None, "dense"),      # group 7, S = 77
+    (3, 2, 2, 1, 1, True, None, None, "model"),        # one token
+    (1, 8, 2, 200, 333, False, None, None, "model"),   # Sq < Sk
+    (1, 8, 8, 300, 129, False, None, None, "dense"),   # Sq > Sk
+    (1, 4, 2, 100, 300, True, None, None, "model"),    # causal, Sq < Sk
+    (2, 4, 1, 260, 100, False, 64, 30.0, "model"),     # rows with no key
+    (1, 14, 2, 1000, 1000, True, None, None, "fused"),
+]
+# Decode in float32 at head_dim 256 (32-slot tiles): (b, h, kv, s, d,
+# length, softcap, dtype).
+DECODE_F32_D256_CASES = [
+    (1, 8, 4, 1000, 256, 777, None, torch.float32),
+    (2, 8, 4, 1000, 256, 1000, 50.0, torch.float32),
 ]
 
 # Serving main path: B prompts of PROMPT tokens, caches MAX_LEN deep,
@@ -216,7 +245,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     """All kernel sources at once, one nvcc process each."""
     t0 = time.perf_counter()
-    paths = build.build_all([src for src, _ in KERNELS.values()], verbose=True)
+    paths = build.build_all(SOURCES, verbose=True)
     emit(
         "build", seconds=time.perf_counter() - t0,
         libraries={name: str(path) for name, path in paths.items()},
@@ -710,23 +739,28 @@ def hold(what: str, got, want, scaled: bool) -> dict:
     }
 
 
-def check_flash(what, q, k, v, window=None, softcap=None, requests=None):
+def check_flash(what, q, k, v, window=None, softcap=None, requests=None,
+                causal=True):
     """Kernel on the whole batch. Plain version on the whole batch at the
     tables' tolerance, or (``requests``, the main path's shapes) request by
     request on those listed, at the data-scaled limit. Returns (result,
-    kernel output)."""
-    got = ops.flash_attention(q, k, v, causal=True, window=window,
+    kernel output); the result names the design that ran."""
+    before = flash_mod.launch_count_by_design()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
+    after = flash_mod.launch_count_by_design()
+    ran = [name for name in after if after[name] != before[name]]
     picked = [slice(None)] if requests is None else [
         slice(i, i + 1) for i in requests]
     held = []
     for r in picked:
-        want = ref.flash_attention_ref(q[r], k[r], v[r], causal=True,
+        want = ref.flash_attention_ref(q[r], k[r], v[r], causal=causal,
                                        window=window, softcap=softcap)
         held.append(hold(what, got[r], want, scaled=requests is not None))
         del want
     res = max(held, key=lambda h: h["largest_err_over_limit"])
     res["max_abs_err"] = max(h["max_abs_err"] for h in held)
+    res["design"] = ran[0] if len(ran) == 1 else ran
     if requests is not None:
         res["plain_version_on_requests"] = list(requests)
     return res, got
@@ -777,7 +811,11 @@ def phase_attention_check(seed: int) -> list[dict]:
     """Both attention kernels against their plain versions on the card at
     small shapes: the case tables of tests/test_kernels.py, ragged S,
     ``length`` as a [B] vector with a 0 in it, and head_dim 16 of the smoke
-    configs. Also shows that the check refuses a decode plain version with
+    configs; the wgmma design of flash_attention at head_dim 64 and 128
+    (``FLASH_WGMMA_CASES``: window with softcap, non-causal Sq != Sk, S in
+    {1, 77, 129, 1000}, groups of 1 and 7, strided and fused views, rows
+    with no key), asserting that design ran; decode in float32 at head_dim
+    256. Also shows that the check refuses a decode plain version with
     ``length - 1``. The main path's shapes are held in
     ``phase_attention_kernels``."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
@@ -801,7 +839,30 @@ def phase_attention_check(seed: int) -> list[dict]:
             f"flash b={b} h={h} kv={kv} s={s} d={d} window={window} "
             f"softcap={cap} {dt} (model layout)", q, k, v, window, cap)[0])
 
-    for b, h, kv, s, d, length, cap, dt in DECODE_CASES:
+    for d in (64, 128):
+        for b, h, kv, sq, sk, causal, window, cap, layout in FLASH_WGMMA_CASES:
+            if layout == "fused":
+                t = torch.randn((b, sq, h + 2 * kv, d), generator=gen,
+                                device="cuda").to(bf16)
+                q, k, v = (t[:, :, :h].transpose(1, 2),
+                           t[:, :, h:h + kv].transpose(1, 2),
+                           t[:, :, h + kv:].transpose(1, 2))
+            else:
+                q, k, v = attn_inputs(gen, b, h, kv, sq, sk, d, bf16,
+                                      model_layout=layout == "model")
+            res, got = check_flash(
+                f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} "
+                f"causal={causal} window={window} softcap={cap} bf16 "
+                f"({layout} layout)", q, k, v, window, cap, causal=causal)
+            if res["design"] != "wgmma":
+                raise AssertionError(f"{res['case']} ran {res['design']}")
+            results.append(res)
+            if window is not None and not causal and sq > sk - 1 + window:
+                # rows that see no key are zeros, exactly
+                if bool(got[:, :, sk - 1 + window:].ne(0).any()):
+                    raise AssertionError(f"{res['case']}: keyless rows not 0")
+
+    for b, h, kv, s, d, length, cap, dt in DECODE_CASES + DECODE_F32_D256_CASES:
         q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, dt, model_layout=False)
         results.append(check_decode(
             f"decode table b={b} h={h} kv={kv} s={s} d={d} length={length} "
@@ -951,6 +1012,7 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     flash_per_prefill = ops.launch_count("flash_attention")
+    flash_designs = flash_mod.launch_count_by_design()
     generated = [token]
     step_ms, decode_per_step = [], []
     for _ in range(steps):
@@ -970,6 +1032,12 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
         raise AssertionError(
             f"prefill launched flash_attention {flash_per_prefill} times, "
             f"not once per layer ({layers})")
+    want_design = flash_mod.design(torch.bfloat16, cfg.resolved_head_dim)
+    if want_design != "wgmma" or flash_designs != {
+            **dict.fromkeys(flash_mod.DESIGNS, 0), "wgmma": layers}:
+        raise AssertionError(
+            f"prefill's flash_attention launches by design {flash_designs}: "
+            f"not all {layers} through wgmma")
     if any(n != layers for n in decode_per_step):
         raise AssertionError(
             f"decode steps launched decode_attention {decode_per_step} "
@@ -1002,6 +1070,7 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
         decode_tokens_per_s=b * steps / decode_s,
         peak_memory_gb=peak_gb, cache_gb=cache_gb,
         flash_launches_per_prefill=flash_per_prefill,
+        flash_launches_per_prefill_by_design=flash_designs,
         decode_launches_per_step=decode_per_step[0],
         launches=launches, sample=out[0, :16].tolist(), profile=profiled,
     )
@@ -1027,12 +1096,17 @@ def library_attention(q, k, v, causal: bool):
         )
 
 
-def flash_bound(q, k, window=None) -> tuple[float, str]:
-    """Least ms: 4·B·H·D flops per live causal (window) pair at the bf16
-    tensor-core peak, or q, k, v, o moved once at the memory rate."""
+def flash_flops(q, window=None) -> int:
+    """4·B·H·D flops per live causal (window) (query, key) pair."""
     b, h, sq, d = q.shape
     live = sum(min(i + 1, window or i + 1) for i in range(sq))
-    t_ops = 4 * b * h * d * live / PEAK_BF16_FLOPS * 1e3
+    return 4 * b * h * d * live
+
+
+def flash_bound(q, k, window=None) -> tuple[float, str]:
+    """Least ms: the live pairs' flops at the bf16 tensor-core peak, or
+    q, k, v, o moved once at the memory rate."""
+    t_ops = flash_flops(q, window) / PEAK_BF16_FLOPS * 1e3
     moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -1066,6 +1140,8 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
       request (a full-batch fp32 logit tensor would be 120 GB); the limit
       refuses, on the query rows of the later half, a plain version with
       ``kv = h % KV`` and one with the causal diagonal excluded;
+    * a head_dim-128 layer, Mixtral-8x7B's 32 heads / 8 KV heads at batch
+      4, with the same controls and SDPA's time beside the kernel's;
     * the served decode step and DECODE_32K's decode layer (also with
       ragged [B] lengths); at both, the limit refuses a plain version with
       ``length - 1`` and one with a tile of the cache left out;
@@ -1109,14 +1185,52 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
     bound, by = flash_bound(q, k)
     flash = {
         **kernel_fields("flash_attention"),
+        "design": res["design"],
         "max_abs_err": res["max_abs_err"], "ms": flash_ms,
         "plain_ms": flash_plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": flash_lib_ms,
         "library_call": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), flash backend",
         "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": "bf16"},
+        "live_tflops_per_s": flash_flops(q) / (flash_ms * 1e-3) / 1e12,
+        "ms_over_library_ms": flash_ms / flash_lib_ms,
         "plain_note": f"plain version run request by request, {SERVE_BATCH} calls",
     }
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # head_dim 128: Mixtral-8x7B's attention layer (32 heads, 8 KV heads),
+    # batch cut to 4 (the other wgmma instantiation; no model of the port
+    # serves it yet), with the same controls and its library time.
+    b128 = 4
+    q, k, v = attn_inputs(gen, b128, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128,
+                          bf16)
+    res, got = check_flash(
+        f"flash head_dim-128 layer q={list(q.shape)} k={list(k.shape)} bf16",
+        q, k, v, requests=(0, b128 - 1))
+    cases.append(res)
+    for fault, faulty in (("kv = h % KV", head_mod_plain),
+                          ("the causal diagonal excluded", strict_causal_plain)):
+        bad = faulty(q[:1], k[:1], v[:1])
+        refused.append(refuse(
+            f"a flash plain version with {fault} (head_dim-128 layer, "
+            f"request 0, query rows from {SERVE_PROMPT // 2})",
+            got[:1, :, late], bad[:, :, late], scaled=True))
+        del bad
+    del got
+    torch.cuda.empty_cache()
+    ms128 = time_cuda(lambda: ops.flash_attention(q, k, v), reps=TIMING_REPS)
+    lib128 = time_cuda(lambda: library_attention(q, k, v, True),
+                       reps=TIMING_REPS)
+    bound128, by128 = flash_bound(q, k)
+    flash["shapes"] = [{
+        "case": "head_dim-128 layer (Mixtral-8x7B, batch 4)",
+        "q": list(q.shape), "k": list(k.shape), "design": res["design"],
+        "max_abs_err": res["max_abs_err"], "ms": ms128,
+        "library_ms": lib128, "bound_ms": bound128, "bound_by": by128,
+        "live_tflops_per_s": flash_flops(q) / (ms128 * 1e-3) / 1e12,
+        "ms_over_library_ms": ms128 / lib128,
+    }]
     del q, k, v
     torch.cuda.empty_cache()
 

@@ -46,7 +46,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 64;                             // cache slots per tile
+constexpr int kChunkUnit = 64;                        // a split's slots divide by it
 constexpr int kMaxGroup = 16;                         // query heads per KV head
 constexpr int kHeadsPerWarp = kMaxGroup / kWarps;
 
@@ -126,6 +126,13 @@ struct Elem<__nv_bfloat16> {
 template <typename T, int D>
 struct Layout {
   static constexpr int kPer = 16 / sizeof(T);       // elements per 16 bytes
+  // Cache slots per tile: 64, except float32 at D = 256, where two stages
+  // of 64 slots of K and V would need 2 x 64 x (260 + 256) x 4 B = 264 KB of
+  // shared memory, more than a block may have (227 KB); 32 slots take
+  // 132 KB. A split's chunk is a multiple of kChunkUnit = 64 slots
+  // (split_plan in kernels/decode_attention.py), so of either tile.
+  static constexpr int kTile = (sizeof(T) == 4 && D == 256) ? 32 : 64;
+  static constexpr int kSlotsPerLane = kTile / 32;  // softmax: slots a lane holds
   // K rows padded by 16 bytes: lanes reading 16-byte packs of consecutive
   // rows hit distinct banks in each 8-lane phase.
   static constexpr int LDK = D + kPer;
@@ -135,6 +142,9 @@ struct Layout {
            static_cast<size_t>(group) * (D + kTile) * sizeof(float);
   }
 };
+static_assert(kChunkUnit % Layout<float, 256>::kTile == 0 &&
+                  kChunkUnit % Layout<float, 64>::kTile == 0,
+              "a split's chunk must be whole tiles");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -173,9 +183,11 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const Params p) {
   using L = Layout<T, D>;
+  constexpr int kTile = L::kTile;
   constexpr int LDK = L::LDK;
   constexpr int kPer = L::kPer;
   constexpr int kPairs = L::kPairs;
+  constexpr int kSlots = L::kSlotsPerLane;
   const int G = p.group;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -235,8 +247,9 @@ decode_split_kernel(const Params p) {
     const T* tK = sK + stage * kTile * LDK;
     const T* tV = sV + stage * kTile * D;
 
-    // Scores of all G heads: thread -> slot j = tid % 64, heads g = tid/64,
-    // tid/64 + 2, ...; consecutive lanes read consecutive K rows.
+    // Scores of all G heads: thread -> slot j = tid % kTile, heads
+    // g = tid / kTile, + 128 / kTile, ...; consecutive lanes read
+    // consecutive K rows.
     for (int i = threadIdx.x; i < G * kTile; i += blockDim.x) {
       const int g = i / kTile;
       const int j = i - g * kTile;
@@ -262,16 +275,25 @@ decode_split_kernel(const Params p) {
       const int g = warp + kWarps * hh;
       if (g >= G) break;
       float* srow = sS + g * kTile;
-      const float s0 = srow[lane];
-      const float s1 = srow[lane + 32];
-      const float m_new = fmaxf(m[hh], warp_max(fmaxf(s0, s1)));
+      float sv[kSlots];
+      float mt = kNegInf;
+#pragma unroll
+      for (int c = 0; c < kSlots; ++c) {
+        sv[c] = srow[lane + 32 * c];
+        mt = fmaxf(mt, sv[c]);
+      }
+      const float m_new = fmaxf(m[hh], warp_max(mt));
       const float alpha = Elem<T>::exp(m[hh] - m_new);
       m[hh] = m_new;
-      const float p0 = s0 == kNegInf ? 0.f : Elem<T>::exp(s0 - m_new);
-      const float p1 = s1 == kNegInf ? 0.f : Elem<T>::exp(s1 - m_new);
-      l[hh] = l[hh] * alpha + warp_sum(p0 + p1);
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
+      float ps = 0.f;
+#pragma unroll
+      for (int c = 0; c < kSlots; ++c) {
+        const float pc =
+            sv[c] == kNegInf ? 0.f : Elem<T>::exp(sv[c] - m_new);
+        ps += pc;
+        srow[lane + 32 * c] = pc;
+      }
+      l[hh] = l[hh] * alpha + warp_sum(ps);
       __syncwarp();
 #pragma unroll
       for (int c = 0; c < 2 * kPairs; ++c) acc[hh][c] *= alpha;
@@ -411,7 +433,8 @@ int dispatch(const Params& p, int batch, int d, void* o, long long o_b,
 // or 256). length: int32 on the device, length_stride 0 (one value) or 1
 // ([B]). part_m/part_l: float32 [B*H*splits], part_acc: float32
 // [B*H*splits*d], scratch of the caller; split s covers cache slots
-// [s*chunk, (s+1)*chunk), chunk a multiple of 64. softcap <= 0 means none.
+// [s*chunk, (s+1)*chunk), chunk a multiple of 64 (kChunkUnit, which every
+// tile divides). softcap <= 0 means none.
 // Returns the launches' cudaError_t (0 = ok).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, void* o, const int* length,
@@ -422,7 +445,7 @@ extern "C" int repro_decode_attention(
   if (batch <= 0) return static_cast<int>(cudaSuccess);
   if (kv_heads <= 0 || heads % kv_heads != 0 ||
       heads / kv_heads > kMaxGroup || splits <= 0 || chunk <= 0 ||
-      chunk % kTile != 0 || len_s < 0) {
+      chunk % kChunkUnit != 0 || len_s < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;

@@ -1,7 +1,11 @@
-// Blocked online-softmax attention (prefill) for NVIDIA Hopper (sm_90a).
+// Blocked online-softmax attention (prefill) for NVIDIA Hopper (sm_90a):
+// the float32 design at every head_dim and the bfloat16 design at head_dim
+// 16, 32 and 256. bfloat16 at head_dim 64 and 128, the models' widths, is
+// served by flash_attention_wgmma.cu (wgmma + TMA); the wrapper's design()
+// in kernels/flash_attention.py is the table that picks one.
 //
 // Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
-// src/repro/kernels/flash_attention.py:
+// src/repro/kernels/flash_attention.py for those (dtype, head_dim) pairs:
 //
 //     o[b,h,i] = sum_j softmax_j(mask(cap*tanh((q_i . k_j) * D^-0.5 / cap))) v_j
 //
@@ -10,7 +14,7 @@
 // (sliding window), running (max, sum, acc) in float32, a row with no valid
 // key giving zeros, and out = acc / max(l, 1e-30).
 //
-// Bound: operations. A causal layer of the served model does 4*B*H*D flops
+// Bound: operations. A causal attention layer does 4*B*H*D flops
 // per live (query, key) pair against 2 bytes per element moved once, far
 // above the card's flops-per-byte ridge, so the work has to be on the
 // tensor cores. What the design does about that:
@@ -556,14 +560,24 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
-int dispatch(const Params& p, int batch, int d, cudaStream_t s) {
+// bfloat16 at head_dim 64 and 128 is served by flash_attention_wgmma.cu,
+// so this file instantiates mma.sync only at 16, 32 and 256.
+int dispatch_bf16(const Params& p, int batch, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return BF16 ? launch_bf16<16>(p, batch, s) : launch_f32<16>(p, batch, s);
-    case 32: return BF16 ? launch_bf16<32>(p, batch, s) : launch_f32<32>(p, batch, s);
-    case 64: return BF16 ? launch_bf16<64>(p, batch, s) : launch_f32<64>(p, batch, s);
-    case 128: return BF16 ? launch_bf16<128>(p, batch, s) : launch_f32<128>(p, batch, s);
-    case 256: return BF16 ? launch_bf16<256>(p, batch, s) : launch_f32<256>(p, batch, s);
+    case 16: return launch_bf16<16>(p, batch, s);
+    case 32: return launch_bf16<32>(p, batch, s);
+    case 256: return launch_bf16<256>(p, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int dispatch_f32(const Params& p, int batch, int d, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_f32<16>(p, batch, s);
+    case 32: return launch_f32<32>(p, batch, s);
+    case 64: return launch_f32<64>(p, batch, s);
+    case 128: return launch_f32<128>(p, batch, s);
+    case 256: return launch_f32<256>(p, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -577,7 +591,8 @@ int dispatch(const Params& p, int batch, int d, cudaStream_t s) {
 // o = attention(q, k, v) as described at the top of this file.
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
 // order; every operand has unit stride on the head dimension d, which is
-// 16, 32, 64, 128 or 256. window <= 0 means none; softcap <= 0 means none.
+// 16, 32, 64, 128 or 256 for float32 and 16, 32 or 256 for bfloat16.
+// window <= 0 means none; softcap <= 0 means none.
 // Returns the launch's cudaError_t (0 = ok).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o,
@@ -606,7 +621,7 @@ extern "C" int repro_flash_attention(
   p.scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_DTYPE_BF16) return dispatch<true>(p, batch, head_dim, s);
-  if (dtype == REPRO_DTYPE_F32) return dispatch<false>(p, batch, head_dim, s);
+  if (dtype == REPRO_DTYPE_BF16) return dispatch_bf16(p, batch, head_dim, s);
+  if (dtype == REPRO_DTYPE_F32) return dispatch_f32(p, batch, head_dim, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

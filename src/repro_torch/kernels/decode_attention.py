@@ -36,7 +36,11 @@ from repro_torch.kernels.flash_attention import (
     kernel_strides,
 )
 
-TILE = 64          # cache slots per tile; a split is a multiple of it
+# Cache slots per split unit: a split is a multiple of TILE. The kernel's
+# tile is 64 slots, or 32 for float32 at head_dim 256 (so that its two
+# stages fit in shared memory); both divide TILE, so every split is whole
+# tiles either way.
+TILE = 64
 MAX_GROUP = 16     # query heads per KV head that one block holds
 BLOCKS_PER_SM = 4  # split target: this many blocks per SM
 

@@ -1,10 +1,18 @@
 """Blocked online-softmax attention (prefill) on Hopper.
 
 Counterpart of the JAX package's ``kernels/flash_attention.py``: causal,
-sliding-window, logit softcap, GQA, forward only, over one CUDA kernel
-(``csrc/flash_attention.cu``: ``mma.sync`` for bfloat16, full-precision
-FFMA for float32). Same signature as the TPU kernel's entry point minus
-its block sizes: any ``Sq``/``Sk`` is accepted.
+sliding-window, logit softcap, GQA, forward only. Same signature as the
+TPU kernel's entry point minus its block sizes: any ``Sq``/``Sk`` is
+accepted. Three designs, fixed by (dtype, head_dim) in ``design()``:
+
+* ``"wgmma"`` — bfloat16 at head_dim 64 and 128, the models' widths
+  (``csrc/flash_attention_wgmma.cu``): TMA copies into a ring of shared
+  memory slots fed by a producer warpgroup, ``wgmma`` for Q·Kᵀ and P·V
+  in two consumer warpgroups, 128-row query tiles;
+* ``"mma_sync"`` — bfloat16 at head_dim 16, 32 and 256
+  (``csrc/flash_attention.cu``): ``mma.sync`` m16n8k16, 64-row tiles;
+* ``"ffma"`` — float32 at every head_dim (``csrc/flash_attention.cu``):
+  full-precision FFMA, no TF32.
 
 Operands are ``[B, H, S, D]`` tensors of any element strides with unit
 stride on D (``D`` ∈ {16, 32, 64, 128, 256}), so the model passes its
@@ -14,8 +22,9 @@ transposed view of a contiguous tensor) so that the model reshapes it to
 ``[B, Sq, H·D]`` without a copy.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
-CUDA tensor launches the kernel or raises (also when the build fails).
-Every launch adds one to ``launch_count()``.
+CUDA tensor launches the design's kernel or raises (also when the build
+fails). Every launch adds one to ``launch_count()`` and to its design's
+entry of ``launch_count_by_design()``.
 """
 
 from __future__ import annotations
@@ -29,26 +38,68 @@ from repro_torch.kernels import build, ref
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535
+DESIGNS = ("wgmma", "mma_sync", "ffma")
+WGMMA_HEAD_DIMS = (64, 128)
+# design -> (csrc/<source>.cu, its C entry point)
+LIBRARIES = {
+    "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma"),
+    "mma_sync": ("flash_attention", "repro_flash_attention"),
+    "ffma": ("flash_attention", "repro_flash_attention"),
+}
+# Largest byte stride a tensor map takes (2^40).
+MAX_TMA_STRIDE = 1 << 40
 
-_launches = 0
-_bound = None
+_launches = dict.fromkeys(DESIGNS, 0)
+_bound: dict[str, object] = {}
 
 
 def launch_count() -> int:
-    """Kernel launches made by this module's wrapper so far."""
-    return _launches
+    """Kernel launches made by this module's wrapper so far (all designs)."""
+    return sum(_launches.values())
+
+
+def launch_count_by_design() -> dict[str, int]:
+    """Launches so far of each design (the keys of ``DESIGNS``)."""
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
-def _library():
-    global _bound
-    if _bound is None:
-        fn = build.load("flash_attention").repro_flash_attention
-        fn.restype = ctypes.c_int
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel design that serves ``(dtype, head_dim)``: a fixed table,
+    no caller can choose another."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not one of {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "ffma"
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+    raise TypeError(f"no flash_attention design for {dtype}")
+
+
+def _library(name: str):
+    fn = _bound.get(name)
+    if fn is not None:
+        return fn
+    source, symbol = LIBRARIES[name]
+    fn = getattr(build.load(source), symbol)
+    fn.restype = ctypes.c_int
+    if name == "wgmma":
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+            ctypes.c_void_p,                                    # o
+            ctypes.POINTER(ctypes.c_longlong),                  # 9 TMA strides
+            ctypes.POINTER(ctypes.c_longlong),                  # 3 o strides
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,           # B, H, KV
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,           # Sq, Sk, D
+            ctypes.c_int, ctypes.c_int,                         # causal, window
+            ctypes.c_float,                                     # softcap
+            ctypes.c_void_p,                                    # stream
+        ]
+    else:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
             ctypes.c_void_p,                                    # o
@@ -60,8 +111,8 @@ def _library():
             ctypes.c_int,                                       # dtype code
             ctypes.c_void_p,                                    # stream
         ]
-        _bound = fn
-    return _bound
+    _bound[name] = fn
+    return fn
 
 
 def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -114,6 +165,35 @@ def kernel_strides(*tensors: torch.Tensor, dims: int = 3) -> list[int]:
     return out
 
 
+def tensor_map_strides(t: torch.Tensor) -> list[int]:
+    """Byte strides of S, heads and B of a ``[B, heads, S, D]`` operand, as
+    its 4-D tensor map (D, S, heads, B) takes them: element
+    ``t[b, h, s, d]`` lies at ``data_ptr + d·esize + s·st[0] + h·st[1] +
+    b·st[2]``.
+
+    A dim of size 1 is only ever addressed at 0, and its stride may be
+    anything (``kernel_strides`` writes 0); a tensor map needs a positive
+    multiple of 16 bytes there, so it gets the stride a contiguous layout
+    would have. Raises unless every stride is a positive multiple of 16
+    bytes below 2^40 (a broadcast dim, stride 0 and size > 1, cannot be
+    described to TMA)."""
+    _, _, _, d = t.shape
+    esize = t.element_size()
+    strides, contiguous = [], d * esize
+    for n, st in ((t.shape[2], t.stride(2)), (t.shape[1], t.stride(1)),
+                  (t.shape[0], t.stride(0))):
+        byte = st * esize if n > 1 else contiguous
+        if byte <= 0 or byte % 16 or byte >= MAX_TMA_STRIDE:
+            raise ValueError(
+                f"a {tuple(t.shape)} operand with strides {t.stride()} has "
+                f"a byte stride {byte} that a tensor map cannot take (a "
+                "positive multiple of 16 below 2^40)"
+            )
+        strides.append(byte)
+        contiguous = byte * n
+    return strides
+
+
 def flash_attention(
     q: torch.Tensor,   # [B, H, Sq, D]
     k: torch.Tensor,   # [B, KV, Sk, D]
@@ -123,7 +203,6 @@ def flash_attention(
     window: int | None = None,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    global _launches
     check_heads(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
@@ -142,19 +221,26 @@ def flash_attention(
     if out.numel() == 0:
         return out
     strides = kernel_strides(q, k, v, out)
-    fn = _library()
+    name = design(q.dtype, d)
+    if name == "wgmma":
+        tma = [st for t in (q, k, v) for st in tensor_map_strides(t)]
+        args = [(ctypes.c_longlong * 9)(*tma),
+                (ctypes.c_longlong * 3)(*strides[9:])]
+    else:
+        args = [(ctypes.c_longlong * 12)(*strides)]
+    tail = [b, h, kv, sq, sk, d, int(causal), window or 0, float(softcap or 0.0)]
+    if name != "wgmma":
+        tail.append(DTYPE_CODE[q.dtype])
+    fn = _library(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            (ctypes.c_longlong * 12)(*strides),
-            b, h, kv, sq, sk, d, int(causal), window or 0,
-            float(softcap or 0.0), DTYPE_CODE[q.dtype], stream,
-        )
-    _launches += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *args, *tail, stream)
+    _launches[name] += 1
     if err != 0:
         raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError {err} "
-            f"(q={tuple(q.shape)}, k={tuple(k.shape)}, {q.dtype})"
+            f"flash_attention ({name}) kernel launch failed: error {err} "
+            f"(q={tuple(q.shape)}, k={tuple(k.shape)}, {q.dtype}; a "
+            "negative code is a refused tensor map)"
         )
     return out

@@ -17,6 +17,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import decode_attention as decode_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops
 
 FP32_TOL = 2e-5  # rtol = atol: the JAX package's own (tests/test_kernels.py)
@@ -255,3 +256,145 @@ def test_launch_counters_count_no_plain_call():
     }
     with pytest.raises(KeyError):
         ops.launch_count("no_such_kernel")
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_design_table(dtype, head_dim):
+    """bf16 at the models' head_dims 64/128 goes to wgmma; bf16 at 16, 32
+    and 256 to mma.sync; float32 everywhere to FFMA (no TF32)."""
+    want = {
+        "float32": "ffma",
+        "bfloat16": "wgmma" if head_dim in (64, 128) else "mma_sync",
+    }[dtype]
+    got = flash_mod.design(TORCH_DTYPE[dtype], head_dim)
+    assert got == want and got in flash_mod.DESIGNS
+    source, _ = flash_mod.LIBRARIES[got]
+    assert (source == "flash_attention_wgmma") == (got == "wgmma")
+
+
+@pytest.mark.parametrize("dtype,head_dim,error", [
+    (torch.float16, 64, TypeError),
+    (torch.float64, 128, TypeError),
+    (torch.bfloat16, 96, ValueError),
+    (torch.float32, 512, ValueError),
+])
+def test_design_refuses_what_no_kernel_serves(dtype, head_dim, error):
+    with pytest.raises(error):
+        flash_mod.design(dtype, head_dim)
+
+
+def _views():
+    """[B, heads, S, D] bf16 operands as the kernels receive them:
+    contiguous, the model's transposed [B, S, H, D] storage, slices of a
+    fused [B, S, H + 2KV, D] projection, and size-1 batch/head/sequence
+    dims (whose strides torch leaves free)."""
+    bf16 = torch.bfloat16
+    fused = torch.zeros(2, 37, 14 + 2 * 2, 128, dtype=bf16)
+    return {
+        "contiguous": torch.zeros(2, 14, 37, 64, dtype=bf16),
+        "model_layout": torch.zeros(3, 33, 14, 64, dtype=bf16).transpose(1, 2),
+        "fused_q": fused[:, :, :14].transpose(1, 2),
+        "fused_v": fused[:, :, 16:].transpose(1, 2),
+        "batch_1": torch.zeros(1, 33, 2, 128, dtype=bf16).transpose(1, 2),
+        "heads_1": torch.zeros(2, 1, 19, 64, dtype=bf16),
+        "seq_1": torch.zeros(4, 1, 8, 64, dtype=bf16).transpose(1, 2),
+        "all_1": torch.zeros(1, 1, 1, 128, dtype=bf16),
+        "odd_strides": torch.zeros(4096, dtype=bf16).as_strided(
+            (1, 2, 3, 64), (0, 1280, 192, 1), storage_offset=64),
+    }
+
+
+VIEW_NAMES = ["contiguous", "model_layout", "fused_q", "fused_v", "batch_1",
+              "heads_1", "seq_1", "all_1", "odd_strides"]
+
+
+@pytest.mark.parametrize("name", VIEW_NAMES)
+def test_tensor_map_strides_address_every_row(name):
+    """data_ptr + s·st[0] + h·st[1] + b·st[2] is the address of
+    t[b, h, s, 0] for every (b, h, s) of the 4-D map (D, S, heads, B), and
+    every stride is a positive multiple of 16 bytes (a tensor map takes
+    nothing else)."""
+    t = _views()[name]
+    strides = flash_mod.tensor_map_strides(t)
+    b, h, sq, _ = t.shape
+    assert len(strides) == 3
+    assert all(st > 0 and st % 16 == 0 for st in strides)
+    base = t.data_ptr()
+    for bi in range(b):
+        for hi in range(h):
+            for si in range(sq):
+                addr = base + si * strides[0] + hi * strides[1] + bi * strides[2]
+                assert addr == t[bi, hi, si].data_ptr()
+
+
+def test_tensor_map_strides_refuse_a_broadcast_dim():
+    """A dim of size > 1 with stride 0 (an expanded tensor) cannot be
+    described to TMA: refused, not silently re-strided."""
+    k = torch.zeros(2, 1, 8, 64, dtype=torch.bfloat16).expand(2, 3, 8, 64)
+    with pytest.raises(ValueError):
+        flash_mod.tensor_map_strides(k)
+
+
+# bf16 cases that the wgmma design serves on the card: (b, h, kv, sq, sk, d,
+# causal, window, softcap)
+WGMMA_PLAIN_CASES = [
+    (1, 4, 2, 128, 128, 128, True, 32, 50.0),     # D = 128, window, softcap
+    (2, 14, 2, 100, 100, 64, True, None, None),   # group 7, ragged S
+    (1, 7, 1, 77, 77, 128, True, 20, 30.0),       # group 7, D = 128
+    (1, 8, 2, 40, 70, 64, False, None, None),     # non-causal, Sq < Sk
+    (1, 4, 4, 90, 33, 128, False, None, 30.0),    # non-causal, Sq > Sk
+]
+
+
+@pytest.mark.parametrize("case", range(len(WGMMA_PLAIN_CASES)))
+def test_flash_plain_matches_jax_at_wgmma_cases(case):
+    """The plain version (what the card's kernel is held to) against the
+    JAX oracle in bf16 at the shapes the new design takes on."""
+    b, h, kv, sq, sk, d, causal, window, cap = WGMMA_PLAIN_CASES[case]
+    arrays = _qkv(300 + case, b, h, kv, sq, sk, d)
+    got = ops.flash_attention(*_torch(arrays, "bfloat16"), causal=causal,
+                              window=window, softcap=cap)
+    exp = jax_ref.flash_attention_ref(*_jax(arrays, "bfloat16"),
+                                      causal=causal, window=window,
+                                      softcap=cap)
+    assert got.shape == (b, h, sq, d)
+    _close(got, exp, "bfloat16")
+
+
+def test_flash_plain_matches_pallas_at_head_dim_128_bf16():
+    """D = 128 with window and softcap in bf16, against the Pallas kernel
+    in interpret mode (S divisible by its blocks)."""
+    arrays = _qkv(310, 1, 4, 2, 128, 128, 128)
+    got = ops.flash_attention(*_torch(arrays, "bfloat16"), window=48,
+                              softcap=50.0)
+    exp = pallas_flash(*_jax(arrays, "bfloat16"), window=48, softcap=50.0,
+                       block_q=64, block_k=64, interpret=True)
+    _close(got, exp, "bfloat16")
+
+
+def test_launch_count_by_design_counts_no_plain_call():
+    """Per-design counters sum to the total and stay at 0 on the CPU."""
+    ops.reset_launch_count()
+    q, k, v = _torch(_qkv(12, 1, 2, 1, 16, 16, 64), "bfloat16")
+    ops.flash_attention(q, k, v)
+    assert flash_mod.launch_count_by_design() == dict.fromkeys(
+        flash_mod.DESIGNS, 0)
+    assert flash_mod.launch_count() == 0
+
+
+@pytest.mark.parametrize("oracle", ["jax_ref", "pallas_interpret"])
+@pytest.mark.parametrize("cap", [None, 50.0])
+def test_decode_plain_float32_head_dim_256(cap, oracle):
+    """float32 at head_dim 256, the shape whose two 64-slot stages did not
+    fit a block's shared memory on the card (now 32-slot tiles there), held
+    to the float32 tolerance on the CPU side."""
+    arrays = _qkv(320, 1, 8, 4, 1, 1024, 256)
+    got = ops.decode_attention(*_torch(arrays, "float32"), 777, softcap=cap)
+    if oracle == "jax_ref":
+        exp = jax_ref.decode_attention_ref(*_jax(arrays, "float32"), 777,
+                                           softcap=cap)
+    else:
+        exp = pallas_decode(*_jax(arrays, "float32"), 777, softcap=cap,
+                            block_k=256, interpret=True)
+    _close(got, exp, "float32")
