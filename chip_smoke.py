@@ -15,12 +15,13 @@ one card, through the entry points a user calls:
   ``decode_attention`` (decode) kernels.
 
 First it builds the hand-written kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc`` (four sources, one process
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
 each, all at once; ``flash_attention`` has two, its ``wgmma`` design for
-bf16 at head_dim 64/128 and its ``mma.sync``/FFMA designs for the rest)
-and holds each against its plain PyTorch version on the card, also at
-the shapes the paths give them, and shows that the checks refuse a faulty
-plain version. Needs a CUDA device and ``nvcc``; there is
+bf16 at head_dim 64/128 and its ``mma.sync``/FFMA designs for the rest;
+``decode_attention`` has two, its ``mma`` design for bf16 and its FFMA
+design for float32) and holds each against its plain PyTorch version on
+the card, also at the shapes the paths give them, and shows that the
+checks refuse a faulty plain version. Needs a CUDA device and ``nvcc``; there is
 no CPU path. Any failed phase raises and the script exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
@@ -55,6 +56,7 @@ from repro_torch.core import dpsgd, gossip, mixing
 from repro_torch.core.priced_training import StaticTau, train_priced
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import serve
 from repro_torch.models import model
@@ -67,19 +69,20 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
 # kernel -> (source in csrc/ that serves its main path, the TPU kernel it
-# replaces). flash_attention has two sources, chosen by (dtype, head_dim):
-# the main path (bf16, head_dim 64) runs flash_attention_wgmma.cu.
+# replaces). Both attention kernels have two sources, chosen by (dtype,
+# head_dim): the main path (bf16, head_dim 64) runs
+# flash_attention_wgmma.cu and decode_attention_mma.cu.
 KERNELS = {
     "mixing_sgd_combine": (
         "mixing_combine", "src/repro/kernels/mixing_combine.py:38"),
     "flash_attention": (
         "flash_attention_wgmma", "src/repro/kernels/flash_attention.py:96"),
     "decode_attention": (
-        "decode_attention", "src/repro/kernels/decode_attention.py:73"),
+        "decode_attention_mma", "src/repro/kernels/decode_attention.py:73"),
 }
 # Every kernel source, built at once (one nvcc process each).
 SOURCES = ("mixing_combine", "flash_attention", "flash_attention_wgmma",
-           "decode_attention")
+           "decode_attention", "decode_attention_mma")
 
 FP32_TOL = 1e-5   # the reference's own (tests/test_kernels.py)
 BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
@@ -105,9 +108,11 @@ ATTN_BF16_TOL = 2e-2
 # query position).
 ATTN_ROW_RTOL = 1e-2
 ATTN_ROW_ATOL = 2e-2
-# Cache slots per tile of the decode kernel (kTile in decode_attention.cu):
-# the faulty plain version of the main-path check drops one such tile.
-DECODE_TILE = 64
+# Cache slots of one tile of the decode design that serves the main path
+# (bf16, Qwen2-0.5B's head_dim): the faulty plain version of the main-path
+# check drops one such tile.
+DECODE_TILE = decode_mod.tile_slots(
+    torch.bfloat16, qwen2_0_5b.CONFIG.resolved_head_dim)
 # The case tables of tests/test_kernels.py:
 # (b, h, kv, s, d, window, softcap, dtype) and (b, h, kv, s, d, length,
 # softcap, dtype).
@@ -146,6 +151,22 @@ DECODE_F32_D256_CASES = [
     (1, 8, 4, 1000, 256, 777, None, torch.float32),
     (2, 8, 4, 1000, 256, 1000, 50.0, torch.float32),
 ]
+# The mma design of decode_attention (bf16): (b, h, kv, s, d, length,
+# softcap, layout), layout "model" ([B,S,KV,D] storage, transposed views)
+# or "dense" ([B,KV,S,D]); length an int or a list ([B] lengths). Held at
+# the data-scaled limit, each asserted to run "mma".
+DECODE_MMA_CASES = [
+    (2, 16, 1, 300, 64, 300, None, "model"),      # group 16, length = S
+    (3, 4, 4, 129, 64, 1, None, "dense"),         # group 1, length 1
+    (2, 14, 2, 1000, 64, 999, 50.0, "model"),     # group 7, softcap 50
+    (3, 14, 2, 1000, 64, [0, 517, 1000], None, "model"),  # [B], a 0
+    (2, 7, 1, 77, 64, 77, None, "dense"),         # S = 77, no whole tile
+    (1, 32, 2, 2000, 128, 1999, 50.0, "model"),   # group 16 at D = 128
+] + [
+    (2, 8, 2, 777, d, 700, None, "model") for d in flash_mod.HEAD_DIMS
+] + [
+    (2, 8, 4, 8192, 256, 8192, 50.0, "model"),    # Gemma2-2B's decode layer
+]
 
 # Serving main path: B prompts of PROMPT tokens, caches MAX_LEN deep,
 # NEW_TOKENS greedy tokens (the first from prefill's logits).
@@ -179,6 +200,33 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def time_graph(fn, reps: int, replays: int = 5) -> float:
+    """Mean milliseconds of ``fn()`` replayed from a CUDA graph of ``reps``
+    calls: the device's time alone, without the host's cost of each eager
+    launch (which paces a kernel of tens of microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
 
 
 def compare(got, want, rtol: float, atol) -> tuple[bool, float, float]:
@@ -767,9 +815,18 @@ def check_flash(what, q, k, v, window=None, softcap=None, requests=None,
 
 
 def check_decode(what, q, k, v, length, softcap=None, scaled=False):
+    """Kernel against its plain version; the result names the design that
+    ran, which must be the one ``design()`` gives."""
+    before = decode_mod.launch_count_by_design()
     got = ops.decode_attention(q, k, v, length, softcap=softcap)
+    after = decode_mod.launch_count_by_design()
+    ran = [name for name in after if after[name] != before[name]]
+    if ran != [decode_mod.design(q.dtype, q.shape[-1])]:
+        raise AssertionError(f"{what}: ran {ran}")
     want = ref.decode_attention_ref(q, k, v, length, softcap=softcap)
-    return hold(what, got, want, scaled), got
+    res = hold(what, got, want, scaled)
+    res["design"] = ran[0]
+    return res, got
 
 
 def refuse(what: str, got, faulty, scaled: bool) -> dict:
@@ -810,14 +867,18 @@ def head_mod_plain(q, k, v):
 def phase_attention_check(seed: int) -> list[dict]:
     """Both attention kernels against their plain versions on the card at
     small shapes: the case tables of tests/test_kernels.py, ragged S,
-    ``length`` as a [B] vector with a 0 in it, and head_dim 16 of the smoke
-    configs; the wgmma design of flash_attention at head_dim 64 and 128
+    ``length`` as a [B] vector, and head_dim 16 of the smoke configs; the
+    wgmma design of flash_attention at head_dim 64 and 128
     (``FLASH_WGMMA_CASES``: window with softcap, non-causal Sq != Sk, S in
     {1, 77, 129, 1000}, groups of 1 and 7, strided and fused views, rows
     with no key), asserting that design ran; decode in float32 at head_dim
-    256. Also shows that the check refuses a decode plain version with
-    ``length - 1``. The main path's shapes are held in
-    ``phase_attention_kernels``."""
+    256; the mma design of decode_attention (``DECODE_MMA_CASES``: groups
+    1, 7 and 16, every head_dim, length 1 and S, S = 77, softcap 50, [B]
+    lengths with a 0 (zeros exactly), strided views, Gemma2-2B's decode
+    layer) at the data-scaled limit, asserting that design ran. Every
+    decode call must run the design ``design()`` names. Also shows that
+    the check refuses a decode plain version with ``length - 1``. The main
+    path's shapes are held in ``phase_attention_kernels``."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     f32, bf16 = torch.float32, torch.bfloat16
     results, refused = [], []
@@ -868,7 +929,6 @@ def phase_attention_check(seed: int) -> list[dict]:
             f"decode table b={b} h={h} kv={kv} s={s} d={d} length={length} "
             f"softcap={cap} {dt}", q, k, v, length, cap)[0])
     vec_cases = (
-        (3, 14, 2, 1000, 64, [0, 517, 1000], None, bf16),
         (3, 8, 2, 300, 128, [1, 2, 300], 50.0, f32),
         (2, 4, 2, 40, 16, [1, 40], None, f32),
     )
@@ -879,18 +939,32 @@ def phase_attention_check(seed: int) -> list[dict]:
             f"decode b={b} h={h} kv={kv} s={s} d={d} length={lengths} "
             f"softcap={cap} {dt} (model layout)", q, k, v, length, cap)
         results.append(res)
-        for i, n in enumerate(lengths):
-            if n == 0 and bool(got[i].ne(0).any()):
-                raise AssertionError("decode with length 0 is not zeros")
-        if min(lengths) >= 1:
-            refused.append(refuse(
-                f"a decode plain version with length - 1 ({res['case']})",
-                got, ref.decode_attention_ref(q, k, v, length - 1,
-                                              softcap=cap), scaled=False))
+        refused.append(refuse(
+            f"a decode plain version with length - 1 ({res['case']})",
+            got, ref.decode_attention_ref(q, k, v, length - 1, softcap=cap),
+            scaled=False))
     q, k, v = attn_inputs(gen, 2, 4, 2, 1, 700, 64, f32)
     results.append(check_decode(
         "decode length as a 0-d int32 tensor", q, k, v,
         torch.tensor(650, dtype=torch.int32, device="cuda"))[0])
+
+    for b, h, kv, s, d, length, cap, layout in DECODE_MMA_CASES:
+        q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, bf16,
+                              model_layout=layout == "model")
+        n = (torch.tensor(length, dtype=torch.int32, device="cuda")
+             if isinstance(length, list) else length)
+        res, got = check_decode(
+            f"decode b={b} h={h} kv={kv} s={s} d={d} length={length} "
+            f"softcap={cap} bf16 ({layout} layout)", q, k, v, n, cap,
+            scaled=True)
+        if res["design"] != "mma":
+            raise AssertionError(f"{res['case']} ran {res['design']}")
+        results.append(res)
+        lengths = length if isinstance(length, list) else [length] * b
+        for i, li in enumerate(lengths):
+            if li == 0 and bool(got[i].ne(0).any()):
+                raise AssertionError("decode with length 0 is not zeros")
+        del q, k, v, got
     torch.cuda.synchronize()
     emit("attention_check", cases=results, refused=refused)
     return results
@@ -1025,6 +1099,7 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
         decode_per_step.append(ops.launch_count("decode_attention") - before)
         generated.append(token)
     launches = {name: ops.launch_count(name) for name in KERNELS}
+    decode_designs = decode_mod.launch_count_by_design()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     layers = cfg.num_layers
@@ -1042,6 +1117,12 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
         raise AssertionError(
             f"decode steps launched decode_attention {decode_per_step} "
             f"times, not once per layer ({layers})")
+    want_design = decode_mod.design(torch.bfloat16, cfg.resolved_head_dim)
+    if want_design != "mma" or decode_designs != {
+            **dict.fromkeys(decode_mod.DESIGNS, 0), "mma": layers * steps}:
+        raise AssertionError(
+            f"decode's launches by design {decode_designs}: not all "
+            f"{layers * steps} through mma")
     if launches["flash_attention"] != layers or launches["mixing_sgd_combine"]:
         raise AssertionError(f"serving path launch counts {launches}")
     if not bool(torch.isfinite(logits).all()):
@@ -1072,12 +1153,14 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
         flash_launches_per_prefill=flash_per_prefill,
         flash_launches_per_prefill_by_design=flash_designs,
         decode_launches_per_step=decode_per_step[0],
+        decode_launches_by_design=decode_designs,
         launches=launches, sample=out[0, :16].tolist(), profile=profiled,
     )
     del params, caches, logits
     torch.cuda.empty_cache()
     return {"launches": launches, "flash_per_prefill": flash_per_prefill,
-            "decode_per_step": decode_per_step[0]}
+            "decode_per_step": decode_per_step[0],
+            "decode_by_design": decode_designs}
 
 
 # ---------------------------------------------------------------------------
@@ -1145,7 +1228,8 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
     * the served decode step and DECODE_32K's decode layer (also with
       ragged [B] lengths); at both, the limit refuses a plain version with
       ``length - 1`` and one with a tile of the cache left out;
-    * Gemma2-2B's local layer (window 4096, softcap 50), both requests.
+    * Gemma2-2B's local layer (window 4096, softcap 50), both requests,
+      timed beside its bound (no library call computes it).
 
     ``serve_run``: ``phase_serve``'s counts, put in the entries; without
     it the entries carry no launch counts."""
@@ -1259,39 +1343,71 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
             cases.append(check_decode(f"{what} ragged [B] lengths", q, k, v,
                                       ragged, scaled=True)[0])
         torch.cuda.empty_cache()
-        ms = time_cuda(lambda: ops.decode_attention(q, k, v, n),
-                       reps=TIMING_REPS)
+        def kernel():
+            return ops.decode_attention(q, k, v, n)
+
+        def library():
+            return library_attention(q, k, v, False)
+
+        ms = time_graph(kernel, reps=TIMING_REPS)
+        lib_ms = time_graph(library, reps=TIMING_REPS)
+        eager_ms = time_cuda(kernel, reps=TIMING_REPS)
+        lib_eager_ms = time_cuda(library, reps=TIMING_REPS)
         plain_ms = time_cuda(
             lambda: ref.decode_attention_ref(q, k, v, n), reps=TIMING_REPS)
-        lib_ms = time_cuda(lambda: library_attention(q, k, v, False),
-                           reps=TIMING_REPS)
         bound, by = decode_bound(q, k, s)
         shapes.append({
             "case": name, "q": list(q.shape), "k": list(k.shape),
-            "length": s, "max_abs_err": res["max_abs_err"], "ms": ms,
+            "length": s, "design": res["design"],
+            "splits": decode_mod.split_plan(
+                b, kv, s, torch.cuda.get_device_properties(0).multi_processor_count,
+                decode_mod.resident_blocks(bf16, d, h // kv, q.device),
+                DECODE_TILE)[1],
+            "max_abs_err": res["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": by,
             "achieved_bytes_per_s": bound * PEAK_BYTES_PER_S / ms,
+            "eager_ms": eager_ms, "library_eager_ms": lib_eager_ms,
+            "ms_over_library_ms": ms / lib_ms,
         })
         del q, k, v
         torch.cuda.empty_cache()
     top = shapes[0]
     decode = {
         **kernel_fields("decode_attention"),
+        "design": top["design"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
         "library_call": "scaled_dot_product_attention(enable_gqa=True), "
                         "flash backend",
+        "timing": "ms and library_ms replayed from a CUDA graph of 20 calls "
+                  "(device time); eager_ms and library_eager_ms are 20 eager "
+                  "calls between CUDA events, as the other kernels are timed",
         "shapes": shapes,
     }
 
+    # Gemma2-2B's local layer (bf16, head_dim 256: the mma_sync design).
+    # No single PyTorch call computes a window with a softcap: no library
+    # time.
     q, k, v = attn_inputs(gen, 2, 8, 4, 8192, 8192, 256, bf16)
-    cases.append(check_flash(
+    res, _ = check_flash(
         "flash Gemma2-2B local layer q=[2, 8, 8192, 256] bf16 "
         "window=4096 softcap=50", q, k, v, window=4096, softcap=50.0,
-        requests=(0, 1))[0])
+        requests=(0, 1))
+    cases.append(res)
+    ms_local = time_cuda(
+        lambda: ops.flash_attention(q, k, v, window=4096, softcap=50.0),
+        reps=TIMING_REPS)
+    bound_local, by_local = flash_bound(q, k, window=4096)
+    flash["shapes"].append({
+        "case": "Gemma2-2B local layer (window 4096, softcap 50)",
+        "q": list(q.shape), "k": list(k.shape), "design": res["design"],
+        "max_abs_err": res["max_abs_err"], "ms": ms_local,
+        "library_ms": None, "bound_ms": bound_local, "bound_by": by_local,
+        "live_tflops_per_s": flash_flops(q, 4096) / (ms_local * 1e-3) / 1e12,
+    })
     del q, k, v
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1303,6 +1419,7 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
         flash["launches_per_prefill"] = serve_run["flash_per_prefill"]
         decode["launches"] = serve_run["launches"]["decode_attention"]
         decode["launches_per_step"] = serve_run["decode_per_step"]
+        decode["launches_by_design"] = serve_run["decode_by_design"]
     return [flash, decode]
 
 

@@ -1,8 +1,10 @@
 // Decode attention (one query per head against a KV cache) for NVIDIA
-// Hopper (sm_90a), split along the cache (flash-decoding).
+// Hopper (sm_90a), split along the cache (flash-decoding): the float32
+// "ffma" design of kernels/decode_attention.py. bfloat16 runs on the
+// tensor cores in decode_attention_mma.cu.
 //
 // Replaces the TPU kernel `decode_attention` (body `_decode_kernel`) of
-// src/repro/kernels/decode_attention.py:
+// src/repro/kernels/decode_attention.py for float32 operands:
 //
 //     o[b,h] = sum_{j < length[b]} softmax_j(cap*tanh((q_bh . k_j) * D^-0.5 / cap)) v_j
 //
@@ -17,10 +19,11 @@
 //   * one block per (batch, KV head, split of the cache): the G query heads
 //     of a KV head share the block, so each K/V tile is loaded from device
 //     memory once for all of them (the TPU kernel's grid is per query head);
-//   * the cache is split along S into chunks so that B*KV*splits blocks
-//     fill the 132 SMs even where B*KV is small (64 at the served shape);
-//     each split writes its partial (m, l, acc) and a second small kernel
-//     combines them;
+//   * the cache is split along S into a balanced partition of its tiles
+//     (split_plan in kernels/decode_attention.py: whole waves of the
+//     resident blocks where the tiles allow) so that B*KV*splits blocks
+//     fill the SMs even where B*KV is small; each split writes its partial
+//     (m, l, acc) and a second small kernel combines them;
 //   * K/V tiles are double-buffered with cp.async, so the next tile's copy
 //     overlaps this tile's scores and products;
 //   * each block stops at length[b]: the unwritten tail of the cache is
@@ -30,14 +33,12 @@
 //     so a decode step never waits on the host;
 //   * element strides for batch, head and sequence (unit stride on D): the
 //     model hands its [B,S,KV,D] cache as a transposed view, no copy.
-// Scores are computed on CUDA cores in float32 (2*G*D flops per key is too
-// little work to feed the tensor cores); float32 operands use the accurate
-// expf, bfloat16 operands the fast one.
+// Scores, softmax and P.V run on CUDA cores in full float32 (no TF32, whose
+// 10-bit mantissa would break the 2e-5 tolerance), with the accurate expf.
 //
 // Plain C interface (loaded with ctypes); the launcher returns the
 // cudaError_t of the launches as an int and never synchronises.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,7 +47,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kChunkUnit = 64;                        // a split's slots divide by it
 constexpr int kMaxGroup = 16;                         // query heads per KV head
 constexpr int kHeadsPerWarp = kMaxGroup / kWarps;
 
@@ -64,7 +64,7 @@ struct Params {
   float* part_m;            // [B*H, splits]
   float* part_l;            // [B*H, splits]
   float* part_acc;          // [B*H, splits, D]
-  int heads, kv_heads, group, len_s, chunk, splits;
+  int heads, kv_heads, group, len_s, tiles, splits;
   float scale;
   float softcap;            // <= 0: none
 };
@@ -83,86 +83,48 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-struct Elem;
+// The 4 floats of a 16-byte pack.
+__device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
 
-template <>
-struct Elem<float> {
-  __device__ static float exp(float x) { return expf(x); }
-  __device__ static float to_float(float x) { return x; }
-  __device__ static float2 pair(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-  // the 4 elements of a 16-byte pack
-  __device__ static void unpack(const uint4& raw, float* f) {
-    f[0] = __uint_as_float(raw.x);
-    f[1] = __uint_as_float(raw.y);
-    f[2] = __uint_as_float(raw.z);
-    f[3] = __uint_as_float(raw.w);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  __device__ static float exp(float x) { return __expf(x); }
-  __device__ static float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  __device__ static float2 pair(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  // the 8 elements of a 16-byte pack
-  __device__ static void unpack(const uint4& raw, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
-    }
-  }
-};
-
-template <typename T, int D>
+template <int D>
 struct Layout {
-  static constexpr int kPer = 16 / sizeof(T);       // elements per 16 bytes
-  // Cache slots per tile: 64, except float32 at D = 256, where two stages
-  // of 64 slots of K and V would need 2 x 64 x (260 + 256) x 4 B = 264 KB of
-  // shared memory, more than a block may have (227 KB); 32 slots take
-  // 132 KB. A split's chunk is a multiple of kChunkUnit = 64 slots
-  // (split_plan in kernels/decode_attention.py), so of either tile.
-  static constexpr int kTile = (sizeof(T) == 4 && D == 256) ? 32 : 64;
+  static constexpr int kPer = 4;                    // floats per 16 bytes
+  // Cache slots per tile, the unit of a split: 64, except at D = 256,
+  // where two stages of 64 slots of K and V would need 2 x 64 x (260 +
+  // 256) x 4 B = 264 KB of shared memory, more than a block may have
+  // (227 KB); 32 slots take 132 KB.
+  static constexpr int kTile = D == 256 ? 32 : 64;
   static constexpr int kSlotsPerLane = kTile / 32;  // softmax: slots a lane holds
   // K rows padded by 16 bytes: lanes reading 16-byte packs of consecutive
   // rows hit distinct banks in each 8-lane phase.
   static constexpr int LDK = D + kPer;
   static constexpr int kPairs = (D / 2 + 31) / 32;  // column pairs per lane
   static size_t smem(int group) {                   // two stages of K and V
-    return 2 * static_cast<size_t>(kTile) * (LDK + D) * sizeof(T) +
+    return 2 * static_cast<size_t>(kTile) * (LDK + D) * sizeof(float) +
            static_cast<size_t>(group) * (D + kTile) * sizeof(float);
   }
 };
-static_assert(kChunkUnit % Layout<float, 256>::kTile == 0 &&
-                  kChunkUnit % Layout<float, 64>::kTile == 0,
-              "a split's chunk must be whole tiles");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows x D elements of T from global (row stride `stride`) into smem (row
-// stride ld) by 16-byte cp.async; rows >= valid are zero-filled.
-template <typename T>
-__device__ __forceinline__ void async_rows(T* dst, int ld, const T* src,
-                                           long long stride, int rows,
-                                           int valid, int d) {
-  constexpr int kPer = 16 / sizeof(T);
-  const int packs = d / kPer;
+// rows x D floats from global (row stride `stride`) into smem (row stride
+// ld) by 16-byte cp.async; rows >= valid are zero-filled.
+__device__ __forceinline__ void async_rows(float* dst, int ld,
+                                           const float* src, long long stride,
+                                           int rows, int valid, int d) {
+  const int packs = d / 4;
   for (int c = threadIdx.x; c < rows * packs; c += blockDim.x) {
     const int r = c / packs;
-    const int col = (c - r * packs) * kPer;
+    const int col = (c - r * packs) * 4;
     const bool ok = r < valid;
-    const T* from = src + (ok ? r * stride + col : 0);
+    const float* from = src + (ok ? r * stride + col : 0);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :
                  : "r"(smem_addr(dst + r * ld + col)), "l"(from),
@@ -179,10 +141,10 @@ __device__ __forceinline__ void async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const Params p) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   constexpr int kTile = L::kTile;
   constexpr int LDK = L::LDK;
   constexpr int kPer = L::kPer;
@@ -191,20 +153,25 @@ decode_split_kernel(const Params p) {
   const int G = p.group;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);                // [2][kTile][LDK]
-  T* sV = sK + 2 * kTile * LDK;                          // [2][kTile][D]
-  float* sQ = reinterpret_cast<float*>(sV + 2 * kTile * D);  // [G, D]
+  float* sK = reinterpret_cast<float*>(smem_raw);        // [2][kTile][LDK]
+  float* sV = sK + 2 * kTile * LDK;                      // [2][kTile][D]
+  float* sQ = sV + 2 * kTile * D;                        // [G, D]
   float* sS = sQ + G * D;                                // [G, kTile]
 
+  // This split's slots: tiles [split*tiles/splits, (split+1)*tiles/splits),
+  // cut at the valid length.
   const int split = blockIdx.x;
   const int b = blockIdx.y / p.kv_heads;
   const int kvh = blockIdx.y - b * p.kv_heads;
   const int len = min(max(p.length[b * p.length_stride], 0), p.len_s);
-  const int s_begin = split * p.chunk;
-  const int s_end = min(s_begin + p.chunk, len);
+  const int s_begin = static_cast<int>(
+      static_cast<long long>(split) * p.tiles / p.splits) * kTile;
+  const int s_end = min(static_cast<int>(static_cast<long long>(split + 1) *
+                                         p.tiles / p.splits) * kTile,
+                        len);
 
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
   auto load_kv = [&](int n0, int stage) {
     const int rows = min(kTile, s_end - n0);
     async_rows(sK + stage * kTile * LDK, LDK, k + n0 * p.sk.s, p.sk.s, kTile,
@@ -215,11 +182,11 @@ decode_split_kernel(const Params p) {
   if (s_begin < s_end) load_kv(s_begin, 0);
   async_commit();
 
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b;
+  const float* q = static_cast<const float*>(p.q) + b * p.sq.b;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D;
     const int d = i - g * D;
-    sQ[i] = Elem<T>::to_float(q[(kvh * G + g) * p.sq.h + d]);
+    sQ[i] = q[(kvh * G + g) * p.sq.h + d];
   }
 
   const int warp = threadIdx.x >> 5;
@@ -244,8 +211,8 @@ decode_split_kernel(const Params p) {
       async_wait<0>();
     }
     __syncthreads();  // tile visible (and sQ written) for every warp
-    const T* tK = sK + stage * kTile * LDK;
-    const T* tV = sV + stage * kTile * D;
+    const float* tK = sK + stage * kTile * LDK;
+    const float* tV = sV + stage * kTile * D;
 
     // Scores of all G heads: thread -> slot j = tid % kTile, heads
     // g = tid / kTile, + 128 / kTile, ...; consecutive lanes read
@@ -254,12 +221,12 @@ decode_split_kernel(const Params p) {
       const int g = i / kTile;
       const int j = i - g * kTile;
       const float* qg = sQ + g * D;
-      const T* kr = tK + j * LDK;
+      const float* kr = tK + j * LDK;
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; d += kPer) {
         float f[kPer];
-        Elem<T>::unpack(*reinterpret_cast<const uint4*>(kr + d), f);
+        unpack(*reinterpret_cast<const uint4*>(kr + d), f);
 #pragma unroll
         for (int e = 0; e < kPer; ++e) dot = fmaf(qg[d + e], f[e], dot);
       }
@@ -283,13 +250,12 @@ decode_split_kernel(const Params p) {
         mt = fmaxf(mt, sv[c]);
       }
       const float m_new = fmaxf(m[hh], warp_max(mt));
-      const float alpha = Elem<T>::exp(m[hh] - m_new);
+      const float alpha = expf(m[hh] - m_new);
       m[hh] = m_new;
       float ps = 0.f;
 #pragma unroll
       for (int c = 0; c < kSlots; ++c) {
-        const float pc =
-            sv[c] == kNegInf ? 0.f : Elem<T>::exp(sv[c] - m_new);
+        const float pc = sv[c] == kNegInf ? 0.f : expf(sv[c] - m_new);
         ps += pc;
         srow[lane + 32 * c] = pc;
       }
@@ -299,12 +265,12 @@ decode_split_kernel(const Params p) {
       for (int c = 0; c < 2 * kPairs; ++c) acc[hh][c] *= alpha;
       for (int j = 0; j < rows; ++j) {
         const float pj = srow[j];
-        const T* vr = tV + j * D;
+        const float* vr = tV + j * D;
 #pragma unroll
         for (int c = 0; c < kPairs; ++c) {
           const int dp = lane + 32 * c;
           if (dp < D / 2) {
-            const float2 vv = Elem<T>::pair(vr + 2 * dp);
+            const float2 vv = *reinterpret_cast<const float2*>(vr + 2 * dp);
             acc[hh][2 * c] = fmaf(pj, vv.x, acc[hh][2 * c]);
             acc[hh][2 * c + 1] = fmaf(pj, vv.y, acc[hh][2 * c + 1]);
           }
@@ -338,24 +304,12 @@ decode_split_kernel(const Params p) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // One warp per (batch, head): o = sum_s w_s acc_s / max(sum_s w_s l_s,
 // 1e-30), w_s = exp(m_s - max m) over the splits that saw a key.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_reduce_kernel(const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
-                     const float* __restrict__ part_acc, T* __restrict__ o,
+                     const float* __restrict__ part_acc, float* __restrict__ o,
                      long long o_b, long long o_h, int rows, int heads,
                      int splits, int d) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -374,78 +328,92 @@ decode_reduce_kernel(const float* __restrict__ part_m,
   denom = fmaxf(denom, 1e-30f);
   const int b = row / heads;
   const int h = row - b * heads;
-  T* orow = o + b * o_b + h * o_h;
+  float* orow = o + b * o_b + h * o_h;
   const float* acc = part_acc + static_cast<long long>(row) * splits * d;
   for (int c = lane; c < d; c += 32) {
     float sum = 0.f;
     for (int s = 0; s < splits; ++s) {
       if (pl[s] > 0.f) sum += expf(pm[s] - m_max) * acc[s * d + c];
     }
-    orow[c] = from_float<T>(sum / denom);
+    orow[c] = sum / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const Params& p, int batch, void* o, long long o_b, long long o_h,
+template <int D>
+cudaError_t configure(int group) {
+  return cudaFuncSetAttribute(decode_split_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Layout<D>::smem(group)));
+}
+
+template <int D>
+int launch(const Params& p, int batch, float* o, long long o_b, long long o_h,
            cudaStream_t stream) {
-  using L = Layout<T, D>;
-  const size_t smem = L::smem(p.group);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = configure<D>(p.group);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.splits, batch * p.kv_heads);
-  decode_split_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  decode_split_kernel<D><<<grid, kThreads, Layout<D>::smem(p.group), stream>>>(
+      p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = batch * p.heads;
-  decode_reduce_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
-                            stream>>>(p.part_m, p.part_l, p.part_acc,
-                                      static_cast<T*>(o), o_b, o_h, rows,
-                                      p.heads, p.splits, D);
+  decode_reduce_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      p.part_m, p.part_l, p.part_acc, o, o_b, o_h, rows, p.heads, p.splits, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const Params& p, int batch, int d, void* o, long long o_b,
-             long long o_h, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<T, 16>(p, batch, o, o_b, o_h, s);
-    case 32: return launch<T, 32>(p, batch, o, o_b, o_h, s);
-    case 64: return launch<T, 64>(p, batch, o, o_b, o_h, s);
-    case 128: return launch<T, 128>(p, batch, o, o_b, o_h, s);
-    case 256: return launch<T, 256>(p, batch, o, o_b, o_h, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int occupancy(int group, int* blocks_per_sm, int* tile) {
+  *tile = Layout<D>::kTile;
+  const cudaError_t err = configure<D>(group);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, decode_split_kernel<D>, kThreads,
+      Layout<D>::smem(group)));
 }
 
 }  // namespace
 
-// dtype codes shared with the Python wrapper.
-#define REPRO_DTYPE_F32 0
-#define REPRO_DTYPE_BF16 1
+// Resident blocks per SM of the split kernel at this head_dim and group
+// (query heads per KV head) on the current device, and the slots of one
+// tile, the unit of a split.
+extern "C" int repro_decode_attention_occupancy(int head_dim, int group,
+                                                int* blocks_per_sm,
+                                                int* tile) {
+  if (group < 1 || group > kMaxGroup) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (head_dim) {
+    case 16: return occupancy<16>(group, blocks_per_sm, tile);
+    case 32: return occupancy<32>(group, blocks_per_sm, tile);
+    case 64: return occupancy<64>(group, blocks_per_sm, tile);
+    case 128: return occupancy<128>(group, blocks_per_sm, tile);
+    case 256: return occupancy<256>(group, blocks_per_sm, tile);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
-// o = decode attention as described at the top of this file.
+// o = decode attention as described at the top of this file, float32.
 // strides: 11 element strides, (batch, head, seq) of q, k and v, then
 // (batch, head) of o; unit stride on the head dimension d (16, 32, 64, 128
 // or 256). length: int32 on the device, length_stride 0 (one value) or 1
 // ([B]). part_m/part_l: float32 [B*H*splits], part_acc: float32
-// [B*H*splits*d], scratch of the caller; split s covers cache slots
-// [s*chunk, (s+1)*chunk), chunk a multiple of 64 (kChunkUnit, which every
-// tile divides). softcap <= 0 means none.
+// [B*H*splits*d], scratch of the caller. The cache's ceil(S / tile) tiles
+// are cut into `splits` balanced parts (split s covers tiles
+// [s*tiles/splits, (s+1)*tiles/splits)); tile must be the kernel's at d
+// (64, or 32 at d = 256). softcap <= 0 means none.
 // Returns the launches' cudaError_t (0 = ok).
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, void* o, const int* length,
     long long length_stride, const long long* strides, float* part_m,
     float* part_l, float* part_acc, int batch, int heads, int kv_heads,
-    int len_s, int head_dim, int chunk, int splits, float softcap, int dtype,
+    int len_s, int head_dim, int tile, int tiles, int splits, float softcap,
     void* stream) {
   if (batch <= 0) return static_cast<int>(cudaSuccess);
+  const int want_tile = head_dim == 256 ? 32 : 64;
   if (kv_heads <= 0 || heads % kv_heads != 0 ||
-      heads / kv_heads > kMaxGroup || splits <= 0 || chunk <= 0 ||
-      chunk % kChunkUnit != 0 || len_s < 0) {
+      heads / kv_heads > kMaxGroup || tile != want_tile || tiles < 1 ||
+      splits < 1 || splits > tiles || len_s < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -464,17 +432,18 @@ extern "C" int repro_decode_attention(
   p.kv_heads = kv_heads;
   p.group = heads / kv_heads;
   p.len_s = len_s;
-  p.chunk = chunk;
+  p.tiles = tiles;
   p.splits = splits;
   p.scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   p.softcap = softcap;
+  float* out = static_cast<float*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_DTYPE_BF16) {
-    return dispatch<__nv_bfloat16>(p, batch, head_dim, o, strides[9],
-                                   strides[10], s);
+  switch (head_dim) {
+    case 16: return launch<16>(p, batch, out, strides[9], strides[10], s);
+    case 32: return launch<32>(p, batch, out, strides[9], strides[10], s);
+    case 64: return launch<64>(p, batch, out, strides[9], strides[10], s);
+    case 128: return launch<128>(p, batch, out, strides[9], strides[10], s);
+    case 256: return launch<256>(p, batch, out, strides[9], strides[10], s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == REPRO_DTYPE_F32) {
-    return dispatch<float>(p, batch, head_dim, o, strides[9], strides[10], s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

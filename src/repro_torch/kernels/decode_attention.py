@@ -1,10 +1,22 @@
 """Decode attention (one query per head against a KV cache) on Hopper.
 
-Counterpart of the JAX package's ``kernels/decode_attention.py`` over one
-CUDA source (``csrc/decode_attention.cu``): a split-along-the-cache
-kernel in which the query heads of one KV head share every K/V tile, and a
-small kernel that combines the splits. Same signature as the TPU kernel's
-entry point minus its block size: any cache length S is accepted.
+Counterpart of the JAX package's ``kernels/decode_attention.py``. Same
+signature as the TPU kernel's entry point minus its block size: any cache
+length S is accepted. Two designs, fixed by the dtype in ``design()``:
+
+* ``"mma"`` — bfloat16 at every head_dim (``csrc/decode_attention_mma.cu``):
+  the G query heads of a KV head are the 16 rows of ``mma.sync`` m16n8k16
+  tiles for Q·Kᵀ and P·V; each warp streams its own 32-slot tiles through
+  a ring of ``cp.async`` stages; the splits are combined by the last block
+  of each (batch, KV head) inside the same launch;
+* ``"ffma"`` — float32 at every head_dim (``csrc/decode_attention.cu``):
+  full-precision FFMA (no TF32), two ``cp.async`` stages, and a second
+  small kernel that combines the splits.
+
+Both split the cache into a balanced partition of its tiles (``split_plan``)
+so that the blocks fill whole waves (to ``WAVE_FILL``) of what the design
+keeps resident per SM, read once per (device, design, head_dim, group)
+from the CUDA occupancy calculator.
 
 ``q [B, H, 1, D]`` and ``k``/``v [B, KV, S, D]`` may have any element
 strides with unit stride on D, so the model passes its ``[B, S, KV, D]``
@@ -16,9 +28,10 @@ zeros (the Pallas kernel's result; the JAX oracle averages V instead).
 The output is ``[B, H, 1, D]``, laid out as ``[B, 1, H, D]``.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
-CUDA tensor launches the kernels or raises. Every call on the card adds
-one to ``launch_count()`` (the split and the combine are one launch of
-this wrapper).
+CUDA tensor launches the design's kernel or raises (also when the build
+fails). Every call on the card adds one to ``launch_count()`` and to its
+design's entry of ``launch_count_by_design()`` (the ``ffma`` design's split
+and combine kernels are one launch of this wrapper).
 """
 
 from __future__ import annotations
@@ -30,74 +43,171 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import (
-    DTYPE_CODE,
+    HEAD_DIMS,
     MAX_GRID_Y,
     check_heads,
     kernel_strides,
 )
 
-# Cache slots per split unit: a split is a multiple of TILE. The kernel's
-# tile is 64 slots, or 32 for float32 at head_dim 256 (so that its two
-# stages fit in shared memory); both divide TILE, so every split is whole
-# tiles either way.
-TILE = 64
+DESIGNS = ("mma", "ffma")
+# design -> (csrc/<source>.cu, its C entry point; "<entry>_occupancy" too)
+LIBRARIES = {
+    "mma": ("decode_attention_mma", "repro_decode_attention_mma"),
+    "ffma": ("decode_attention", "repro_decode_attention"),
+}
 MAX_GROUP = 16     # query heads per KV head that one block holds
-BLOCKS_PER_SM = 4  # split target: this many blocks per SM
+MAX_SPLITS = 256   # the mma design's combine holds [16, splits] weights
+WAVE_FILL = 0.95   # split_plan: the least share of its last wave a plan fills
 
-_launches = 0
-_bound = None
+_launches = dict.fromkeys(DESIGNS, 0)
+_bound: dict[str, tuple] = {}
 _sm_counts: dict[int, int] = {}
+_resident: dict[tuple, int] = {}
+_counters: dict[int, torch.Tensor] = {}
 
 
 def launch_count() -> int:
-    """Kernel launches made by this module's wrapper so far."""
-    return _launches
+    """Kernel launches made by this module's wrapper so far (all designs)."""
+    return sum(_launches.values())
+
+
+def launch_count_by_design() -> dict[str, int]:
+    """Launches so far of each design (the keys of ``DESIGNS``)."""
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
-def _library():
-    global _bound
-    if _bound is None:
-        fn = build.load("decode_attention").repro_decode_attention
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
-            ctypes.c_void_p,                                    # o
-            ctypes.c_void_p, ctypes.c_longlong,                 # length, stride
-            ctypes.POINTER(ctypes.c_longlong),                  # 11 strides
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # partials
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,           # B, H, KV
-            ctypes.c_int, ctypes.c_int,                         # S, D
-            ctypes.c_int, ctypes.c_int,                         # chunk, splits
-            ctypes.c_float,                                     # softcap
-            ctypes.c_int,                                       # dtype code
-            ctypes.c_void_p,                                    # stream
-        ]
-        _bound = fn
-    return _bound
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel design that serves ``(dtype, head_dim)``: a fixed table,
+    no caller can choose another."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not one of {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "ffma"
+    raise TypeError(f"no decode_attention design for {dtype}")
 
 
-def split_plan(batch: int, kv_heads: int, s: int, sm_count: int):
-    """``(chunk, splits)``: cache slots per split (a multiple of ``TILE``)
-    and their number, so that ``batch·kv_heads·splits`` blocks give about
-    ``BLOCKS_PER_SM`` blocks to each SM, never more splits than tiles."""
-    tiles = max(1, math.ceil(s / TILE))
-    want = math.ceil(BLOCKS_PER_SM * sm_count / max(1, batch * kv_heads))
-    splits = max(1, min(want, tiles))
-    chunk = math.ceil(tiles / splits) * TILE
-    return chunk, math.ceil(max(s, 1) / chunk)
+def tile_slots(dtype: torch.dtype, head_dim: int) -> int:
+    """Cache slots of one tile of the design serving ``(dtype, head_dim)``,
+    the unit of a split: for ``mma`` a warp's step, 32 slots (16 at
+    head_dim 256); for ``ffma`` a block's, 64 slots (32 at head_dim 256).
+    At 256 the larger tile's stages would not fit a block's shared memory.
+    Each library reports its own, and the wrapper raises on a mismatch."""
+    if design(dtype, head_dim) == "mma":
+        return 16 if head_dim == 256 else 32
+    return 32 if head_dim == 256 else 64
+
+
+def split_plan(batch: int, kv_heads: int, s: int, sm_count: int,
+               blocks_per_sm: int, tile: int) -> tuple[int, int]:
+    """``(tiles, splits)``: the cache's ``ceil(s / tile)`` tiles and the
+    number of balanced parts they are cut into (split ``i`` takes tiles
+    ``[i·tiles//splits, (i+1)·tiles//splits)``), one block each per
+    (batch, KV head).
+
+    A wave is ``sm_count·blocks_per_sm`` resident blocks. The plan takes
+    the fewest splits whose ``batch·kv_heads·splits`` blocks fill their
+    last wave to ``WAVE_FILL`` or more, within ``min(tiles, MAX_SPLITS)``;
+    where none does, the count whose last wave is fullest (the fewest
+    among equals). Fewer splits mean longer blocks, so less of each
+    block's fixed cost (its first loads, the merge of its warps, the
+    combine of the splits) per byte."""
+    tiles = max(1, math.ceil(s / tile))
+    groups = batch * kv_heads
+    wave = sm_count * blocks_per_sm
+
+    def fill(n: int) -> float:
+        blocks = groups * n
+        return blocks / (math.ceil(blocks / wave) * wave)
+
+    counts = range(1, min(tiles, MAX_SPLITS) + 1)
+    for n in counts:
+        if fill(n) >= WAVE_FILL:
+            return tiles, n
+    return tiles, max(counts, key=lambda n: (fill(n), -n))
+
+
+def _library(name: str):
+    """(launcher, occupancy query) of a design's source."""
+    fns = _bound.get(name)
+    if fns is not None:
+        return fns
+    source, symbol = LIBRARIES[name]
+    lib = build.load(source)
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    parts = [ctypes.c_void_p] * (4 if name == "mma" else 3)  # (+ counters)
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+        ctypes.c_void_p,                                    # o
+        ctypes.c_void_p, ctypes.c_longlong,                 # length, stride
+        ctypes.POINTER(ctypes.c_longlong),                  # 11 strides
+        *parts,                                             # partials
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # B, H, KV
+        ctypes.c_int, ctypes.c_int,                         # S, D
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # tile, tiles, splits
+        ctypes.c_float,                                     # softcap
+        ctypes.c_void_p,                                    # stream
+    ]
+    occ = getattr(lib, f"{symbol}_occupancy")
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    _bound[name] = (fn, occ)
+    return fn, occ
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _device_index(device)
     if index not in _sm_counts:
         props = torch.cuda.get_device_properties(index)
         _sm_counts[index] = props.multi_processor_count
     return _sm_counts[index]
+
+
+def resident_blocks(dtype: torch.dtype, head_dim: int, group: int,
+                    device: torch.device) -> int:
+    """Blocks per SM that the design serving ``(dtype, head_dim)`` keeps
+    resident on ``device`` (the CUDA occupancy calculator, read once)."""
+    name = design(dtype, head_dim)
+    key = (_device_index(device), name, head_dim, group)
+    if key not in _resident:
+        _, occ = _library(name)
+        blocks, tile = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = occ(head_dim, group, ctypes.byref(blocks), ctypes.byref(tile))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(
+                f"decode_attention ({name}) occupancy query failed: error "
+                f"{err}, {blocks.value} blocks per SM (head_dim {head_dim})")
+        if tile.value != tile_slots(dtype, head_dim):
+            raise RuntimeError(
+                f"decode_attention ({name}) kernel tile {tile.value} != "
+                f"tile_slots() {tile_slots(dtype, head_dim)}")
+        _resident[key] = blocks.value
+    return _resident[key]
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """int32 zeros, at least ``n``, kept per device: the mma kernel's
+    arrival counters, which it leaves at 0 after every launch."""
+    index = _device_index(device)
+    buf = _counters.get(index)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _counters[index] = buf
+    return buf
 
 
 def _check_length(length, b: int, device: torch.device):
@@ -124,7 +234,6 @@ def decode_attention(
     *,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    global _launches
     check_heads(q, k, v)
     b, h, one, d = q.shape
     kv, s = k.shape[1], k.shape[2]
@@ -146,28 +255,38 @@ def decode_attention(
     out = out.transpose(1, 2)
     if out.numel() == 0:
         return out
-    chunk, splits = split_plan(b, kv, s, _sm_count(q.device))
-    part_m = torch.empty(b * h * splits, dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(
-        b * h * splits * d, dtype=torch.float32, device=q.device
-    )
+    name = design(q.dtype, d)
+    tile = tile_slots(q.dtype, d)
+    tiles, splits = split_plan(
+        b, kv, s, _sm_count(q.device),
+        resident_blocks(q.dtype, d, h // kv, q.device), tile)
+    # One scratch tensor: acc [B*H*splits*D] first (16-byte aligned), then
+    # m and l [B*H*splits]. The mma design needs none at one split.
+    rows = b * h * splits
+    parts = [0, 0, 0]
+    if name == "ffma" or splits > 1:
+        scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        acc_ptr = scratch.data_ptr()
+        parts = [acc_ptr + 4 * rows * d, acc_ptr + 4 * rows * (d + 1), acc_ptr]
+    if name == "mma":
+        parts.append(_split_counters(q.device, b * kv).data_ptr()
+                     if splits > 1 else 0)
     strides = kernel_strides(q, k, v) + kernel_strides(out, dims=2)
-    fn = _library()
+    fn, _ = _library(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             length.data_ptr(), len_stride,
-            (ctypes.c_longlong * 11)(*strides),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            b, h, kv, s, d, chunk, splits, float(softcap or 0.0),
-            DTYPE_CODE[q.dtype], stream,
+            (ctypes.c_longlong * 11)(*strides), *parts,
+            b, h, kv, s, d, tile, tiles, splits, float(softcap or 0.0),
+            stream,
         )
-    _launches += 1
+    _launches[name] += 1
     if err != 0:
         raise RuntimeError(
-            f"decode_attention kernel launch failed: cudaError {err} "
+            f"decode_attention ({name}) kernel launch failed: cudaError {err} "
             f"(q={tuple(q.shape)}, k={tuple(k.shape)}, {q.dtype})"
         )
     return out

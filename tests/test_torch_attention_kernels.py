@@ -234,14 +234,20 @@ def test_wrappers_reject_bad_operands(case):
      (600, 2, 100)],
 )
 def test_decode_split_plan_covers_the_cache(b, kv, s):
-    """Splits are whole tiles, cover [0, S) exactly once, never outnumber
-    the tiles; at the served and DECODE_32K shapes, 576 and 768 blocks
-    for 132 SMs."""
-    chunk, splits = decode_mod.split_plan(b, kv, s, sm_count=132)
-    assert chunk % decode_mod.TILE == 0 and chunk > 0
-    assert (splits - 1) * chunk < max(s, 1) <= splits * chunk
-    assert splits <= max(1, -(-s // decode_mod.TILE))
-    want = {(32, 2, 8256): 9, (128, 2, 32768): 3}.get((b, kv, s))
+    """The bf16 design's splits at head_dim 64 (32-slot tiles, one
+    resident block per SM on 132 SMs) cut the cache's tiles into balanced
+    parts that cover [0, S) exactly once and never outnumber the tiles; at
+    the served and DECODE_32K shapes, 2 and 1 splits: 128 and 256 blocks,
+    97 % of one and of two waves of 132."""
+    tile = decode_mod.tile_slots(torch.bfloat16, 64)
+    tiles, splits = decode_mod.split_plan(b, kv, s, sm_count=132,
+                                          blocks_per_sm=1, tile=tile)
+    assert tiles == max(1, -(-s // tile))
+    assert 1 <= splits <= tiles
+    bounds = [i * tiles // splits for i in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] * tile >= s
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+    want = {(32, 2, 8256): 2, (128, 2, 32768): 1}.get((b, kv, s))
     assert want is None or splits == want  # the two shapes chip_smoke times
 
 

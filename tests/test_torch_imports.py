@@ -47,7 +47,8 @@ def test_package_has_the_slices_modules():
         "repro_torch.launch.serve",
     ):
         assert want in names
-    for src in ("mixing_combine", "flash_attention", "decode_attention"):
+    for src in ("mixing_combine", "flash_attention", "flash_attention_wgmma",
+                "decode_attention", "decode_attention_mma"):
         assert (PKG / "kernels" / "csrc" / f"{src}.cu").is_file()
 
 
