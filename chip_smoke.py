@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py [--seed N] [--steps N] [--seq N] [--profile]
 
-Drives the port's two paths at the full width and depth of Qwen2-0.5B on
+Drives the port's paths at the full width and depth of Qwen2-0.5B on
 one card, through the entry points a user calls:
 
+* network pricing — the port's ``net/`` and its float64 torch rollout
+  engine price 256 Monte-Carlo rollouts of a 220-agent star in one pass
+  on the card (``torch_engine.simulate_rollout_batch``), held to the
+  port's numpy engine and to the JAX engine's quantiles;
 * training — priced D-PSGD with 8 agents (``model.loss`` →
   ``make_dpsgd_step`` → ``train_priced``), every update through the
-  ``mixing_sgd_combine`` kernel;
+  ``mixing_sgd_combine`` kernel, every round charged a τ sample that
+  ``StochasticTau.price(engine="torch")`` priced on the card;
 * serving — ``launch.serve.build_serve_artifacts``: prefill of 32 prompts
   of 8192 tokens, then greedy decoding of 64 tokens against the KV caches,
   attention through the ``flash_attention`` (prefill) and
@@ -25,7 +30,8 @@ checks refuse a faulty plain version. Needs a CUDA device and ``nvcc``; there is
 no CPU path. Any failed phase raises and the script exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
-``kernel_check``, ``attention_check``, ``small_reference``, ``train``,
+``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
+``train``,
 ``serve_check``, ``serve``, ``attention_main_shapes``), then the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
 then
@@ -44,22 +50,45 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.configs import qwen2_0_5b
 from repro_torch.configs.base import DECODE_32K, ShapeConfig
 from repro_torch.core import dpsgd, gossip, mixing
-from repro_torch.core.priced_training import StaticTau, train_priced
+from repro_torch.core.priced_training import (
+    StaticTau,
+    StochasticTau,
+    train_priced,
+)
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import serve
 from repro_torch.models import model
+from repro_torch.net import (
+    MarkovLinkModel,
+    StochasticScenario,
+    Underlay,
+    build_overlay,
+    compile_incidence,
+    compute_categories,
+    demands_from_links,
+    lowest_degree_nodes,
+    mid_path_edges,
+    roofnet_like,
+    route_direct,
+    simulate,
+    torch_engine,
+)
+from repro_torch.net.stochastic import densify_realizations
+from repro_torch.net.topology import Graph
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the roofline the
@@ -178,9 +207,25 @@ FP32_ORDER_ATOL = 1e-4  # float32 logits summed in another order
 
 TIMING_REPS = 20
 
-# Modelled network seconds per gossip round: a constant input of this
-# slice (the routed tau of a design arrives with the network simulator).
-TAU = 12.5
+# The rollout phase: benchmarks/rollout_scale.py's instance (220-agent
+# single-hub star, ring overlay, kappa 1e6 B, Markov fading on every 7th
+# uplink, 256 rollouts), priced by the port on the card.
+ROLLOUT_AGENTS = 220
+ROLLOUTS = 256
+ROLLOUT_BASELINE = 32          # rollouts the numpy engine also prices
+ROLLOUT_RTOL = 1e-9
+ROLLOUT_CPU_LANES = 8          # lanes re-run on the CPU (recorded only)
+# The same instance priced by the JAX package's engine (XLA on the CPU):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c \
+#     "from benchmarks import rollout_scale as r; print(r.run())"
+JAX_TAU_NOMINAL = 48.343333240333536
+JAX_TAU_P95 = 78.1524738472914
+JAX_TAU_P99 = 79.64402079241292
+
+# The train phase's pricing: paper_scenario's roofnet_like(seed=0) with the
+# 8 lowest-degree agents, one Markov group on the ring's mid-path hops,
+# TRAIN_ROLLOUTS samples priced once on the card before training.
+TRAIN_ROLLOUTS = 256
 
 
 def emit(phase: str, **fields) -> None:
@@ -422,6 +467,190 @@ def phase_small_reference(seed: int) -> None:
     )
 
 
+# ---------------------------------------------------------------------------
+# Network pricing: the rollout engine on the card
+# ---------------------------------------------------------------------------
+
+
+def star_instance(num_agents: int = ROLLOUT_AGENTS, seed: int = 11):
+    """benchmarks/rollout_scale.py's ``make_instance`` with the port's own
+    ``net/``: a single-hub star with uplinks 125 kB/s x U(0.3, 3.0) from
+    ``default_rng(seed)``, a ring overlay routed direct at kappa 1e6 B —
+    B = E = 2 x num_agents, every table at degree 2."""
+    g = Graph()
+    rng = np.random.default_rng(seed)
+    hub = num_agents
+    for a in range(num_agents):
+        g.add_edge(a, hub, capacity=125_000.0 * rng.uniform(0.3, 3.0))
+    ov = build_overlay(Underlay(graph=g), list(range(num_agents)))
+    cats = compute_categories(ov)
+    links = sorted({
+        (min(a, b), max(a, b))
+        for a, b in ((i, (i + 1) % num_agents) for i in range(num_agents))
+    })
+    demands = demands_from_links(links, 1e6, num_agents)
+    return route_direct(demands, cats, 1e6), ov
+
+
+def star_scenario(tau: float) -> StochasticScenario:
+    """Correlated fading on every 7th uplink: a two-state Markov chain
+    takes the link to 35 % of nominal, re-drawn on a 0.4 tau grid over a
+    4 tau horizon (benchmarks/rollout_scale.py)."""
+    flaky = tuple((a, ROLLOUT_AGENTS) for a in range(0, ROLLOUT_AGENTS, 7))
+    return StochasticScenario(
+        links=(MarkovLinkModel(
+            edges=flaky, scales=(1.0, 0.35),
+            transition=((0.8, 0.2), (0.5, 0.5)),
+        ),),
+        step=0.4 * tau, horizon=4 * tau,
+    )
+
+
+def phase_rollout(with_profile: bool = False) -> None:
+    """Price 256 rollouts of the 220-agent star on the card in one pass of
+    the torch engine (one warm call, one timed), hold the first 32 to the
+    port's numpy engine and the quantiles to the JAX engine's, both at
+    rtol 1e-9."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    sol, ov = star_instance()
+    inc = compile_incidence(sol, ov)
+    tau = simulate(sol, ov, engine="batched", incidence=inc).makespan
+    scenario = star_scenario(tau)
+    reals = tuple(scenario.sample((13, r)) for r in range(ROLLOUTS))
+    batch = densify_realizations(reals, inc)
+    setup_s = time.perf_counter() - t0
+
+    def price():
+        return torch_engine.simulate_rollout_batch(
+            sol, ov, batch, incidence=inc, device=None)
+
+    t0 = time.perf_counter()
+    price()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch_engine.reset_sync_count()
+    t0 = time.perf_counter()
+    priced = price()
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    syncs, rounds = torch_engine.sync_count(), torch_engine.round_count()
+
+    t0 = time.perf_counter()
+    baseline = [
+        simulate(sol, ov, scenario=sc, engine="batched", incidence=inc)
+        for sc in batch.realizations[:ROLLOUT_BASELINE]
+    ]
+    numpy_s = (time.perf_counter() - t0) / ROLLOUT_BASELINE
+    worst = 0.0
+    for r, (got, want) in enumerate(zip(priced, baseline)):
+        for a, b in zip((got.makespan, *got.flow_completion),
+                        (want.makespan, *want.flow_completion)):
+            if not abs(a - b) <= ROLLOUT_RTOL * abs(b):
+                raise AssertionError(
+                    f"rollout {r}: card {a!r} vs numpy engine {b!r} beyond "
+                    f"rtol {ROLLOUT_RTOL}")
+            worst = max(worst, abs(a - b) / abs(b))
+
+    makespans = np.array([res.makespan for res in priced])
+    quantiles = {
+        "tau_nominal": tau,
+        "tau_p95": float(np.percentile(makespans, 95)),
+        "tau_p99": float(np.percentile(makespans, 99)),
+    }
+    jax_quantiles = {"tau_nominal": JAX_TAU_NOMINAL,
+                     "tau_p95": JAX_TAU_P95, "tau_p99": JAX_TAU_P99}
+    jax_rel = {}
+    for key, want in jax_quantiles.items():
+        got = quantiles[key]
+        jax_rel[key] = abs(got - want) / abs(want)
+        if not jax_rel[key] <= ROLLOUT_RTOL:
+            raise AssertionError(
+                f"{key}: card {got!r} vs JAX engine {want!r} beyond rtol "
+                f"{ROLLOUT_RTOL}")
+
+    lanes = dataclasses.replace(
+        batch, capacity=batch.capacity[:ROLLOUT_CPU_LANES],
+        churn=batch.churn[:ROLLOUT_CPU_LANES],
+        realizations=batch.realizations[:ROLLOUT_CPU_LANES],
+    )
+    on_cpu = torch_engine.simulate_rollout_batch(
+        sol, ov, lanes, incidence=inc, device="cpu")
+    cpu_bitwise = all(
+        a.makespan == b.makespan and a.flow_completion == b.flow_completion
+        for a, b in zip(on_cpu, priced)
+    )
+    profiled = profile_step(price, [batch_s * 1e3]) if with_profile else None
+    events = np.array([res.num_events for res in priced])
+    emit(
+        "rollout", agents=ROLLOUT_AGENTS, rollouts=ROLLOUTS,
+        branches=inc.num_branches, edges=inc.num_edges,
+        phases=int(batch.starts.size), device=str(dev),
+        setup_seconds=setup_s, warm_call_seconds=warm_s,
+        seconds_per_batch=batch_s, ms_per_rollout=batch_s * 1e3 / ROLLOUTS,
+        host_syncs_per_batch=syncs, waterfill_rounds_per_batch=rounds,
+        events_per_lane_mean=float(events.mean()),
+        events_per_lane_max=int(events.max()),
+        numpy_batched_ms_per_rollout=numpy_s * 1e3,
+        numpy_over_card_per_rollout=numpy_s / (batch_s / ROLLOUTS),
+        parity_rollouts=ROLLOUT_BASELINE, parity_rtol=ROLLOUT_RTOL,
+        parity_max_rel_err=worst, **quantiles,
+        jax_engine=jax_quantiles, jax_rel_err=jax_rel,
+        cpu_lanes=ROLLOUT_CPU_LANES, cpu_lanes_bitwise_equal=cpu_bitwise,
+        profile=profiled,
+    )
+
+
+def train_pricer(seed: int, m: int, kappa: float) -> dict:
+    """The train phase's pricer: benchmarks.common.paper_scenario's
+    instance (roofnet_like(seed=0), the m lowest-degree agents), the ring's
+    links routed direct at kappa = one agent's parameter bytes, one Markov
+    group on the ring's mid-path hops; ``StochasticTau.price`` on the card
+    (``engine="torch"``), ``reduce="sample"``: round k is charged sample
+    k mod ``TRAIN_ROLLOUTS``."""
+    u = roofnet_like(seed=0)
+    ov = build_overlay(u, lowest_degree_nodes(u, m))
+    cats = compute_categories(ov)
+    links = tuple(sorted({(min(i, (i + 1) % m), max(i, (i + 1) % m))
+                          for i in range(m)}))
+    sol = route_direct(demands_from_links(links, kappa, m), cats, kappa)
+    tau = float(sol.completion_time)
+    sto = StochasticScenario(
+        links=(MarkovLinkModel(
+            edges=mid_path_edges(ov, links), scales=(1.0, 0.2),
+            transition=((0.8, 0.2), (0.3, 0.7)),
+        ),),
+        step=max(tau / 2, 1.0), horizon=4 * max(tau, 1.0),
+    )
+    outcome = types.SimpleNamespace(
+        routing=sol, design=types.SimpleNamespace(activated_links=links),
+        tau=tau, tau_samples=(), name=f"ring-{m}",
+    )
+    torch_engine.reset_sync_count()
+    t0 = time.perf_counter()
+    pricer = StochasticTau.price(
+        outcome, ov, sto, rollouts=TRAIN_ROLLOUTS, seed=seed,
+        engine="torch", reduce="sample", routing_cache={}, device=None,
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    samples = np.array(pricer.samples)
+    if not (np.all(np.isfinite(samples)) and np.all(samples > 0)):
+        raise AssertionError(f"train pricing: bad tau samples {samples}")
+    return {
+        "pricer": pricer,
+        "fields": {
+            "pricing": pricer.kind, "kappa_bytes": kappa,
+            "routed_tau": tau, "rollouts": TRAIN_ROLLOUTS,
+            "markov_edges": len(sto.links[0].edges),
+            "tau_mean": pricer.tau_mean, "tau_p95": pricer.tau_p95,
+            "tau_min": float(samples.min()), "tau_max": float(samples.max()),
+            "pricing_seconds": seconds,
+            "pricing_host_syncs": torch_engine.sync_count(),
+        },
+    }
+
+
 def profile_step(step, step_ms: list) -> dict:
     """One more step (``step()``) under ``torch.profiler``: device time by
     kernel. The profiler slows the host several times over, so the share
@@ -495,7 +724,10 @@ def perturbed_update_check(params, grads, plan, lr: float, seed: int) -> float:
 
 
 def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
-    """Priced D-PSGD on Qwen2-0.5B, unreduced, 8 agents on one card."""
+    """Priced D-PSGD on Qwen2-0.5B, unreduced, 8 agents on one card; every
+    round is charged a τ sample priced on the card before training
+    (``train_pricer``), so the step itself is what it was with a constant
+    price."""
     cfg = qwen2_0_5b.CONFIG
     m, per_agent_batch, lr = 8, 1, 0.05
     dev = torch.device("cuda")
@@ -554,11 +786,14 @@ def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
         step_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
+    kappa = float(n_params * compat.dtype_of(cfg.param_dtype).itemsize)
+    priced = train_pricer(seed, m, kappa)
+    pricer = priced["pricer"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_count()
     total_steps = steps + 1            # step 0 is the warm-up
     params, log = train_priced(
-        params, timed_step, batcher, w, StaticTau(TAU), total_steps,
+        params, timed_step, batcher, w, pricer, total_steps,
         design_label="ring-8", log_every=1,
     )
     launches = ops.launch_count("mixing_sgd_combine")
@@ -578,6 +813,11 @@ def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
             raise AssertionError(f"bad parameters after training: {path}")
     if log.total_wall != sum(r.tau for r in log.records):
         raise AssertionError("wall-clock is not the sum of tau")
+    for k, r in enumerate(log.records):
+        if r.tau != pricer.samples[k % len(pricer.samples)]:
+            raise AssertionError(
+                f"step {k} charged {r.tau!r}, not its sample "
+                f"{pricer.samples[k % len(pricer.samples)]!r}")
 
     batch = batcher(total_steps)
     profiled = (
@@ -596,7 +836,7 @@ def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
     emit(
         "train", config=cfg.name, parameters_per_agent=n_params, agents=m,
         leaves=leaves, per_agent_batch=per_agent_batch, seq_len=seq,
-        param_dtype=cfg.param_dtype, lr=lr, tau=TAU,
+        param_dtype=cfg.param_dtype, lr=lr, **priced["fields"],
         mixing="ring of 8, alpha=1/3", rho=mixing.rho(w),
         init_seconds=init_seconds, warmup_steps=1, timed_steps=steps,
         steps=[
@@ -1429,8 +1669,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3, help="timed steps")
     ap.add_argument("--seq", type=int, default=512, help="tokens per agent")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one extra training step and one extra "
-                         "decode step with torch.profiler")
+                    help="profile one extra rollout batch, one extra "
+                         "training step and one extra decode step with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1444,6 +1685,7 @@ def main(argv=None) -> int:
     phase_kernel_check(args.seed)
     phase_attention_check(args.seed)
     phase_small_reference(args.seed)
+    phase_rollout(args.profile)
     params, plan, launches, leaves = phase_train(
         args.seed, args.steps, args.seq, args.profile
     )

@@ -4,15 +4,25 @@ Counterpart of the JAX package's ``core/priced_training.py``.
 ``train_priced`` drives the D-PSGD step (``dpsgd.make_dpsgd_step``) with
 the designer's mixing matrix while charging every gossip round its
 network time, so loss-vs-wall-clock curves come out of the designed
-overlay. This slice holds the static pricer:
+overlay. Three pricing models, one per simulation entry point of the
+port's ``net/``:
 
-  * ``StaticTau`` — every round costs the design's routed τ: the paper's
-    static-network assumption.
+  * ``StaticTau``    — every round costs the design's routed τ: the
+    paper's static-network assumption.
+  * ``PhasedTau``    — round k starts at the accumulated wall-clock t_k
+    and costs ``simulate(sol, overlay, scenario.shifted(t_k))`` on the
+    host (numpy engine "batched" by default), memoised by the shifted
+    scenario's signature — rounds inside one phase re-price for free.
+  * ``StochasticTau`` — per-round τ from a Monte-Carlo rollout batch
+    (mean, p95, or per-round sample); with ``engine="torch"`` the whole
+    batch prices as one pass of ``net/torch_engine.py`` on the device,
+    against the ``DeviceIncidence`` cached per activated-link set.
 
-The phased and stochastic pricers (``PhasedTau``, ``StochasticTau``,
-``pricer_for``) price through the network simulator and arrive with it;
-any object with ``kind`` and ``tau_for(round_index, t_start)`` is
-accepted as a pricer meanwhile.
+``pricer_for`` picks one from a design outcome. The outcome is
+duck-typed (``.routing``, ``.design.activated_links``, ``.tau``,
+``.tau_samples``, ``.name``) until the designer is ported; any object
+with ``kind`` and ``tau_for(round_index, t_start)`` is accepted as a
+pricer.
 
 The communication strategy is pluggable (``GossipStrategy``): one-shot
 mixing applies W once per model update; multi-round graph gossip applies
@@ -30,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, MutableMapping
 
 import numpy as np
 import torch
@@ -38,6 +48,12 @@ import torch
 from repro_torch import compat
 from repro_torch.core.dpsgd import consensus_distance, mixing_plan
 from repro_torch.core.gossip import effective_mixing_matrix
+from repro_torch.net.simulator import (
+    Scenario,
+    SimResult,
+    compile_incidence,
+    simulate,
+)
 from repro_torch.tree import tree_map
 
 
@@ -69,6 +85,41 @@ class GossipStrategy:
         return effective_mixing_matrix(w, self.rounds)
 
 
+def _finite_tau(sim: SimResult) -> float:
+    """Price one simulated round, mirroring ``evaluate_design``: a
+    truncated run or one where churn cancelled every flow outright
+    (all-NaN completions) prices as inf, never as cheap/free."""
+    undelivered = sim.cancelled_branches > 0 and all(
+        np.isnan(c) for c in sim.flow_completion
+    )
+    return float(
+        np.inf if sim.unfinished_branches or undelivered else sim.makespan
+    )
+
+
+def _scenario_signature(sc: Scenario):
+    """Hashable identity of a scenario's conditions (per-edge scale
+    maps sorted), for memoizing per-round simulations."""
+
+    def scale_key(s):
+        if isinstance(s, Mapping):
+            return tuple(sorted(s.items()))
+        return s
+
+    return (
+        tuple((p.start, scale_key(p.scale)) for p in sc.capacity_phases),
+        tuple(
+            (c.src, c.dst, c.rate, c.start, c.stop)
+            for c in sc.cross_traffic
+        ),
+        tuple(
+            (s.agent, s.slowdown, s.start, s.stop) for s in sc.stragglers
+        ),
+        tuple((c.agent, c.time) for c in sc.churn),
+        sc.floor_frac,
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class StaticTau:
     """Constant per-round price — the design's routed τ."""
@@ -86,6 +137,260 @@ class StaticTau:
     @classmethod
     def from_outcome(cls, outcome, label: str = "") -> "StaticTau":
         return cls(outcome.tau, label=label or outcome.name)
+
+
+class PhasedTau:
+    """Deterministic time-varying price: round k costs the simulated
+    makespan under ``scenario.shifted(t_k)`` where t_k is the round's
+    wall-clock start — the same fluid model as
+    ``evaluate_design(scenario=...)``, applied per round instead of
+    once. The branch incidence compiles once; simulations memoize on
+    the shifted scenario's signature, so every round inside one
+    capacity phase after the last breakpoint reuses a single simulate.
+    """
+
+    def __init__(
+        self,
+        sol,
+        overlay,
+        scenario: Scenario,
+        engine: str = "batched",
+        label: str = "",
+        device=None,
+    ):
+        if scenario is None:
+            raise ValueError(
+                "PhasedTau needs the deterministic scenario it prices; "
+                "use StaticTau for a static network"
+            )
+        self.sol = sol
+        self.overlay = overlay
+        self.scenario = scenario
+        self.engine = engine
+        self.device = device
+        self.label = label or "phased"
+        self._incidence = (
+            compile_incidence(sol, overlay) if sol.demands else None
+        )
+        self._memo: dict = {}
+
+    @property
+    def kind(self) -> str:
+        return "phased"
+
+    def tau_for(self, round_index: int, t_start: float) -> float:
+        if self._incidence is None:
+            return 0.0
+        shifted = self.scenario.shifted(float(t_start))
+        key = _scenario_signature(shifted)
+        tau = self._memo.get(key)
+        if tau is None:
+            tau = _finite_tau(
+                simulate(
+                    self.sol, self.overlay,
+                    scenario=None if shifted.is_trivial else shifted,
+                    engine=self.engine, incidence=self._incidence,
+                    device=self.device,
+                )
+            )
+            self._memo[key] = tau
+        return tau
+
+    @classmethod
+    def from_outcome(
+        cls, outcome, overlay, scenario: Scenario,
+        engine: str = "batched", label: str = "", device=None,
+    ) -> "PhasedTau":
+        return cls(
+            outcome.routing, overlay, scenario, engine=engine,
+            label=label or outcome.name, device=device,
+        )
+
+
+def _device_incidence_for(
+    sol, overlay, activated_links, routing_cache: MutableMapping | None
+):
+    """The ``DeviceIncidence`` for a routed design, cached under the
+    ``("torch-device-incidence", activated-link set)`` key — share a
+    ``routing_cache`` and the incidence compiles exactly once per
+    design."""
+    from repro_torch.net import torch_engine
+
+    dev_key = ("torch-device-incidence", frozenset(activated_links))
+    dev = (
+        routing_cache.get(dev_key)
+        if routing_cache is not None else None
+    )
+    if dev is None:
+        binc = compile_incidence(sol, overlay)
+        flow_size = np.array(
+            [d.size for d in sol.demands], dtype=np.float64
+        )
+        dev = torch_engine.device_incidence(binc, flow_size)
+        if routing_cache is not None:
+            routing_cache[dev_key] = dev
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class StochasticTau:
+    """Per-round price from a Monte-Carlo τ sample set.
+
+    ``reduce="mean"``/``"p95"`` charge every round the expectation /
+    tail of the rollout batch (risk-neutral vs conservative budgeting);
+    ``reduce="sample"`` charges round k the k-th sample (cycling), so a
+    training run experiences the *distribution* — per-round τ varies,
+    replayable because the samples are seeded. Build via
+    ``from_outcome`` (an outcome already priced with ``stochastic=``
+    donates its ``tau_samples``) or ``price`` (one torch-engine rollout
+    batch on the device, through the ``DeviceIncidence`` cache).
+    """
+
+    samples: tuple[float, ...]
+    reduce: str = "mean"
+    label: str = "stochastic"
+
+    def __post_init__(self):
+        if not self.samples:
+            raise ValueError("StochasticTau needs at least one τ sample")
+        if self.reduce not in ("mean", "p95", "sample"):
+            raise ValueError(
+                f"unknown reduce {self.reduce!r}: valid reductions are "
+                "'mean', 'p95', and 'sample'"
+            )
+
+    @property
+    def kind(self) -> str:
+        return f"stochastic-{self.reduce}"
+
+    @property
+    def tau_mean(self) -> float:
+        return float(np.mean(self.samples))
+
+    @property
+    def tau_p95(self) -> float:
+        return float(np.percentile(self.samples, 95.0))
+
+    def tau_for(self, round_index: int, t_start: float) -> float:
+        if self.reduce == "mean":
+            return self.tau_mean
+        if self.reduce == "p95":
+            return self.tau_p95
+        return float(self.samples[round_index % len(self.samples)])
+
+    @classmethod
+    def from_outcome(
+        cls, outcome, reduce: str = "mean", label: str = ""
+    ) -> "StochasticTau":
+        if not outcome.tau_samples:
+            raise ValueError(
+                "outcome carries no tau_samples; price it with "
+                "stochastic= (evaluate_design) or use StochasticTau.price"
+            )
+        return cls(
+            samples=outcome.tau_samples, reduce=reduce,
+            label=label or outcome.name,
+        )
+
+    @classmethod
+    def price(
+        cls,
+        outcome,
+        overlay,
+        stochastic,
+        rollouts: int = 256,
+        seed: int = 0,
+        engine: str = "torch",
+        reduce: str = "mean",
+        routing_cache: MutableMapping | None = None,
+        label: str = "",
+        device=None,
+    ) -> "StochasticTau":
+        """Price the outcome's routed schedule over ``rollouts`` seeded
+        realizations. ``engine="torch"`` runs them as one device pass
+        (``device=None`` means CUDA) against a ``DeviceIncidence`` cached
+        under the ``("torch-device-incidence", activated-link set)`` key
+        — share a ``routing_cache`` and the incidence compiles exactly
+        once per design. Any other engine is a numpy ``simulate`` engine,
+        run once per realization on the host."""
+        sol = outcome.routing
+        if not sol.demands:
+            return cls(samples=(0.0,), reduce=reduce, label=label)
+        if engine == "torch":
+            from repro_torch.net import torch_engine
+
+            dev = _device_incidence_for(
+                sol, overlay, outcome.design.activated_links,
+                routing_cache,
+            )
+            batch = stochastic.realization_batch(seed, rollouts, dev.source)
+            sims = torch_engine.rollout_batch_results(
+                sol, dev, batch, device=device
+            )
+        else:
+            sims = [
+                simulate(
+                    sol, overlay, scenario=realization, engine=engine
+                )
+                for realization in stochastic.sample_many(seed, rollouts)
+            ]
+        return cls(
+            samples=tuple(_finite_tau(s) for s in sims),
+            reduce=reduce,
+            label=label or outcome.name,
+        )
+
+
+def pricer_for(
+    outcome,
+    mode: str = "static",
+    overlay=None,
+    scenario: Scenario | None = None,
+    stochastic=None,
+    rollouts: int = 256,
+    seed: int = 0,
+    engine: str = "batched",
+    reduce: str = "mean",
+    routing_cache: MutableMapping | None = None,
+    device=None,
+):
+    """One pricer per pricing mode, from a ``DesignOutcome``.
+
+    mode="static"      → ``StaticTau`` at ``outcome.tau`` (which is
+                         already scenario- or expectation-priced when
+                         the outcome was).
+    mode="phased"      → ``PhasedTau`` over ``scenario`` (requires
+                         ``overlay``; any numpy/torch simulate engine).
+    mode="stochastic"  → ``StochasticTau``: reuses ``outcome.tau_samples``
+                         when present and ``stochastic`` is None, else
+                         prices a fresh rollout batch (``engine="torch"``
+                         for the one-pass device path, on ``device``).
+
+    ``outcome`` is duck-typed: ``.routing``, ``.design.activated_links``,
+    ``.tau``, ``.tau_samples`` and ``.name`` are what is read.
+    """
+    if mode == "static":
+        return StaticTau.from_outcome(outcome)
+    if mode == "phased":
+        if overlay is None or scenario is None:
+            raise ValueError("phased pricing needs overlay= and scenario=")
+        return PhasedTau.from_outcome(
+            outcome, overlay, scenario, engine=engine, device=device
+        )
+    if mode == "stochastic":
+        if stochastic is None:
+            return StochasticTau.from_outcome(outcome, reduce=reduce)
+        if overlay is None:
+            raise ValueError("stochastic pricing needs overlay=")
+        return StochasticTau.price(
+            outcome, overlay, stochastic, rollouts=rollouts, seed=seed,
+            engine=engine, reduce=reduce, routing_cache=routing_cache,
+            device=device,
+        )
+    raise ValueError(
+        f"unknown pricing mode {mode!r}: valid modes are 'static', "
+        "'phased', and 'stochastic'"
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,7 +44,12 @@ def test_package_has_the_slices_modules():
         "repro_torch.data.synthetic", "repro_torch.configs.gemma2_2b",
         "repro_torch.kernels.flash_attention",
         "repro_torch.kernels.decode_attention", "repro_torch.launch",
-        "repro_torch.launch.serve",
+        "repro_torch.launch.serve", "repro_torch.analysis",
+        "repro_torch.analysis.contracts", "repro_torch.net",
+        "repro_torch.net.topology", "repro_torch.net.demands",
+        "repro_torch.net.categories", "repro_torch.net.routing",
+        "repro_torch.net.simulator", "repro_torch.net.stochastic",
+        "repro_torch.net.torch_engine",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention", "flash_attention_wgmma",
@@ -73,6 +78,30 @@ def test_importing_everything_pulls_no_forbidden_module():
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "IMPORTS_OK" in proc.stdout
+
+
+def test_net_imports_scipy_only_on_use():
+    """``repro_torch.net`` and its engine import no scipy at load (the
+    reference imports it inside ``route_milp``; the port's topology does
+    the same inside ``random_geometric_graph``)."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import repro_torch.net, repro_torch.net.torch_engine\n"
+        "import repro_torch.core.priced_training\n"
+        "assert 'scipy' not in sys.modules, sorted(\n"
+        "    m for m in sys.modules if m.startswith('scipy'))\n"
+        "from repro_torch.net import random_geometric_underlay\n"
+        "random_geometric_underlay(6, seed=0)\n"
+        "assert 'scipy' in sys.modules\n"
+        "print('LAZY_OK')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ""},
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LAZY_OK" in proc.stdout
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
