@@ -14,6 +14,13 @@ one card, through the entry points a user calls:
   ``make_dpsgd_step`` → ``train_priced``), every update through the
   ``mixing_sgd_combine`` kernel, every round charged a τ sample that
   ``StochasticTau.price(engine="torch")`` priced on the card;
+* design — the paper instance designed by the port's designer on the
+  card (clique, ring, prim, FMMD-WP, SCA; every weight optimization in
+  float64 on the card), held to the JAX designer's supports and τ; the
+  paper's gate (``repro_torch.paper``: 120 priced D-PSGD steps of a small
+  LM per scheme, FMMD-P ≥ 80 % less modeled time than Clique at equal
+  loss); Qwen2-0.5B trained by 10 agents over FMMD-WP's designed W; and
+  the m = 1000 eigendecomposition on the host and on the card;
 * serving — ``launch.serve.build_serve_artifacts``: prefill of 32 prompts
   of 8192 tokens, then greedy decoding of 64 tokens against the KV caches,
   attention through the ``flash_attention`` (prefill) and
@@ -31,7 +38,7 @@ no CPU path. Any failed phase raises and the script exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
-``train``,
+``train``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check``, ``serve``, ``attention_main_shapes``), then the line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
 then
@@ -60,11 +67,19 @@ import torch
 from repro_torch import compat
 from repro_torch.configs import qwen2_0_5b
 from repro_torch.configs.base import DECODE_32K, ShapeConfig
-from repro_torch.core import dpsgd, gossip, mixing
+from repro_torch.core import dpsgd, gossip, mixing, weight_opt
+from repro_torch.core.fmmd import fmmd_wp
 from repro_torch.core.priced_training import (
     StaticTau,
     StochasticTau,
+    pricer_for,
     train_priced,
+)
+from repro_torch.core.sca import sca_design
+from repro_torch.core.topology_baselines import (
+    clique_design,
+    prim_design,
+    ring_design,
 )
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
@@ -89,6 +104,9 @@ from repro_torch.net import (
 )
 from repro_torch.net.stochastic import densify_realizations
 from repro_torch.net.topology import Graph
+from repro_torch.paper import fig5_training
+from repro_torch.paper import priced_training as paper_gate
+from repro_torch.paper import scenario as paper
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the roofline the
@@ -226,6 +244,35 @@ JAX_TAU_P99 = 79.64402079241292
 # 8 lowest-degree agents, one Markov group on the ring's mid-path hops,
 # TRAIN_ROLLOUTS samples priced once on the card before training.
 TRAIN_ROLLOUTS = 256
+
+# The design phase: repro_torch.paper.scenario's instance (roofnet_like
+# seed 0, the 10 lowest-degree agents, kappa 94.47 MB). Supports and routed
+# tau of the schemes whose support does not depend on where Adam ends, as
+# the JAX designer gives them on the CPU with x64 on (SCA's is printed
+# beside the port's, not held: it goes through Adam, whose trajectory is
+# chaotic in the last bit):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "from repro import compat
+#   compat.ensure_x64(); from benchmarks.common import *
+#   from repro.core import design; _, ov, cats = paper_scenario()
+#   for s in ('clique', 'ring', 'prim', 'fmmd-wp', 'sca'):
+#       o = design(s, cats, KAPPA, NUM_AGENTS, overlay=ov, iterations=12,
+#                  constants=CONSTANTS)
+#       print(s, repr(o.tau), repr(o.rho), o.design.activated_links)"
+JAX_DESIGN_LINKS = {
+    "clique": tuple((i, j) for i in range(10) for j in range(i + 1, 10)),
+    "ring": ((0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (6, 7), (7, 8),
+             (8, 9), (0, 9)),
+    "prim": ((0, 8), (1, 5), (2, 5), (3, 4), (3, 7), (3, 8), (5, 8), (6, 8),
+             (8, 9)),
+    "fmmd-wp": ((0, 9), (1, 2), (1, 4), (1, 6), (2, 5), (3, 4), (3, 5),
+                (3, 7), (4, 7), (6, 9), (7, 8), (8, 9)),
+}
+JAX_DESIGN_TAU = {
+    "clique": 6801.84, "ring": 1511.52, "prim": 1511.52, "fmmd-wp": 755.76,
+}
+JAX_DESIGN_SCA = {"links": 21, "tau": 3023.04, "rho": 0.704769947735897}
+FULL_WIDTH_AGENTS = 10    # Qwen2-0.5B trained over FMMD-WP's W
+EIGH_M = 1000
 
 
 def emit(phase: str, **fields) -> None:
@@ -651,6 +698,295 @@ def train_pricer(seed: int, m: int, kappa: float) -> dict:
     }
 
 
+def phase_design(seed: int, seq: int) -> dict:
+    """The paper's main path on the card: design W, run D-PSGD with it
+    through the kernel, charge every round its routed τ.
+
+    1. the gate, ``fig5_training.run(steps=120, device=None)``: the five
+       schemes designed (every weight optimization on the card) and
+       trained, every round charged its τ, and the gate's arithmetic; the
+       designs held to the JAX designer's supports and τ (``JAX_DESIGN_*``),
+       every W valid with ρ < 1; the same design algorithms timed on the
+       host for comparison;
+    2. the kernel against its plain version over each scheme's plan at
+       SMALL_LM's leaf shapes (fp32, 10 agents, up to 9 neighbours, the
+       padded slots of irregular tables);
+    3. Qwen2-0.5B, unreduced, trained by 10 agents over FMMD-WP's W;
+    4. the m = 1000 eigendecomposition, numpy on the host and
+       ``torch.linalg.eigh`` in float64 on the card.
+
+    Returns the launch counts of the ``mixing_sgd_combine`` runs and the
+    largest errors of its comparisons."""
+    _, ov, cats = paper.paper_scenario()
+    m = paper.NUM_AGENTS
+    leaves = len(tree_leaves(
+        model.init(fig5_training.SMALL_LM, 0, device="meta")))
+    ops.reset_launch_count()
+    t0 = time.perf_counter()
+    res = fig5_training.run(steps=paper_gate.STEPS, device=None)
+    torch.cuda.synchronize()
+    gate_seconds = time.perf_counter() - t0
+    gate_launches = ops.launch_count("mixing_sgd_combine")
+    want = len(fig5_training.SCHEMES) * paper_gate.STEPS * leaves
+    if gate_launches != want:
+        raise AssertionError(
+            f"gate: {gate_launches} mixing_sgd_combine launches, not "
+            f"schemes x steps x leaves = {want}")
+
+    # 1. The designs the gate trained over.
+    outcomes = {s: v["outcome"] for s, v in res.items()}
+    card = {}
+    for s, out in outcomes.items():
+        mixing.validate_mixing(out.design.matrix)
+        if not out.rho < 1.0:
+            raise AssertionError(f"design {s}: rho {out.rho} >= 1")
+        card[s] = {
+            "links": len(out.design.activated_links), "tau": out.tau,
+            "rho": out.rho, "routing": out.routing.method,
+            "design_seconds": out.design.design_seconds,
+            "routing_seconds": out.routing.solve_seconds,
+        }
+    for s, links in JAX_DESIGN_LINKS.items():
+        got = outcomes[s]
+        if got.design.activated_links != links or got.tau != JAX_DESIGN_TAU[s]:
+            raise AssertionError(
+                f"design {s}: links {got.design.activated_links} tau "
+                f"{got.tau!r}, the JAX designer's {links} {JAX_DESIGN_TAU[s]!r}")
+    # The design algorithms alone (no routing) on the host, for comparison.
+    host_designs = {
+        "clique": lambda: clique_design(m, device="cpu"),
+        "ring": lambda: ring_design(m, device="cpu"),
+        "prim": lambda: prim_design(ov, device="cpu"),
+        "fmmd-wp": lambda: fmmd_wp(m, 12, cats, paper.KAPPA, device="cpu"),
+        "sca": lambda: sca_design(m, cats, paper.KAPPA, paper.CONSTANTS,
+                                  device="cpu"),
+    }
+    host = {s: make().design_seconds for s, make in host_designs.items()}
+    emit(
+        "design", agents=m, kappa_bytes=paper.KAPPA, card=card,
+        host_design_seconds=host, jax_tau=JAX_DESIGN_TAU,
+        sca={"port": card["sca"], "jax": JAX_DESIGN_SCA},
+        adam_step_ms=adam_step_ms(),
+    )
+
+    # 2. The gate's verdict, and the kernel on the gate's own plans.
+    for s, v in res.items():
+        v["log"].validate()
+        if any(r.tau != v["tau"] for r in v["log"].records):
+            raise AssertionError(f"gate {s}: a round not charged its tau")
+        if s in JAX_DESIGN_TAU and v["tau"] != JAX_DESIGN_TAU[s]:
+            raise AssertionError(f"gate {s}: tau {v['tau']!r}")
+        if not all(np.isfinite(v["losses"])):
+            raise AssertionError(f"gate {s}: non-finite loss")
+    g = paper_gate.gate_numbers(res)
+    if not (g["reduction"] >= paper_gate.GATE_REDUCTION
+            and g["loss_gap"] <= paper_gate.LOSS_TOL):
+        raise AssertionError(f"gate failed on the card: {g}")
+    held = gate_plans_check(outcomes, seed)
+    emit(
+        "gate", steps=paper_gate.STEPS, **g,
+        gate_reduction=paper_gate.GATE_REDUCTION,
+        loss_tol=paper_gate.LOSS_TOL, seconds=gate_seconds,
+        kernel_launches=gate_launches, leaves=leaves,
+        schemes={
+            s: {"tau": v["tau"], "rho": v["rho"],
+                "final_loss": v["final_loss"],
+                "time_to_final": v["time_to_final"]}
+            for s, v in res.items()
+        },
+        kernel_check=held,
+    )
+    del res
+
+    # 3. Full width over the designed W.
+    full = full_width_over(outcomes["fmmd-wp"], seed, seq)
+
+    # 4. The eigendecomposition at m = 1000.
+    phase_eigh(seed)
+    return {
+        "gate": gate_launches, "gate_per_step": leaves,
+        "gate_max_abs_err": max(h["max_abs_err"] for h in held.values()),
+        "full_width": full["launches"],
+        "full_width_max_abs_err": full["max_abs_err"],
+    }
+
+
+def gate_plans_check(outcomes: dict, seed: int) -> dict:
+    """``mixing_sgd_combine`` against its plain version, with its two fault
+    controls, over each scheme's plan (``dpsgd.mixing_plan`` of its W, as
+    the gate's training builds it) at every leaf shape of SMALL_LM, fp32,
+    lr 0.1 as the gate trains."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    lr = 0.1
+    small = tree_paths(model.init(fig5_training.SMALL_LM, 0, device=dev))
+    out = {}
+    for s, o in outcomes.items():
+        plan = dpsgd.mixing_plan(o.design.matrix, dev)
+        worst, worst_rel = 0.0, 0.0
+        for path, leaf in small:
+            scale = leaf_scale(leaf)
+            x, g = combine_inputs(gen, plan.num_agents, leaf.numel(),
+                                  leaf.dtype, scale, lr)
+            err = hold_combine(x, g, plan, lr, scale, f"gate {s} {path}")
+            worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+        out[s] = {
+            "agents": plan.num_agents, "neighbours": plan.idx.shape[1],
+            "padded_slots": int((plan.weights == 0).sum()),
+            "leaves": len(small), "max_abs_err": worst,
+            "max_err_over_scale": worst_rel,
+            "rtol": FP32_TOL, "atol_over_scale": FP32_TOL,
+        }
+    return out
+
+
+def adam_step_ms(reps: int = 200) -> dict:
+    """Milliseconds of one ``weight_opt.adam_step`` at the clique support
+    (45 links, the widest the designs optimize), on the card and on the
+    host: mean of ``reps`` chained steps after 10 of warm-up."""
+    links = JAX_DESIGN_LINKS["clique"]
+    out = {}
+    for name, dev in (("card", torch.device("cuda")),
+                      ("host", torch.device("cpu"))):
+        rows = torch.tensor([i for i, _ in links], device=dev)
+        cols = torch.tensor([j for _, j in links], device=dev)
+        a = torch.full((len(links),), 0.1, dtype=torch.float64, device=dev)
+        mom, vel = torch.zeros_like(a), torch.zeros_like(a)
+        for t in range(1, reps + 11):
+            if t == 11:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            a, mom, vel, _ = weight_opt.adam_step(
+                a, mom, vel, float(t), 2560.0, rows, cols, 10, 0.05)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def full_width_over(outcome, seed: int, seq: int) -> dict:
+    """Qwen2-0.5B, unreduced, trained by 10 agents over ``outcome``'s W,
+    priced ``pricer_for(outcome, "static")``: 1 warm-up + 2 timed steps,
+    14 kernel launches a step; then the kernel against its plain version
+    over that W's plan at the run's two largest leaves. Memory is freed
+    before and after. Returns the launches and the comparisons' largest
+    error."""
+    cfg = qwen2_0_5b.CONFIG
+    m, lr, steps = FULL_WIDTH_AGENTS, 0.05, 3
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    w = outcome.design.matrix
+    stream = SyntheticTokenStream(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, num_agents=m,
+                   dirichlet_alpha=0.3, seed=1)
+    )
+    params = dpsgd.replicate_for_agents(model.init(cfg, seed, device=dev), m)
+    leaves = len(tree_leaves(params))
+    step_fn = dpsgd.make_dpsgd_step(
+        lambda p, b: model.loss(cfg, p, {"tokens": b}, remat=False)[0],
+        learning_rate=lr,
+    )
+    step_ms = []
+
+    def timed_step(p, b, plan_, k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(p, b, plan_, k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    pricer = pricer_for(outcome, "static")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    params, log = train_priced(
+        params, timed_step, lambda k: stream.stacked_batch(k, 1, seq), w,
+        pricer, steps, design_label=outcome.name, log_every=1,
+    )
+    launches = ops.launch_count("mixing_sgd_combine")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log.validate()
+    if launches != steps * leaves:
+        raise AssertionError(
+            f"full width: {launches} launches, not {steps} x {leaves}")
+    if any(r.tau != outcome.tau for r in log.records):
+        raise AssertionError("full width: a round not charged the design's tau")
+    if not all(np.isfinite(log.losses)):
+        raise AssertionError(f"full width: non-finite loss {log.losses}")
+    for path, p in tree_paths(params):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"full width: bad parameters {path}")
+    degree = int((np.abs(w - np.diag(np.diag(w))) > 0).sum(axis=1).max())
+    largest = sorted(tree_paths(params), key=lambda pl: -pl[1].numel())[:2]
+    by_size = [(path, p.numel() // m, p.dtype, leaf_scale(p))
+               for path, p in largest]
+    del largest
+    del params
+    torch.cuda.empty_cache()
+    # The kernel against its plain version over FMMD-WP's plan (padded
+    # irregular table) at the two largest leaves of this run, bf16.
+    plan = dpsgd.mixing_plan(w, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    held = []
+    for path, n, dtype, scale in by_size:
+        x, g = combine_inputs(gen, m, n, dtype, scale, lr)
+        err = hold_combine(x, g, plan, lr, scale, f"full width {path}")
+        rtol, atol = combine_tolerance(dtype, scale)
+        held.append({"leaf": path, "shape": [m, n], "dtype": str(dtype),
+                     "neighbours": plan.idx.shape[1], "data_scale": scale,
+                     "rtol": rtol, "atol": atol, "max_abs_err": err})
+        del x, g
+        torch.cuda.empty_cache()
+    emit(
+        "design_full_width", config=cfg.name, agents=m, design=outcome.name,
+        links=len(outcome.design.activated_links), max_degree=degree,
+        rho=outcome.rho, tau=outcome.tau, seq_len=seq, per_agent_batch=1,
+        lr=lr, leaves=leaves, kernel_launches=launches,
+        losses=log.losses, step_ms=step_ms,
+        step_ms_mean_timed=float(np.mean(step_ms[1:])),
+        peak_memory_gb=peak, kernel_check=held,
+    )
+    del log, plan
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "max_abs_err": max(h["max_abs_err"] for h in held)}
+
+
+def phase_eigh(seed: int) -> None:
+    """FMMD's per-iteration eigendecomposition at m = 1000 (a mixing
+    matrix minus J, on a support where each agent is linked to 3 random
+    others: mean degree about 6): numpy ``eigh`` on
+    the host against ``torch.linalg.eigh`` in float64 on the card, on the
+    same matrix; times are the mean of 5 after one warm-up."""
+    rng = np.random.default_rng(seed)
+    m = EIGH_M
+    links = sorted({
+        (min(i, j), max(i, j))
+        for i in range(m) for j in rng.choice(m, 3, replace=False) if i != j
+    })
+    a = mixing.matrix_from_weights(
+        m, links, rng.uniform(0.02, 0.2, len(links))) - mixing.ideal_matrix(m)
+    np.linalg.eigh(a)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        host_vals, _ = np.linalg.eigh(a)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    card_a = torch.from_numpy(a).cuda()
+    card_ms = time_cuda(lambda: torch.linalg.eigh(card_a), reps=5)
+    vals, vecs = torch.linalg.eigh(card_a)
+    err = float(np.abs(vals.cpu().numpy() - host_vals).max())
+    resid = float((card_a @ vecs - vecs * vals).abs().max())
+    if not (err <= 1e-10 and resid <= 1e-10):
+        raise AssertionError(f"eigh at m={m}: eig err {err}, residual {resid}")
+    emit(
+        "design_eigh", m=m, links=len(links), host_numpy_ms=host_ms,
+        card_torch_ms=card_ms, max_eigenvalue_diff=err,
+        card_residual=resid,
+    )
+    del card_a, vals, vecs
+    torch.cuda.empty_cache()
+
+
 def profile_step(step, step_ms: list) -> dict:
     """One more step (``step()``) under ``torch.profiler``: device time by
     kernel. The profiler slows the host several times over, so the share
@@ -858,6 +1194,52 @@ def phase_train(seed: int, steps: int, seq: int, with_profile: bool = False):
     return params, plan, launches, leaves
 
 
+def combine_tolerance(dtype: torch.dtype, scale: float) -> tuple[float, float]:
+    """(rtol, atol) of ``mixing_sgd_combine`` against its plain version:
+    one bf16 ulp in bf16, ``FP32_TOL`` in fp32, atol scaled by the data."""
+    if dtype == torch.bfloat16:
+        return BF16_ULP_RTOL, BF16_ULP_ATOL * scale
+    return FP32_TOL, FP32_TOL * scale
+
+
+def combine_inputs(gen, a_dim: int, n: int, dtype: torch.dtype,
+                   scale: float, lr: float):
+    """x ``[a_dim, n]`` of a leaf's dtype and magnitude with every agent's
+    row drawn on its own, and g with lr*g of x's order: a wrong row, a
+    wrapped offset or a dropped term changes the result by about its whole
+    value."""
+    x = torch.empty(a_dim, n, dtype=dtype, device="cuda")
+    x.normal_(generator=gen).mul_(scale)
+    g = torch.empty_like(x).normal_(generator=gen).mul_(scale / lr)
+    return x, g
+
+
+def hold_combine(x, g, plan, lr: float, scale: float, what: str) -> float:
+    """The kernel against its plain version on ``(x, g)`` over ``plan``
+    (``combine_tolerance``); returns the largest absolute error. The
+    comparison must be able to fail: the same output held against the
+    plain version of a faulty update (another agent's neighbour rows, the
+    gradient term dropped) has to be refused."""
+    rtol, atol = combine_tolerance(x.dtype, scale)
+    got = ops.mixing_sgd_combine_stacked(x, plan.idx, plan.weights, g, lr=lr)
+    want = ref.mixing_sgd_combine_stacked_ref(
+        x, plan.idx, plan.weights, g, lr=lr)
+    err = assert_close(got, want, rtol, what, atol=atol)
+    del want
+    for fault, bad_idx, bad_lr in (
+        ("wrong neighbour rows", plan.idx.roll(1, dims=0), lr),
+        ("gradient term dropped", plan.idx, 0.0),
+    ):
+        faulty = ref.mixing_sgd_combine_stacked_ref(
+            x, bad_idx, plan.weights, g, lr=bad_lr)
+        if compare(got, faulty, rtol, atol)[0]:
+            raise AssertionError(
+                f"{what}: the check cannot tell the kernel's output from "
+                f"an update with {fault}")
+        del faulty
+    return err
+
+
 def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
     """The kernel at the two largest leaves the main path gives it."""
     dev = torch.device("cuda")
@@ -875,44 +1257,14 @@ def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
     del src, dst
 
     shapes = []
-    wrong_idx = plan.idx.roll(1, dims=0)   # another agent's neighbours
     for path, leaf in by_size:
-        # The leaf's shape, dtype and magnitude with every agent's row drawn
-        # on its own, and lr*g of x's order: a wrong row, a wrapped offset
-        # or a dropped term changes the result by about its whole value.
         scale = leaf_scale(leaf)
-        x = torch.empty_like(leaf.reshape(a_dim, -1))
-        x.normal_(generator=gen).mul_(scale)
+        x, g = combine_inputs(gen, a_dim, leaf.numel() // a_dim, leaf.dtype,
+                              scale, lr)
         n = x.shape[1]
-        g = torch.empty_like(x).normal_(generator=gen).mul_(scale / lr)
         w_dense = plan.w.to(x.dtype)
-        tight = x.dtype == torch.bfloat16
-        rtol = BF16_ULP_RTOL if tight else FP32_TOL
-        atol = (BF16_ULP_ATOL if tight else FP32_TOL) * scale
-
-        got = ops.mixing_sgd_combine_stacked(x, plan.idx, plan.weights, g, lr=lr)
-        want = ref.mixing_sgd_combine_stacked_ref(
-            x, plan.idx, plan.weights, g, lr=lr
-        )
-        what = f"main-path shape {path}"
-        err = assert_close(got, want, rtol, what, atol=atol)
-        del want
-        # The comparison must be able to fail: the same output held against
-        # the plain version of a faulty update has to be refused.
-        for fault, bad_idx, bad_lr in (
-            ("wrong neighbour rows", wrong_idx, lr),
-            ("gradient term dropped", plan.idx, 0.0),
-        ):
-            faulty = ref.mixing_sgd_combine_stacked_ref(
-                x, bad_idx, plan.weights, g, lr=bad_lr
-            )
-            if compare(got, faulty, rtol, atol)[0]:
-                raise AssertionError(
-                    f"{what}: the check cannot tell the kernel's output "
-                    f"from an update with {fault}"
-                )
-            del faulty
-        del got
+        rtol, atol = combine_tolerance(x.dtype, scale)
+        err = hold_combine(x, g, plan, lr, scale, f"main-path shape {path}")
 
         ms = time_cuda(
             lambda: ops.mixing_sgd_combine_stacked(
@@ -1692,6 +2044,16 @@ def main(argv=None) -> int:
     kernels = [phase_kernels(params, plan, launches, leaves, args.seed)]
     del params, plan
     torch.cuda.empty_cache()
+    designed = phase_design(args.seed, args.seq)
+    kernels[0]["launches_gate"] = designed["gate"]
+    kernels[0]["launches_gate_per_step"] = designed["gate_per_step"]
+    kernels[0]["launches_full_width"] = designed["full_width"]
+    kernels[0]["max_abs_err_main_path_shapes"] = kernels[0]["max_abs_err"]
+    kernels[0]["max_abs_err_gate_plans"] = designed["gate_max_abs_err"]
+    kernels[0]["max_abs_err_full_width"] = designed["full_width_max_abs_err"]
+    kernels[0]["max_abs_err"] = max(
+        kernels[0]["max_abs_err"], designed["gate_max_abs_err"],
+        designed["full_width_max_abs_err"])
     phase_serve_check(args.seed)
     serve_run = phase_serve(args.seed, args.profile)
     kernels += phase_attention_kernels(args.seed, serve_run)

@@ -9,9 +9,9 @@ the parameter exchange:
 All m agents live on one device as a stacked tree of tensors with leading
 axis m. The default form of the step ends in ONE fused kernel launch per
 parameter leaf (``kernels.ops.mixing_sgd_combine_stacked``, gradient in
-the kernel's momentum slot); the ``mix_first`` and ``prox_mu`` forms need
-the mixed parameters on their own and stay plain torch ops
-(``mix_params``), as in the reference.
+the kernel's momentum slot); the ``mix_first`` and ``prox_mu`` forms and
+the FedDyn step (``make_feddyn_step``) need the mixed parameters on their
+own and stay plain torch ops (``mix_params``), as in the reference.
 """
 
 from __future__ import annotations
@@ -129,6 +129,20 @@ def _to_device(batch: Any, device: torch.device) -> Any:
     return tree_map(lambda b: torch.as_tensor(b).to(device), batch)
 
 
+def _lr_at(learning_rate: Callable[[int], float] | float, step: int) -> float:
+    if callable(learning_rate):
+        return float(learning_rate(step))
+    return float(learning_rate)
+
+
+def _require_plan(plan) -> None:
+    if not isinstance(plan, MixingPlan):
+        raise TypeError(
+            "step_fn takes a MixingPlan (mixing_plan(w, device)), not "
+            f"{type(plan).__name__}"
+        )
+
+
 def make_dpsgd_step(
     loss_fn: Callable[[Any, Any], torch.Tensor],
     learning_rate: Callable[[int], float] | float = 0.1,
@@ -153,20 +167,11 @@ def make_dpsgd_step(
     μ = 0 recovers plain D-PSGD bitwise.
     """
 
-    def lr_at(step: int) -> float:
-        if callable(learning_rate):
-            return float(learning_rate(step))
-        return float(learning_rate)
-
     def step_fn(params: Any, batch: Any, plan: MixingPlan, step: int):
-        if not isinstance(plan, MixingPlan):
-            raise TypeError(
-                "step_fn takes a MixingPlan (mixing_plan(w, device)), not "
-                f"{type(plan).__name__}"
-            )
+        _require_plan(plan)
         batch = _to_device(batch, tree_leaves(params)[0].device)
         loss, grads = agent_grads(loss_fn, params, batch)
-        eta = lr_at(step)
+        eta = _lr_at(learning_rate, step)
         with torch.no_grad():
             if mix_first:
                 if prox_mu:
@@ -189,6 +194,57 @@ def make_dpsgd_step(
             else:
                 new_params = fused_update(params, grads, plan, eta)
         return new_params, loss.mean()
+
+    return step_fn
+
+
+def feddyn_init(params: Any) -> Any:
+    """Zero-initialized per-agent dynamic-regularization state for
+    ``make_feddyn_step`` (same stacked tree shape as ``params``)."""
+    return tree_map(torch.zeros_like, params)
+
+
+def make_feddyn_step(
+    loss_fn: Callable[[Any, Any], torch.Tensor],
+    learning_rate: Callable[[int], float] | float = 0.1,
+    alpha: float = 0.01,
+) -> Callable:
+    """FedDyn-style dynamic regularization adapted to gossip.
+
+    Each agent carries a corrective state h_i (initialized by
+    ``feddyn_init``) that accumulates its historical drift from the
+    neighborhood anchor a_i = Σ_j W_ij x_j:
+
+        x_i ← a_i − η (g_i − h_i + α (x_i − a_i))
+        h_i ← h_i − α (x_i⁺ − a_i)
+
+    The state is strictly local: only x is gossiped, so the network price
+    per round is plain D-PSGD's. The update needs the anchor on its own,
+    which the fused kernel does not produce, so it is plain torch ops
+    (``mix_params``), as in the reference.
+
+    The returned step has signature ``step_fn((params, h), batch, plan,
+    step) -> ((params, h), loss)`` — thread it through
+    ``priced_training.train_priced`` with ``extract_params=lambda c:
+    c[0]``.
+    """
+
+    def step_fn(carry: Any, batch: Any, plan: MixingPlan, step: int):
+        _require_plan(plan)
+        params, h = carry
+        batch = _to_device(batch, tree_leaves(params)[0].device)
+        loss, grads = agent_grads(loss_fn, params, batch)
+        eta = _lr_at(learning_rate, step)
+        with torch.no_grad():
+            anchor = mix_params(params, plan.w)
+            new_params = tree_map(
+                lambda a, g, hh, p: a - eta * (g - hh + alpha * (p - a)),
+                anchor, grads, h, params,
+            )
+            new_h = tree_map(
+                lambda hh, x, a: hh - alpha * (x - a), h, new_params, anchor
+            )
+        return (new_params, new_h), loss.mean()
 
     return step_fn
 

@@ -18,11 +18,10 @@ port's ``net/``:
     batch prices as one pass of ``net/torch_engine.py`` on the device,
     against the ``DeviceIncidence`` cached per activated-link set.
 
-``pricer_for`` picks one from a design outcome. The outcome is
-duck-typed (``.routing``, ``.design.activated_links``, ``.tau``,
-``.tau_samples``, ``.name``) until the designer is ported; any object
-with ``kind`` and ``tau_for(round_index, t_start)`` is accepted as a
-pricer.
+``pricer_for`` picks one from a design outcome (``designer.DesignOutcome``,
+or any object with ``.routing``, ``.design.activated_links``, ``.tau``,
+``.tau_samples`` and ``.name``); any object with ``kind`` and
+``tau_for(round_index, t_start)`` is accepted as a pricer.
 
 The communication strategy is pluggable (``GossipStrategy``): one-shot
 mixing applies W once per model update; multi-round graph gossip applies

@@ -4,9 +4,10 @@ The port's own copy of the JAX package's ``net/topology.py``. The
 original builds its graphs with networkx; this copy carries ``Graph``, a
 small insertion-ordered graph that keeps networkx's storage and
 iteration orders, and copies of the searches and generators the model
-calls (bidirectional BFS, single-source BFS, connected components, the
-geometric, grid and path generators), so underlays, paths and
-categories come out bitwise the same.
+calls (bidirectional BFS, single-source BFS, connected components,
+Prim's minimum spanning tree, the geometric, grid and path generators),
+so underlays, paths, categories and spanning trees come out bitwise the
+same.
 
 The *underlay* is the physical communication network (e.g. a WiFi mesh);
 the *overlay* is the logical network formed by the learning agents, where
@@ -27,7 +28,9 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import itertools
+import math
 import random
 from typing import Iterable, Mapping, Sequence
 
@@ -310,6 +313,47 @@ def single_source_shortest_path(g: Graph, source) -> dict:
             if len(paths) == n:
                 return paths
     return paths
+
+
+def minimum_spanning_tree(g: Graph, weight: str = "weight") -> Graph:
+    """networkx's ``minimum_spanning_tree(g, weight, algorithm="prim")``:
+    the spanning tree (forest) as a new ``Graph`` holding every node and
+    the tree's edges with their attribute dicts.
+
+    Prim as networkx runs it, so ties fall the same way: the start node
+    is ``set(g).pop()`` (node 0 for agent indices 0..m−1), each visited
+    node's edges are pushed in adjacency order as ``(weight,
+    next(counter), u, v, data)`` on one heap, and a missing weight counts
+    1. A NaN weight raises.
+    """
+    tree = Graph()
+    tree.add_nodes_from((n, dict(g.nodes[n])) for n in g)
+    nodes = set(g)
+    counter = itertools.count()
+
+    def push(frontier, u, v, d):
+        wt = d.get(weight, 1)
+        if math.isnan(wt):
+            raise ValueError(f"NaN found as an edge weight. Edge {(u, v, d)}")
+        heapq.heappush(frontier, (wt, next(counter), u, v, d))
+
+    while nodes:
+        u = nodes.pop()
+        frontier: list = []
+        visited = {u}
+        for v, d in g.adj[u].items():
+            push(frontier, u, v, d)
+        while nodes and frontier:
+            _, _, u, v, d = heapq.heappop(frontier)
+            if v in visited or v not in nodes:
+                continue
+            tree.add_edge(u, v, **d)
+            visited.add(v)
+            nodes.discard(v)
+            for w, d2 in g.adj[v].items():
+                if w not in visited:
+                    push(frontier, v, w, d2)
+    return tree
 
 
 def path_graph(n: int) -> Graph:

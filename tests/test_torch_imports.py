@@ -49,7 +49,12 @@ def test_package_has_the_slices_modules():
         "repro_torch.net.topology", "repro_torch.net.demands",
         "repro_torch.net.categories", "repro_torch.net.routing",
         "repro_torch.net.simulator", "repro_torch.net.stochastic",
-        "repro_torch.net.torch_engine",
+        "repro_torch.net.torch_engine", "repro_torch.core.weight_opt",
+        "repro_torch.core.fmmd", "repro_torch.core.sca",
+        "repro_torch.core.topology_baselines", "repro_torch.core.designer",
+        "repro_torch.paper", "repro_torch.paper.scenario",
+        "repro_torch.paper.fig5_training",
+        "repro_torch.paper.priced_training",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention", "flash_attention_wgmma",
@@ -169,14 +174,16 @@ def _no_gpu():
 @pytest.mark.parametrize(
     "entry", ["resolve_device", "model_init", "mixing_plan", "train_priced",
               "train", "params_from_jax", "init_caches",
-              "build_serve_artifacts", "caches_from_jax"],
+              "build_serve_artifacts", "caches_from_jax",
+              "optimize_weights", "design", "gate_main"],
 )
 def test_device_none_raises_without_a_gpu(entry):
     from repro_torch import compat
     from repro_torch.configs import qwen2_0_5b
     from repro_torch.configs.base import DECODE_32K
-    from repro_torch.core import dpsgd, priced_training
+    from repro_torch.core import designer, dpsgd, priced_training, weight_opt
     from repro_torch.launch import serve
+    from repro_torch.paper import priced_training as gate
     from repro_torch.models import convert, model
 
     if not _no_gpu():
@@ -202,6 +209,12 @@ def test_device_none_raises_without_a_gpu(entry):
             model.init_caches(cfg, 1, 8)
         elif entry == "build_serve_artifacts":
             serve.build_serve_artifacts(cfg, DECODE_32K)
+        elif entry == "optimize_weights":
+            weight_opt.optimize_weights(3, [(0, 1), (1, 2)])
+        elif entry == "design":
+            designer.design("ring", None, 1.0, 4)
+        elif entry == "gate_main":
+            gate.main([])
         else:
             convert.caches_from_jax({}, cfg)
 
