@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--steps N] [--seq N] [--profile]
 
-Drives the port's paths at the full width and depth of Qwen2-0.5B on
-one card, through the entry points a user calls:
+Drives the port's paths at the full width and depth of Qwen2-0.5B (and,
+for serving, of Gemma2-2B) on one card, through the entry points a user
+calls:
 
 * network pricing — the port's ``net/`` and its float64 torch rollout
   engine price 256 Monte-Carlo rollouts of a 220-agent star in one pass
@@ -24,12 +25,15 @@ one card, through the entry points a user calls:
 * serving — ``launch.serve.build_serve_artifacts``: prefill of 32 prompts
   of 8192 tokens, then greedy decoding of 64 tokens against the KV caches,
   attention through the ``flash_attention`` (prefill) and
-  ``decode_attention`` (decode) kernels.
+  ``decode_attention`` (decode) kernels; then Gemma2-2B (head_dim 256,
+  local window-4096 and global layers, softcap 50) with 8 prompts of 8192
+  tokens and 64 greedy tokens through the same two kernels.
 
 First it builds the hand-written kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
 each, all at once; ``flash_attention`` has two, its ``wgmma`` design for
-bf16 at head_dim 64/128 and its ``mma.sync``/FFMA designs for the rest;
+bf16 at head_dim 64/128/256 and its ``mma.sync``/FFMA designs for the
+rest;
 ``decode_attention`` has two, its ``mma`` design for bf16 and its FFMA
 design for float32) and holds each against its plain PyTorch version on
 the card, also at the shapes the paths give them, and shows that the
@@ -39,7 +43,9 @@ no CPU path. Any failed phase raises and the script exits non-zero.
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
 ``train``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
-``serve_check``, ``serve``, ``attention_main_shapes``), then the line
+``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
+``serve_gemma2``, ``attention_main_shapes``, ``ffma_times``), then the
+line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
 then
 ``{"kernels": [...]}`` (one entry per kernel: launches on its path, error
@@ -65,7 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs import gemma2_2b, qwen2_0_5b
 from repro_torch.configs.base import DECODE_32K, ShapeConfig
 from repro_torch.core import dpsgd, gossip, mixing, weight_opt
 from repro_torch.core.fmmd import fmmd_wp
@@ -117,7 +123,7 @@ PEAK_BF16_FLOPS = 989e12
 
 # kernel -> (source in csrc/ that serves its main path, the TPU kernel it
 # replaces). Both attention kernels have two sources, chosen by (dtype,
-# head_dim): the main path (bf16, head_dim 64) runs
+# head_dim): the serving paths (bf16, head_dim 64 and 256) run
 # flash_attention_wgmma.cu and decode_attention_mma.cu.
 KERNELS = {
     "mixing_sgd_combine": (
@@ -177,8 +183,9 @@ DECODE_CASES = [
     (3, 4, 1, 512, 32, 1, None, torch.float32),
     (2, 4, 2, 512, 64, 511, 50.0, torch.bfloat16),
 ]
-# The wgmma design of flash_attention (bf16, head_dim 64 and 128), run at
-# both head_dims: (b, h, kv, sq, sk, causal, window, softcap, layout), with
+# The wgmma design of flash_attention (bf16, head_dim 64, 128 and 256), run
+# at every head_dim in WGMMA_CASE_HEAD_DIMS: (b, h, kv, sq, sk, causal,
+# window, softcap, layout), with
 # layout "model" ([B,S,H,D] storage, transposed views), "dense"
 # ([B,H,S,D]) or "fused" (q, k, v sliced from one [B,S,H+2KV,D] tensor).
 FLASH_WGMMA_CASES = [
@@ -192,6 +199,9 @@ FLASH_WGMMA_CASES = [
     (2, 4, 1, 260, 100, False, 64, 30.0, "model"),     # rows with no key
     (1, 14, 2, 1000, 1000, True, None, None, "fused"),
 ]
+# A wrong swizzle, LBO/SBO or fragment packing gives garbage at one
+# head_dim only, with no fault: every check runs the table at each.
+WGMMA_CASE_HEAD_DIMS = (64, 128, 256)
 # Decode in float32 at head_dim 256 (32-slot tiles): (b, h, kv, s, d,
 # length, softcap, dtype).
 DECODE_F32_D256_CASES = [
@@ -218,9 +228,22 @@ DECODE_MMA_CASES = [
 # Serving main path: B prompts of PROMPT tokens, caches MAX_LEN deep,
 # NEW_TOKENS greedy tokens (the first from prefill's logits).
 SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_NEW_TOKENS = 32, 8192, 8256, 64
+# Gemma2-2B served at full width: 8 prompts of 8192 tokens, global caches
+# 8256 deep (local layers keep the 4096-slot ring), 64 greedy tokens.
+GEMMA2_SERVE_BATCH = 8
+# Its two attention layers at that prompt: (name, batch, window); every
+# layer has softcap 50. The local layer is timed at 2 requests (its
+# earlier timings' shape).
+GEMMA2_LAYERS = (("local", 2, 4096), ("global", GEMMA2_SERVE_BATCH, None))
+# A key tile of the wgmma design at head_dim 256: the faulty plain version
+# at Gemma2's layers leaves one such tile out.
+WGMMA_D256_TILE = 64
 # End-to-end check: the JAX package's own model tolerances
 # (tests/test_models_smoke.py): prefill 2e-2, decode 3e-2, rtol = atol.
-CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 2, 512, 8
+# (config, batch, prompt): Qwen2-0.5B's, and Gemma2-2B's with a prompt
+# longer than its window, so the local layers' window and ring bind.
+CHECK_STEPS = 8
+SERVE_CHECKS = ((qwen2_0_5b.CONFIG, 2, 512), (gemma2_2b.CONFIG, 1, 4608))
 FP32_ORDER_ATOL = 1e-4  # float32 logits summed in another order
 
 TIMING_REPS = 20
@@ -1433,34 +1456,39 @@ def refuse(what: str, got, faulty, scaled: bool) -> dict:
     return {"fault": what, "largest_err_over_limit": worst}
 
 
-def strict_causal_plain(q, k, v):
-    """The plain flash version with the causal diagonal excluded
-    (key j valid for query i only when j < i)."""
+def faulty_flash_plain(q, k, v, fault, row0: int = 0, window=None,
+                       softcap=None):
+    """The plain flash version (causal, the layer's window and softcap)
+    with one fault, for the query rows ``row0 .. row0 + Sq - 1`` that
+    ``q`` holds: ``"head_mod"`` puts query head h on KV head h % KV;
+    ``"strict_causal"`` excludes the causal diagonal (key j valid for
+    query i only when j < i); ``("drop", start)`` leaves keys ``start`` ..
+    ``start + WGMMA_D256_TILE - 1`` out (a kernel that skips one tile)."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    qg = q.to(torch.float32).reshape(b, kv, h // kv, sq, d)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32)) * d**-0.5
-    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(-1)
-    s = s.masked_fill_(~valid, ref.NEG_INF)
-    p = torch.softmax(s, dim=-1).masked_fill_(~valid, 0.0)
-    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return out.reshape(b, h, sq, d).to(q.dtype)
-
-
-def head_mod_plain(q, k, v):
-    """The plain flash version with query head h on KV head h % KV."""
-    h, kv = q.shape[1], k.shape[1]
-    heads = torch.tensor([i % kv for i in range(h)], device=q.device)
-    return ref.flash_attention_ref(
-        q, k.index_select(1, heads), v.index_select(1, heads), causal=True
-    )
+    if fault == "head_mod":
+        heads = torch.tensor([i % kv for i in range(h)], device=q.device)
+        k, v, kv = k.index_select(1, heads), v.index_select(1, heads), h
+    s = torch.einsum("bkgqd,bksd->bkgqs", ref._grouped(q, kv),
+                     k.to(torch.float32)) * d**-0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(row0, row0 + sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    valid = kpos < qpos if fault == "strict_causal" else kpos <= qpos
+    if window is not None:
+        valid = valid & (kpos > qpos - window)
+    if isinstance(fault, tuple):
+        start = fault[1]
+        valid = valid & ((kpos < start) | (kpos >= start + WGMMA_D256_TILE))
+    return ref._softmax_pv(s, valid, v).reshape(b, h, sq, d).to(q.dtype)
 
 
 def phase_attention_check(seed: int) -> list[dict]:
     """Both attention kernels against their plain versions on the card at
     small shapes: the case tables of tests/test_kernels.py, ragged S,
     ``length`` as a [B] vector, and head_dim 16 of the smoke configs; the
-    wgmma design of flash_attention at head_dim 64 and 128
+    wgmma design of flash_attention at head_dim 64, 128 and 256
     (``FLASH_WGMMA_CASES``: window with softcap, non-causal Sq != Sk, S in
     {1, 77, 129, 1000}, groups of 1 and 7, strided and fused views, rows
     with no key), asserting that design ran; decode in float32 at head_dim
@@ -1492,7 +1520,7 @@ def phase_attention_check(seed: int) -> list[dict]:
             f"flash b={b} h={h} kv={kv} s={s} d={d} window={window} "
             f"softcap={cap} {dt} (model layout)", q, k, v, window, cap)[0])
 
-    for d in (64, 128):
+    for d in WGMMA_CASE_HEAD_DIMS:
         for b, h, kv, sq, sk, causal, window, cap, layout in FLASH_WGMMA_CASES:
             if layout == "fused":
                 t = torch.randn((b, sq, h + 2 * kv, d), generator=gen,
@@ -1510,6 +1538,11 @@ def phase_attention_check(seed: int) -> list[dict]:
             if res["design"] != "wgmma":
                 raise AssertionError(f"{res['case']} ran {res['design']}")
             results.append(res)
+            # also at the main paths' data-scaled limit
+            results.append(hold(
+                f"{res['case']} (data-scaled limit)", got,
+                ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        softcap=cap), scaled=True))
             if window is not None and not causal and sq > sk - 1 + window:
                 # rows that see no key are zeros, exactly
                 if bool(got[:, :, sk - 1 + window:].ne(0).any()):
@@ -1574,32 +1607,33 @@ def serve_params(cfg, seed: int):
     return model.init(cfg, gen, device="cuda")
 
 
-def phase_serve_check(seed: int) -> None:
-    """The serving path end to end on the card: prefill of a 512-token
-    prompt and 8 teacher-forced decode steps of Qwen2-0.5B at full width
-    and depth, against ``model.forward`` (torch ops, no kernel) at the
-    same positions.
+def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
+    """The serving path end to end on the card: prefill of ``b`` prompts of
+    ``s`` tokens and CHECK_STEPS teacher-forced decode steps of ``cfg`` at
+    full width and depth, against ``model.forward`` (torch ops, no kernel)
+    at the same positions.
 
     * float32 (the config with float32 parameters and compute, so the
       kernels' float32 paths): within the JAX package's own model
       tolerances, 2e-2 prefill / 3e-2 decode (tests/test_models_smoke.py).
-    * bfloat16 (the served config): two bf16 paths through 24 layers
+    * bfloat16 (the served config): two bf16 paths through every layer
       round the residual stream differently and part by several bf16
-      ulps at the logits, more than 2e-2 (0.0625 in the first run), so
-      each is held against the float32 forward of the same parameters:
-      the kernel path may be at most twice as far from it as the torch-op
-      path is, plus 1e-4 (float32 summation order).
-    """
-    cfg = qwen2_0_5b.CONFIG
+      ulps at the logits, more than 2e-2 (0.0625 in the first run of
+      Qwen2-0.5B), so each is held against the float32 forward of the
+      same parameters: the kernel path may be at most twice as far from it
+      as the torch-op path is, plus 1e-4 (float32 summation order).
+
+    Returns the attention kernels' launches by design in each run."""
     cfg32 = dataclasses.replace(
         cfg, param_dtype="float32", compute_dtype="float32"
     )
-    b, s, steps = CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS
+    steps = CHECK_STEPS
     params = serve_params(cfg, seed)
     rng = np.random.default_rng(seed + 6)
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (b, s + steps), dtype=np.int32)
     ).to("cuda")
+    launches = {}
 
     def run(c, p):
         """(serving path's logits, forward's) at positions s-1 .. s+steps-1."""
@@ -1608,24 +1642,32 @@ def phase_serve_check(seed: int) -> None:
         )
         with torch.inference_mode():
             want, _ = model.forward(c, p, {"tokens": toks}, remat=False)
+        ops.reset_launch_count()
         logits, caches = art.prefill_fn(p, {"tokens": toks[:, :s]})
         got = [logits[:, 0]]
         for t in range(steps):
             logits, caches = art.step_fn(p, caches, toks[:, s + t:s + t + 1])
             got.append(logits[:, 0])
+        launches[c.compute_dtype] = {
+            "flash_attention": flash_mod.launch_count_by_design(),
+            "decode_attention": decode_mod.launch_count_by_design(),
+        }
         pos = {key: c_["pos"].tolist() for key, c_ in caches.items()}
         if any(v != [s + steps] * c.num_groups for v in pos.values()):
             raise AssertionError(f"serve_check: cache positions {pos}")
-        return torch.stack(got, dim=1), want[:, s - 1:s + steps]
+        return (torch.stack(got, dim=1),
+                want[:, s - 1:s + steps].to(torch.float32, copy=True))
 
     got32, truth = run(cfg32, tree_map(lambda p: p.to(torch.float32), params))
     err32 = {
         "prefill": assert_close(got32[:, 0], truth[:, 0], 2e-2,
-                                "serve_check float32 prefill logits"),
+                                f"serve_check {cfg.name} float32 prefill logits"),
         "decode": assert_close(got32[:, 1:], truth[:, 1:], 3e-2,
-                               "serve_check float32 decode logits"),
+                               f"serve_check {cfg.name} float32 decode logits"),
     }
+    del got32
     got16, want16 = run(cfg, params)
+    got16 = got16.float()
     kernel_err = (got16 - truth).abs()
     forward_err = (want16 - truth).abs()
     bf16 = {
@@ -1639,29 +1681,36 @@ def phase_serve_check(seed: int) -> None:
         bf16["kernel_path_vs_fp32_max"]
         <= 2 * bf16["forward_vs_fp32_max"] + FP32_ORDER_ATOL
     ):
-        raise AssertionError(f"serve_check bfloat16: {bf16}")
+        raise AssertionError(f"serve_check {cfg.name} bfloat16: {bf16}")
     emit(
         "serve_check", config=cfg.name, batch=b, prompt=s,
         decode_steps=steps, float32_max_abs_err=err32,
         float32_tolerance={"prefill": 2e-2, "decode": 3e-2},
         bfloat16=bf16, bfloat16_rule="kernel path vs fp32 <= 2 x forward vs fp32 + 1e-4",
-        logit_scale=float(truth.abs().mean()),
+        logit_scale=float(truth.abs().mean()), launches_by_design=launches,
     )
+    del params, truth, got16, want16
+    torch.cuda.empty_cache()
+    return launches
 
 
-def phase_serve(seed: int, with_profile: bool = False) -> dict:
-    """The serving main path: B prompts through ``prefill_fn``, then greedy
-    decoding (the first token from prefill's logits, then one ``step_fn``
-    call per token), as examples/serve_decode.py does. Launch counters are
-    set to 0 just before and read just after. ``with_profile``: one more
-    decode step (into the cache's last slot) under the profiler. Returns
-    the counts: every kernel's launches in the run, flash launches in the
-    prefill and decode launches in the first step."""
-    cfg = qwen2_0_5b.CONFIG
-    b, prompt, max_len = SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN
+def phase_serve(seed: int, with_profile: bool = False,
+                cfg=qwen2_0_5b.CONFIG, b: int = SERVE_BATCH,
+                phase: str = "serve") -> dict:
+    """A serving main path: ``b`` prompts of SERVE_PROMPT tokens of ``cfg``
+    through ``prefill_fn``, then greedy decoding (the first token from
+    prefill's logits, then one ``step_fn`` call per token), as
+    examples/serve_decode.py does. Launch counters are set to 0 just
+    before and read just after; every layer's attention must go through
+    the bf16 designs (``wgmma`` flash, ``mma`` decode). ``with_profile``:
+    one more decode step (into the cache's last slot) under the profiler.
+    Returns the counts: every kernel's launches in the run, flash launches
+    in the prefill (and by design) and decode launches in the first step
+    (and by design)."""
+    prompt, max_len = SERVE_PROMPT, SERVE_MAX_LEN
     steps = SERVE_NEW_TOKENS - 1
     art = serve.build_serve_artifacts(
-        cfg, ShapeConfig("serve_8k", max_len, b, "prefill")
+        cfg, ShapeConfig(f"{phase}_8k", max_len, b, "prefill")
     )
     params = serve_params(cfg, seed)
     rng = np.random.default_rng(seed)
@@ -1735,7 +1784,7 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
         if with_profile else None
     )
     emit(
-        "serve", config=cfg.name, batch=b, prompt=prompt, max_len=max_len,
+        phase, config=cfg.name, batch=b, prompt=prompt, max_len=max_len,
         new_tokens=SERVE_NEW_TOKENS, prefill_seconds=prefill_s,
         prefill_tokens_per_s=b * prompt / prefill_s,
         decode_step_ms=step_ms,
@@ -1751,8 +1800,18 @@ def phase_serve(seed: int, with_profile: bool = False) -> dict:
     del params, caches, logits
     torch.cuda.empty_cache()
     return {"launches": launches, "flash_per_prefill": flash_per_prefill,
+            "flash_by_design": flash_designs,
             "decode_per_step": decode_per_step[0],
             "decode_by_design": decode_designs}
+
+
+def phase_serve_gemma2(seed: int) -> dict:
+    """Gemma2-2B served at full width (26 layers, head_dim 256, local and
+    global attention, softcap 50): ``phase_serve`` with 8 prompts, 26
+    ``wgmma`` flash launches a prefill and 26 ``mma`` decode launches a
+    step."""
+    return phase_serve(seed, cfg=gemma2_2b.CONFIG, b=GEMMA2_SERVE_BATCH,
+                       phase="serve_gemma2")
 
 
 # ---------------------------------------------------------------------------
@@ -1778,10 +1837,28 @@ def flash_flops(q, window=None) -> int:
     return 4 * b * h * d * live
 
 
+def library_attention_f32(q, k, v, causal: bool):
+    """The float32 yardstick: SDPA's memory-efficient backend (the flash
+    backend takes no float32) with TF32 off, on k/v already repeated to
+    the query heads (``repeat_kv``, outside the timing)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal
+        )
+
+
+def repeat_kv(t, heads: int):
+    return t.repeat_interleave(heads // t.shape[1], dim=1)
+
+
 def flash_bound(q, k, window=None) -> tuple[float, str]:
-    """Least ms: the live pairs' flops at the bf16 tensor-core peak, or
-    q, k, v, o moved once at the memory rate."""
-    t_ops = flash_flops(q, window) / PEAK_BF16_FLOPS * 1e3
+    """Least ms: the live pairs' flops at the peak of q's type (bf16 on
+    the tensor cores; float32 on FFMA, TF32 being off), or q, k, v, o
+    moved once at the memory rate."""
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops = flash_flops(q, window) / peak * 1e3
     moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -1805,9 +1882,76 @@ def tile_dropped_plain(q, k, v, length: int, start: int):
         length - DECODE_TILE)
 
 
-def phase_attention_kernels(seed: int, serve_run: dict | None = None
-                            ) -> list[dict]:
-    """The attention kernels at the main path's shapes, each held against
+def hold_flash_layer(what, q, k, v, requests, window=None, softcap=None,
+                     drop_tile: int | None = None):
+    """A main-path flash layer against its plain version at the
+    data-scaled limit (``check_flash`` on ``requests``), and the faulty
+    plain versions that limit must refuse on request 0's later half of
+    query rows (each keeps the layer's window and softcap): ``kv = h % KV``,
+    the causal diagonal excluded and, with ``drop_tile``, keys
+    ``drop_tile`` .. ``drop_tile + 63`` left out. Returns (result,
+    refusals)."""
+    res, got = check_flash(what, q, k, v, window, softcap, requests=requests)
+    row0 = q.shape[2] // 2
+    faults = [("kv = h % KV", "head_mod"),
+              ("the causal diagonal excluded", "strict_causal")]
+    if drop_tile is not None:
+        faults.append((f"keys {drop_tile} .. {drop_tile + WGMMA_D256_TILE - 1}"
+                       " left out (one key tile)", ("drop", drop_tile)))
+    refused = []
+    for text, fault in faults:
+        bad = faulty_flash_plain(q[:1, :, row0:], k[:1], v[:1], fault, row0,
+                                 window, softcap)
+        refused.append(refuse(
+            f"a flash plain version with {text} ({what}, request 0, query "
+            f"rows from {row0})", got[:1, :, row0:], bad, scaled=True))
+        del bad
+    del got
+    torch.cuda.empty_cache()
+    return res, refused
+
+
+def time_flash_layer(q, k, v, window=None, softcap=None) -> dict:
+    """The kernel's time at a layer beside its bound and live TFLOP/s."""
+    ms = time_cuda(lambda: ops.flash_attention(q, k, v, window=window,
+                                               softcap=softcap),
+                   reps=TIMING_REPS)
+    bound, by = flash_bound(q, k, window)
+    return {"ms": ms, "bound_ms": bound, "bound_by": by,
+            "live_tflops_per_s": flash_flops(q, window) / (ms * 1e-3) / 1e12}
+
+
+def gemma2_inputs(gen, batch: int):
+    cfg = gemma2_2b.CONFIG
+    return attn_inputs(gen, batch, cfg.num_heads, cfg.num_kv_heads,
+                       SERVE_PROMPT, SERVE_PROMPT, cfg.resolved_head_dim,
+                       torch.bfloat16)
+
+
+def gemma2_layer_times(seed: int) -> list[dict]:
+    """Gemma2-2B's two prefill layers (GEMMA2_LAYERS, bf16, softcap 50)
+    timed alone, no check: the one measurement that also runs against an
+    earlier tree of the package, to compare designs in one call."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    cap = gemma2_2b.CONFIG.attn_logit_softcap
+    out = []
+    for name, batch, window in GEMMA2_LAYERS:
+        q, k, v = gemma2_inputs(gen, batch)
+        out.append({
+            "case": f"Gemma2-2B {name} layer", "q": list(q.shape),
+            "k": list(k.shape), "window": window, "softcap": cap,
+            "design": flash_mod.design(q.dtype, q.shape[-1]),
+            **time_flash_layer(q, k, v, window, cap),
+        })
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("gemma2_layer_times", layers=out)
+    return out
+
+
+def phase_attention_kernels(seed: int, serve_run: dict | None = None,
+                            gemma2_run: dict | None = None) -> list[dict]:
+    """The attention kernels at the main paths' shapes, each held against
     its plain version at the data-scaled limit (``attn_limit``) and timed
     with its plain version and one library call:
 
@@ -1820,11 +1964,15 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
     * the served decode step and DECODE_32K's decode layer (also with
       ragged [B] lengths); at both, the limit refuses a plain version with
       ``length - 1`` and one with a tile of the cache left out;
-    * Gemma2-2B's local layer (window 4096, softcap 50), both requests,
-      timed beside its bound (no library call computes it).
+    * Gemma2-2B's local layer (window 4096, softcap 50, 2 requests) and
+      global layer (causal, softcap 50, 8 requests), plain version on the
+      first and last request, with the same two controls and a third that
+      leaves one 64-key tile out, each keeping window and softcap; timed
+      beside their bounds (no library call computes a softcap).
 
-    ``serve_run``: ``phase_serve``'s counts, put in the entries; without
-    it the entries carry no launch counts."""
+    ``serve_run`` / ``gemma2_run``: ``phase_serve``'s counts of the two
+    served models, put in the entries; without them the entries carry no
+    launch counts."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     cfg = qwen2_0_5b.CONFIG
     h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -1833,21 +1981,11 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
 
     q, k, v = attn_inputs(gen, SERVE_BATCH, h, kv, SERVE_PROMPT,
                           SERVE_PROMPT, d, bf16)
-    res, got = check_flash(
+    res, refusals = hold_flash_layer(
         f"flash Qwen2-0.5B prefill layer q={list(q.shape)} "
         f"k={list(k.shape)} bf16", q, k, v, requests=(0, SERVE_BATCH - 1))
     cases.append(res)
-    late = slice(SERVE_PROMPT // 2, None)
-    for fault, faulty in (("kv = h % KV", head_mod_plain),
-                          ("the causal diagonal excluded", strict_causal_plain)):
-        bad = faulty(q[:1], k[:1], v[:1])
-        refused.append(refuse(
-            f"a flash plain version with {fault} (prefill layer, request 0, "
-            f"query rows from {SERVE_PROMPT // 2})",
-            got[:1, :, late], bad[:, :, late], scaled=True))
-        del bad
-    del got
-    torch.cuda.empty_cache()
+    refused += refusals
     flash_ms = time_cuda(lambda: ops.flash_attention(q, k, v),
                          reps=TIMING_REPS)
 
@@ -1881,20 +2019,11 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
     b128 = 4
     q, k, v = attn_inputs(gen, b128, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128,
                           bf16)
-    res, got = check_flash(
+    res, refusals = hold_flash_layer(
         f"flash head_dim-128 layer q={list(q.shape)} k={list(k.shape)} bf16",
         q, k, v, requests=(0, b128 - 1))
     cases.append(res)
-    for fault, faulty in (("kv = h % KV", head_mod_plain),
-                          ("the causal diagonal excluded", strict_causal_plain)):
-        bad = faulty(q[:1], k[:1], v[:1])
-        refused.append(refuse(
-            f"a flash plain version with {fault} (head_dim-128 layer, "
-            f"request 0, query rows from {SERVE_PROMPT // 2})",
-            got[:1, :, late], bad[:, :, late], scaled=True))
-        del bad
-    del got
-    torch.cuda.empty_cache()
+    refused += refusals
     ms128 = time_cuda(lambda: ops.flash_attention(q, k, v), reps=TIMING_REPS)
     lib128 = time_cuda(lambda: library_attention(q, k, v, True),
                        reps=TIMING_REPS)
@@ -1980,28 +2109,27 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
         "shapes": shapes,
     }
 
-    # Gemma2-2B's local layer (bf16, head_dim 256: the mma_sync design).
-    # No single PyTorch call computes a window with a softcap: no library
-    # time.
-    q, k, v = attn_inputs(gen, 2, 8, 4, 8192, 8192, 256, bf16)
-    res, _ = check_flash(
-        "flash Gemma2-2B local layer q=[2, 8, 8192, 256] bf16 "
-        "window=4096 softcap=50", q, k, v, window=4096, softcap=50.0,
-        requests=(0, 1))
-    cases.append(res)
-    ms_local = time_cuda(
-        lambda: ops.flash_attention(q, k, v, window=4096, softcap=50.0),
-        reps=TIMING_REPS)
-    bound_local, by_local = flash_bound(q, k, window=4096)
-    flash["shapes"].append({
-        "case": "Gemma2-2B local layer (window 4096, softcap 50)",
-        "q": list(q.shape), "k": list(k.shape), "design": res["design"],
-        "max_abs_err": res["max_abs_err"], "ms": ms_local,
-        "library_ms": None, "bound_ms": bound_local, "bound_by": by_local,
-        "live_tflops_per_s": flash_flops(q, 4096) / (ms_local * 1e-3) / 1e12,
-    })
-    del q, k, v
-    torch.cuda.empty_cache()
+    # Gemma2-2B's two layers (bf16, head_dim 256: the wgmma design, 64-key
+    # tiles). No single PyTorch call computes a softcap: no library time.
+    cap = gemma2_2b.CONFIG.attn_logit_softcap
+    drop = SERVE_PROMPT * 3 // 4  # a tile every later row of both layers sees
+    for name, batch, window in GEMMA2_LAYERS:
+        q, k, v = gemma2_inputs(gen, batch)
+        res, refusals = hold_flash_layer(
+            f"flash Gemma2-2B {name} layer q={list(q.shape)} "
+            f"k={list(k.shape)} bf16 window={window} softcap={cap}",
+            q, k, v, requests=(0, batch - 1), window=window, softcap=cap,
+            drop_tile=drop)
+        cases.append(res)
+        refused += refusals
+        flash["shapes"].append({
+            "case": f"Gemma2-2B {name} layer (window {window}, softcap {cap})",
+            "q": list(q.shape), "k": list(k.shape), "design": res["design"],
+            "max_abs_err": res["max_abs_err"], "library_ms": None,
+            **time_flash_layer(q, k, v, window, cap),
+        })
+        del q, k, v
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit("attention_main_shapes", cases=cases, refused=refused,
          limit={"rtol": ATTN_ROW_RTOL, "atol_over_row_rms": ATTN_ROW_ATOL})
@@ -2012,7 +2140,96 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None
         decode["launches"] = serve_run["launches"]["decode_attention"]
         decode["launches_per_step"] = serve_run["decode_per_step"]
         decode["launches_by_design"] = serve_run["decode_by_design"]
+    if gemma2_run is not None:
+        flash["launches_serve_gemma2"] = gemma2_run["launches"]["flash_attention"]
+        flash["launches_serve_gemma2_by_design"] = gemma2_run["flash_by_design"]
+        decode["launches_serve_gemma2"] = gemma2_run["launches"]["decode_attention"]
+        decode["launches_serve_gemma2_per_step"] = gemma2_run["decode_per_step"]
+        decode["launches_serve_gemma2_by_design"] = gemma2_run["decode_by_design"]
     return [flash, decode]
+
+
+def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
+    """The float32 ``ffma`` designs of both attention kernels at the float32
+    ``serve_check`` shapes (SERVE_CHECKS): each config's prefill layers
+    and its decode step at the last teacher-forced position, held to
+    their plain versions at the tables' 2e-5, timed beside their bounds
+    (flash: flops at the FFMA peak, TF32 being off; decode: bytes), their
+    plain versions and, where no softcap rules it out, SDPA's
+    memory-efficient backend in float32. ``checks``: the launches by
+    design of each ``serve_check`` run, by config name."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    f32 = torch.float32
+    rows = {"flash_attention": [], "decode_attention": []}
+    for cfg, b, s in SERVE_CHECKS:
+        launches = {} if checks is None else {
+            "launches_serve_check_float32": checks[cfg.name]["float32"]}
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        cap = cfg.attn_logit_softcap
+        depth = s + CHECK_STEPS
+        for kind in sorted(set(cfg.block_pattern)):
+            window = cfg.sliding_window if kind == "local" else None
+            q, k, v = attn_inputs(gen, b, h, kv, s, s, d, f32)
+            res = check_flash(f"flash ffma {cfg.name} {kind} layer "
+                              f"q={list(q.shape)} float32", q, k, v,
+                              window, cap)[0]
+            row = {"config": cfg.name, "layer": kind, "q": list(q.shape),
+                   "k": list(k.shape), "window": window, "softcap": cap,
+                   "design": res["design"], "max_abs_err": res["max_abs_err"],
+                   **time_flash_layer(q, k, v, window, cap),
+                   "plain_ms": time_cuda(lambda: ref.flash_attention_ref(
+                       q, k, v, window=window, softcap=cap), reps=5),
+                   **{key: by_kernel["flash_attention"]
+                      for key, by_kernel in launches.items()}}
+            if cap is None and window is None:
+                kk, vv = repeat_kv(k, h), repeat_kv(v, h)
+                row["library_ms"] = time_cuda(
+                    lambda: library_attention_f32(q, kk, vv, True),
+                    reps=TIMING_REPS)
+                del kk, vv
+            else:
+                row["library_ms"] = None
+            rows["flash_attention"].append(row)
+            del q, k, v
+        # decode at the last step: the global cache (or the only kind) at
+        # its full depth
+        q, k, v = attn_inputs(gen, b, h, kv, 1, depth, d, f32)
+        n = torch.tensor(depth, dtype=torch.int32, device="cuda")
+        res = check_decode(f"decode ffma {cfg.name} q={list(q.shape)} "
+                           f"k={list(k.shape)} float32", q, k, v, n, cap)[0]
+        bound, by = decode_bound(q, k, depth)
+        row = {"config": cfg.name, "q": list(q.shape), "k": list(k.shape),
+               "length": depth, "softcap": cap, "design": res["design"],
+               "max_abs_err": res["max_abs_err"],
+               "ms": time_graph(lambda: ops.decode_attention(q, k, v, n),
+                                reps=TIMING_REPS),
+               "bound_ms": bound, "bound_by": by,
+               "plain_ms": time_cuda(lambda: ref.decode_attention_ref(
+                   q, k, v, n, softcap=cap), reps=TIMING_REPS),
+               **{key: by_kernel["decode_attention"]
+                  for key, by_kernel in launches.items()}}
+        if cap is None:
+            kk, vv = repeat_kv(k, h), repeat_kv(v, h)
+            row["library_ms"] = time_graph(
+                lambda: library_attention_f32(q, kk, vv, False),
+                reps=TIMING_REPS)
+            del kk, vv
+        else:
+            row["library_ms"] = None
+        rows["decode_attention"].append(row)
+        del q, k, v
+    torch.cuda.empty_cache()
+    out = {
+        **rows,
+        "library_call": "scaled_dot_product_attention, efficient backend, "
+                        "float32, TF32 off, k/v repeated to H heads",
+        "timing": "flash: eager, CUDA events; decode and its library call: "
+                  "replayed from a CUDA graph",
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
+    }
+    emit("ffma_times", **out)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2054,9 +2271,14 @@ def main(argv=None) -> int:
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"], designed["gate_max_abs_err"],
         designed["full_width_max_abs_err"])
-    phase_serve_check(args.seed)
+    checks = {cfg.name: phase_serve_check(args.seed, cfg, b, s)
+              for cfg, b, s in SERVE_CHECKS}
     serve_run = phase_serve(args.seed, args.profile)
-    kernels += phase_attention_kernels(args.seed, serve_run)
+    gemma2_run = phase_serve_gemma2(args.seed)
+    kernels += phase_attention_kernels(args.seed, serve_run, gemma2_run)
+    ffma = phase_ffma_times(args.seed, checks)
+    kernels[1]["ffma"] = ffma["flash_attention"]
+    kernels[2]["ffma"] = ffma["decode_attention"]
     for kernel in kernels:
         if kernel["launches"] < 1:
             raise AssertionError(

@@ -1,8 +1,9 @@
 // Blocked online-softmax attention (prefill) for NVIDIA Hopper (sm_90a):
 // the float32 design at every head_dim and the bfloat16 design at head_dim
-// 16, 32 and 256. bfloat16 at head_dim 64 and 128, the models' widths, is
-// served by flash_attention_wgmma.cu (wgmma + TMA); the wrapper's design()
-// in kernels/flash_attention.py is the table that picks one.
+// 16 and 32 (the smoke configs' widths). bfloat16 at head_dim 64, 128 and
+// 256, the models' widths, is served by flash_attention_wgmma.cu (wgmma +
+// TMA); the wrapper's design() in kernels/flash_attention.py is the table
+// that picks one.
 //
 // Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
 // src/repro/kernels/flash_attention.py for those (dtype, head_dim) pairs:
@@ -116,7 +117,7 @@ struct Bf16Tile {
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int BM = 16 * kWarps;        // query rows (16 per warp)
-  static constexpr int BN = D <= 128 ? 64 : 32; // keys per tile
+  static constexpr int BN = 64;                 // keys per tile
   static constexpr int LD = D + 8;              // padded smem row (elements)
   // Q, then two stages of K and of V.
   static constexpr size_t kSmem =
@@ -560,13 +561,13 @@ int launch_f32(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// bfloat16 at head_dim 64 and 128 is served by flash_attention_wgmma.cu,
-// so this file instantiates mma.sync only at 16, 32 and 256.
+// bfloat16 at head_dim 64, 128 and 256 is served by
+// flash_attention_wgmma.cu, so this file instantiates mma.sync only at 16
+// and 32.
 int dispatch_bf16(const Params& p, int batch, int d, cudaStream_t s) {
   switch (d) {
     case 16: return launch_bf16<16>(p, batch, s);
     case 32: return launch_bf16<32>(p, batch, s);
-    case 256: return launch_bf16<256>(p, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -591,7 +592,7 @@ int dispatch_f32(const Params& p, int batch, int d, cudaStream_t s) {
 // o = attention(q, k, v) as described at the top of this file.
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
 // order; every operand has unit stride on the head dimension d, which is
-// 16, 32, 64, 128 or 256 for float32 and 16, 32 or 256 for bfloat16.
+// 16, 32, 64, 128 or 256 for float32 and 16 or 32 for bfloat16.
 // window <= 0 means none; softcap <= 0 means none.
 // Returns the launch's cudaError_t (0 = ok).
 extern "C" int repro_flash_attention(

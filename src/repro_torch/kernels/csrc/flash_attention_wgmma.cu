@@ -1,11 +1,12 @@
 // Blocked online-softmax attention (prefill) for NVIDIA Hopper (sm_90a):
-// the bfloat16 design at head_dim 64 and 128, on wgmma and TMA.
+// the bfloat16 design at head_dim 64, 128 and 256, on wgmma and TMA.
 //
-// Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
-// src/repro/kernels/flash_attention.py for bfloat16 operands with D = 64 or
-// 128 (Qwen2-0.5B has 64; Mistral-Large, Mixtral, LLaVA-NeXT-34B and Jamba
-// have 128); every other (dtype, head_dim) stays on
-// csrc/flash_attention.cu. It computes the same function:
+// Replaces the TPU kernel `flash_attention` (src/repro/kernels/
+// flash_attention.py:96, body `_flash_kernel` :30) for bfloat16 operands
+// with D = 64, 128 or 256 (Qwen2-0.5B has 64; Mistral-Large, Mixtral,
+// LLaVA-NeXT-34B and Jamba have 128; Gemma2-2B has 256); every other
+// (dtype, head_dim) stays on csrc/flash_attention.cu. It computes the same
+// function:
 //
 //     o[b,h,i] = sum_j softmax_j(mask(cap*tanh((q_i . k_j) * D^-0.5 / cap))) v_j
 //
@@ -18,43 +19,72 @@
 // pair and head against 2 bytes per element moved once, far above the
 // card's flops-per-byte ridge, so the time is the tensor cores' and the
 // softmax's. mma.sync cannot reach the tensor cores' rate on Hopper; only
-// wgmma does. What the design does about that:
+// wgmma does. At D = 256 a score costs 1024 tensor flops, about a quarter
+// of an SM's clock at 989 TFLOP/s, and the softmax's scalar work per score
+// (the softcap's tanh, ex2, the mask, rescaling O) is of the same order,
+// so there the softmax may set the pace. Gemma2-2B's layers at 8 x 8192
+// tokens: the local one (window 4096, 2 requests) does 0.41 TFLOP of live
+// pairs, 0.417 ms at 989 TFLOP/s; the global one (causal) 2.20 TFLOP,
+// 2.224 ms. What the design does about that:
 //   * one block per (128-query tile, batch*head), heaviest causal tiles
-//     first, in three warpgroups. Warpgroup 0 is the producer: one thread
-//     issues TMA copies of the block's Q tile (once) and of K and V tiles
-//     into a ring of kStages slots, each slot with a "full" mbarrier (the
-//     copy's bytes arrived) and an "empty" one (both consumers are done
-//     with it). It gives its registers up (setmaxnreg.dec) to the two
-//     consumer warpgroups (setmaxnreg.inc), which own 64 query rows each;
-//   * per K/V tile a consumer computes S = Q.K^T as wgmma m64n128k16 with
+//     first. At D = 64 and 128, in three warpgroups: warpgroup 0 is the
+//     producer, one thread of which issues TMA copies of the block's Q
+//     tile (once) and of K and V tiles into a ring of kStages slots, each
+//     slot with a "full" mbarrier (the copy's bytes arrived) and an
+//     "empty" one (both consumers are done with it). It gives its
+//     registers up (setmaxnreg.dec) to the two consumer warpgroups
+//     (setmaxnreg.inc), which own 64 query rows each;
+//   * at D = 256 the block is the two consumer warpgroups alone. ptxas
+//     allocates a kernel's registers for its launch (setmaxnreg changes
+//     nothing there): 384 threads put 3 warps on each SM sub-partition's
+//     16384 registers, 168 a thread, where a D = 256 consumer needs ~250
+//     (on the H100, at 384 threads ptxas spilled about 1 KB a thread and
+//     serialised every wgmma, and the kernel took twice as long as at 256
+//     threads, 252 registers, no spill). So thread 0 copies Q and the first
+//     kStages tiles, and each slot has a counter in place of its "empty"
+//     barrier: lane 0 of each consumer warp adds one when its P.V of the
+//     slot's tile has retired, and the eighth copies the slot's next tile
+//     in (no thread waits for another to refill);
+//   * per K/V tile a consumer computes S = Q.K^T as wgmma m64nBNk16 with
 //     both operands in shared memory (128-byte swizzle, K-major), runs the
 //     online softmax on the accumulator registers, rounds P to bf16 in
 //     registers (the accumulator fragment of S, packed in pairs, is the
 //     register A fragment of the next product), and computes O += P.V as
 //     wgmma m64nDk16 with A from registers and V from shared memory,
-//     MN-major (transposed descriptor). The slot goes back to the producer
-//     once that product has retired;
+//     MN-major (transposed descriptor). The slot is released once that
+//     product has retired;
 //   * at D = 64 the two consumers take turns at the tensor cores (ping-pong
 //     on named barriers): in its turn one issues Q.K^T of its next tile
 //     and P.V of this one, waits only for Q.K^T, and runs the next softmax
 //     while its own P.V and the other's products run, so the softmax of
-//     one warpgroup hides behind the products. At D = 128 that keeps S, P
-//     and O (160 registers) live at once, more than ptxas holds without
-//     spilling and serialising the products, so there each consumer waits
-//     for each product in turn and the two run side by side (measured
-//     faster on the H100);
-//   * 128-key tiles and 128-row blocks: each K/V tile is read by half as
-//     many blocks as with 64-row tiles, and a TMA copy costs the consumers
-//     no instructions or registers;
+//     one warpgroup hides behind the products. At D = 128 and 256 that
+//     keeps S, P and O live at once, more than ptxas holds without spilling
+//     and serialising the products, so there each consumer waits for each
+//     product in turn and the two run side by side (measured faster on the
+//     H100 at D = 128);
+//   * 128-row blocks: each K/V tile is read by half as many blocks as with
+//     64-row tiles, and a TMA copy costs the consumers few instructions
+//     and no registers. K/V tiles are 128 keys at D = 64 and 128 (BM ==
+//     BN) and 64 keys at D = 256: there O is m64n256 in fp32, 128
+//     registers a consumer thread, and S (32) + P (16) of a 64-key tile
+//     keep the total within 255, where a 128-key tile (64 + 32) would
+//     spill. Shared memory at D = 256 is Q 64 KB + 2 stages x (K 32 KB +
+//     V 32 KB) = 192 KB; a third stage would need 256 KB. Q.K^T is then
+//     m64n64k16 over 16 k-steps (four 64-column swizzle atoms of Q and of
+//     K, BM and BN rows apart) and P.V m64n256k16 (wgmma's widest N) over
+//     4;
 //   * the softmax is the other half of the time (one ex2 per score, on 16
 //     lanes an SM), so its instruction stream is kept short: log2 domain,
 //     and on tiles that need no mask and no softcap the raw scores' row
 //     maximum and one FFMA per score fold D^-0.5 * log2 e into the
-//     exponent; maxima and sums run in independent chains. Only tiles
-//     that cross the causal diagonal, the window's edge or the end of the
-//     keys, or carry a softcap (applied before the mask), take the general
-//     path. P is rounded to bf16 for P.V (as the JAX model path rounds its
-//     probabilities); row sums use fp32 P;
+//     exponent; maxima and sums run in independent chains. Tiles that carry
+//     a softcap take one multiply, tanh.approx.f32 (one MUFU op, where the
+//     precise tanhf is two and a dozen FMAs and was slower at Gemma2's
+//     layers on the H100) and one multiply a score (scale/cap
+//     and cap*log2 e folded); only tiles that cross the causal diagonal,
+//     the window's edge or the end of the keys evaluate the mask (after
+//     the softcap). P is rounded to bf16 for P.V (as the JAX model path
+//     rounds its probabilities); row sums use fp32 P;
 //   * the k-tile loop covers only the tiles that the causal and window
 //     reach of the block's rows can see (the TPU kernel's `pl.when(live)`);
 //   * each operand is described to TMA as a 4-D tensor (D, S, heads, B)
@@ -82,13 +112,14 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int BM = 128;          // query rows per block, 64 per consumer
-constexpr int BN = 128;          // keys per K/V tile
-constexpr int kThreads = 384;    // producer + two consumer warpgroups
 constexpr int kAtomCols = 64;    // bf16 columns of one 128-byte swizzle row
 constexpr uint32_t kRowBytes = 128;
 constexpr uint32_t kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
+constexpr int kConsumerThreads = 256;  // two consumer warpgroups
+constexpr uint32_t kConsumerWarps = kConsumerThreads / 32;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128*24 + 256*240 = 384*168 registers
+constexpr size_t kMaxSmem = 232448;  // what one block may use (227 KB)
 constexpr long long kHangCycles = 1LL << 32;  // about 2 s at 1.98 GHz
 
 // Shared memory, from a 1024-byte-aligned base (the swizzle atom's
@@ -97,23 +128,46 @@ constexpr long long kHangCycles = 1LL << 32;  // about 2 s at 1.98 GHz
 // then the mbarriers.
 template <int D>
 struct Cfg {
-  static_assert(D == 64 || D == 128, "wgmma design: head_dim 64 or 128");
-  static_assert(BM == BN, "Q and K/V tiles share one sub-tile stride");
+  static_assert(D == 64 || D == 128 || D == 256,
+                "wgmma design: head_dim 64, 128 or 256");
   static constexpr int kSub = D / kAtomCols;
+  // Keys per K/V tile. At D = 256, O alone is 128 registers a consumer
+  // thread; with S and P of a 64-key tile (32 + 16) it fits the 240 of
+  // kConsumerRegs, with a 128-key tile (64 + 32) it would spill. Two
+  // 64-key stages of K and V (128 KB) also fit beside Q (64 KB), where
+  // one 128-key stage would take 128 KB and leave no ring.
+  static constexpr int BN = D == 256 ? 64 : 128;
   // At D = 64 a slot is released only once P.V of its tile has run on
   // into the next tile's softmax, so the ring needs a third slot to keep
-  // the next loads ahead of the products (112 KB; 160 KB at D = 128).
+  // the next loads ahead of the products (112 KB; 160 KB at D = 128,
+  // 192 KB at D = 256).
   static constexpr int kStages = D == 64 ? 3 : 2;
   // Ping-pong (see the file comment) keeps S, P and O in registers at once;
-  // at D = 128 that is more than ptxas can hold without serialising the
+  // at D >= 128 that is more than ptxas can hold without serialising the
   // products, so there the two products of a tile are waited for in turn.
   static constexpr bool kPingPong = D == 64;
-  static constexpr uint32_t kSubBytes = BN * kRowBytes;
-  static constexpr uint32_t kTileBytes = kSub * kSubBytes;  // Q, K or V
-  static constexpr uint32_t kK = kTileBytes;
-  static constexpr uint32_t kV = kK + kStages * kTileBytes;
-  static constexpr uint32_t kBar = kV + kStages * kTileBytes;
+  // A producer warpgroup that hands its registers to the consumers
+  // (setmaxnreg) at D = 64 and 128. ptxas allocates every thread of the
+  // kernel within one SM sub-partition's 16384 registers for the warps
+  // placed there (3 of 12 warps -> 168), setmaxnreg or not, and at D = 256
+  // a consumer needs more (O 128 + S 32 + P 16 and addresses: 988 bytes
+  // spilled and wgmma serialised at 384 threads, also at 288). So at D =
+  // 256 the block is the two consumer warpgroups alone (2 warps a
+  // sub-partition -> 255 registers): one consumer thread loads Q and the
+  // first kStages tiles, and the last consumer warp done with a slot
+  // loads the slot's next tile (a counter per slot, no wait).
+  static constexpr bool kProducerWarpgroup = D != 256;
+  static_assert(kProducerWarpgroup || !kPingPong, "ping-pong needs a producer");
+  static constexpr int kThreads = kConsumerThreads + (kProducerWarpgroup ? 128 : 0);
+  static constexpr uint32_t kQSubBytes = BM * kRowBytes;   // a column atom
+  static constexpr uint32_t kKVSubBytes = BN * kRowBytes;  // of Q; of K or V
+  static constexpr uint32_t kQBytes = kSub * kQSubBytes;
+  static constexpr uint32_t kKVBytes = kSub * kKVSubBytes;  // a K or V tile
+  static constexpr uint32_t kK = kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kKVBytes;
+  static constexpr uint32_t kBar = kV + kStages * kKVBytes;
   static constexpr size_t kSmem = kBar + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kSmem <= kMaxSmem, "Q and the ring exceed a block's smem");
 };
 
 struct Params {
@@ -162,6 +216,21 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+__device__ __forceinline__ void smem_store(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Adds one to a shared counter and returns its old value; acq_rel orders
+// this warp's finished reads of a slot before the load that refills it.
+__device__ __forceinline__ uint32_t smem_inc(uint32_t addr) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "r"(addr)
+               : "memory");
+  return old;
+}
+
 // Waits for the phase of `bar` with this parity to complete; traps (a
 // launch error at the next synchronisation) after kHangCycles.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -172,8 +241,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box (64 columns x 128 rows of one head of one batch entry) of a 4-D
-// tensor map (D, S, heads, B) into shared memory; completes on `bar`.
+// One box (64 columns x BM or BN rows of one head of one batch entry) of a
+// 4-D tensor map (D, S, heads, B) into shared memory; completes on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int col, int row, int head,
                                          int batch, uint32_t bar) {
@@ -281,6 +350,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T with A and B in shared memory,
+// both K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] . B[16 x 64] with A in registers (bf16 pairs)
 // and B in shared memory, MN-major (imm-trans-b = 1).
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
@@ -334,14 +426,77 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] . B[16 x 256] with A in registers (bf16 pairs)
+// and B in shared memory, MN-major (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// S (+)= Q.K^T over one k16 step of a BN-key tile.
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t desc_q,
+                                         uint64_t desc_k, int scale_d) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64k16_ss(s, desc_q, desc_k, scale_d);
+  } else {
+    wgmma_m64n128k16_ss(s, desc_q, desc_k, scale_d);
+  }
+}
+
+// O += P.V over one k16 step, N = D.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
   if constexpr (D == 64) {
     wgmma_m64n64k16_rs(o, a, desc_v);
-  } else {
+  } else if constexpr (D == 128) {
     wgmma_m64n128k16_rs(o, a, desc_v);
+  } else {
+    wgmma_m64n256k16_rs(o, a, desc_v);
   }
 }
 
@@ -358,6 +513,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// One MUFU op (relative error about 2^-11) where tanhf takes two and a
+// dozen FMAs. The softcap's logits are bounded by cap, so its error in a
+// logit is at most cap * 2^-11 absolute and usually |logit| * 2^-11; held
+// on the card against the plain version's precise tanh at the data-scaled
+// limit (chip_smoke.py), whose largest error over the limit did not move
+// from the tanhf build's.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Fragment layouts (PTX ISA, wgmma m64nNk16): warp w of a warpgroup holds
 // rows 16w + g and 16w + g + 8 (lane = 4g + t). Accumulator element 4j + e
 // is row 16w + g + 8*(e >> 1), column 8j + 2t + (e & 1). The register A
@@ -365,12 +532,13 @@ __device__ __forceinline__ float ex2(float x) {
 // 1) and 2t+8, 2t+9 (regs 2, 3): the S accumulator's chunks 2kk and 2kk+1,
 // packed in pairs, are P's A fragment for keys 16kk .. 16kk+15.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
   using C = Cfg<D>;
   constexpr int kStages = C::kStages;
+  constexpr int BN = C::BN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -397,40 +565,62 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+      if constexpr (C::kProducerWarpgroup) {
+        mbar_init(empty0 + 8 * s, 8);  // lane 0 of each consumer warp
+      } else {
+        smem_store(empty0 + 8 * s, 0u);  // releases of the slot so far
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  // The Q tile, and tile i of the k-tile loop into its slot.
+  auto load_q = [&]() {
+    mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+    for (int a = 0; a < C::kSub; ++a) {
+      tma_load(sQ + a * C::kQSubBytes, &tq, a * kAtomCols, q0, h, b, q_full);
+    }
+  };
+  auto load_kv = [&](int i) {
+    const int stage = i % kStages;
+    const uint32_t full = full0 + 8 * stage;
+    mbar_expect_tx(full, 2 * C::kKVBytes);
+    const int n0 = (kt_begin + i) * BN;
+#pragma unroll
+    for (int a = 0; a < C::kSub; ++a) {
+      const uint32_t off = stage * C::kKVBytes + a * C::kKVSubBytes;
+      tma_load(sK + off, &tk, a * kAtomCols, n0, kvh, b, full);
+      tma_load(sV + off, &tv, a * kAtomCols, n0, kvh, b, full);
+    }
+  };
+  if constexpr (!C::kProducerWarpgroup) {
+    if (threadIdx.x == 0) {
+      load_q();
+      for (int i = 0; i < min(kStages, n_tiles); ++i) load_kv(i);
+    }
+  }
+
+  // Threads [0, 128) are the producer warpgroup and [128, 384) the two
+  // consumers; without a producer warpgroup, [0, 256) are the consumers.
   const int wg = threadIdx.x / 128;
-  if (wg == 0) {
+  if (C::kProducerWarpgroup && wg == 0) {
     // ---- producer -----------------------------------------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, C::kTileBytes);
-#pragma unroll
-      for (int a = 0; a < C::kSub; ++a) {
-        tma_load(sQ + a * C::kSubBytes, &tq, a * kAtomCols, q0, h, b, q_full);
-      }
+      load_q();
       for (int i = 0; i < n_tiles; ++i) {
-        const int stage = i % kStages;
-        mbar_wait(empty0 + 8 * stage, ((i / kStages) & 1) ^ 1);
-        const uint32_t full = full0 + 8 * stage;
-        mbar_expect_tx(full, 2 * C::kTileBytes);
-        const int n0 = (kt_begin + i) * BN;
-#pragma unroll
-        for (int a = 0; a < C::kSub; ++a) {
-          const uint32_t off = stage * C::kTileBytes + a * C::kSubBytes;
-          tma_load(sK + off, &tk, a * kAtomCols, n0, kvh, b, full);
-          tma_load(sV + off, &tv, a * kAtomCols, n0, kvh, b, full);
-        }
+        mbar_wait(empty0 + 8 * (i % kStages), ((i / kStages) & 1) ^ 1);
+        load_kv(i);
       }
     }
   } else {
     // ---- consumers: rows q0w .. q0w + 63 ------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int cw = wg - 1;
+    if constexpr (C::kProducerWarpgroup) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    }
+    const int cw = C::kProducerWarpgroup ? wg - 1 : wg;
     const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
@@ -438,6 +628,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int q0w = q0 + 64 * cw;
     const int row0 = q0w + 16 * warp + g;  // this thread's rows: row0, row0+8
     const float scale_log2 = p.scale * kLog2e;
+    const bool capped = p.softcap > 0.f;
+    const float cap_in = capped ? p.scale / p.softcap : 0.f;
+    const float cap_log2 = p.softcap * kLog2e;
     // This warpgroup's 64 rows of Q: 8 swizzle atoms down each column atom.
     const uint32_t sQw = sQ + 64 * cw * kRowBytes;
 
@@ -451,26 +644,28 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float l[2] = {0.f, 0.f};
 
     // S = Q K^T of the tile in `slot`: D/16 k-steps; a step moves 32 bytes
-    // along a swizzled 128-byte row, and the fifth moves to the next column
-    // atom.
+    // along a swizzled 128-byte row, and every fourth moves to the next
+    // column atom (Q's and K's atoms lie BM and BN rows apart).
     auto issue_qk = [&](int slot) {
-      const uint32_t tK = sK + slot * C::kTileBytes;
+      const uint32_t tK = sK + slot * C::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * C::kSubBytes + (kk % 4) * 32;
-        wgmma_m64n128k16_ss(s, sw128_desc(sQw + off, 16, kAtomBytes),
-                            sw128_desc(tK + off, 16, kAtomBytes), kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_qk<BN>(
+            s, sw128_desc(sQw + (kk / 4) * C::kQSubBytes + col, 16, kAtomBytes),
+            sw128_desc(tK + (kk / 4) * C::kKVSubBytes + col, 16, kAtomBytes),
+            kk > 0);
       }
       wgmma_commit();
     };
     // O += P V: BN/16 k-steps of 16 keys (2 swizzle atoms, 2048 bytes); V
     // is MN-major: SBO steps 8 keys, LBO steps to the next column atom.
     auto issue_pv = [&](int slot, const uint32_t (&pa)[BN / 16][4]) {
-      const uint32_t tV = sV + slot * C::kTileBytes;
+      const uint32_t tV = sV + slot * C::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         wgmma_pv<D>(o, pa[kk],
-                    sw128_desc(tV + kk * 2 * kAtomBytes, C::kSubBytes,
+                    sw128_desc(tV + kk * 2 * kAtomBytes, C::kKVSubBytes,
                                kAtomBytes));
       }
       wgmma_commit();
@@ -507,14 +702,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       // Online softmax in the log2 domain (exp(x) = 2^(x log2 e)). Tiles
       // that cross the causal diagonal, the window's edge or the end of the
       // keys for this warpgroup's rows, and every tile under softcap, take
-      // the general path: s becomes the scaled, capped, masked logit. Every
-      // other tile keeps its raw scores (scale_log2 > 0 commutes with max)
-      // and has the scale folded into the exponent's FFMA. Maxima and sums
-      // run in four independent chains per row.
+      // the general path: s becomes the scaled (capped) logit, and only
+      // tiles that need the mask evaluate it. Every other tile keeps its
+      // raw scores (scale_log2 > 0 commutes with max) and has the scale
+      // folded into the exponent's FFMA. Maxima and sums run in four
+      // independent chains per row.
       const bool need_mask = (p.causal && n0 + BN - 1 > q0w) ||
                              (p.window > 0 && n0 <= q0w + 63 - p.window) ||
                              n0 + BN > p.len_k;
-      const bool general = need_mask || p.softcap > 0.f;
+      const bool general = need_mask || capped;
       float mc[2][4];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -522,26 +718,36 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int c = 0; c < 4; ++c) mc[r][c] = kNegInf;
       }
       if (general) {
+        if (capped) {
+          // cap * tanh(s * scale / cap) * log2 e, one multiply on each side
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            s[i] = cap_log2 * tanh_approx(s[i] * cap_in);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) s[i] *= scale_log2;
+        }
+        if (need_mask) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = row0 + (e >> 1) * 8;
+              const int col = n0 + j * 8 + 2 * t + (e & 1);
+              bool ok = col < p.len_k;
+              if (p.causal) ok = ok && col <= row;
+              if (p.window > 0) ok = ok && col > row - p.window;
+              s[4 * j + e] = ok ? s[4 * j + e] : kNegInf;
+            }
+          }
+        }
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float x;
-            if (p.softcap > 0.f) {
-              x = p.softcap * tanhf(s[4 * j + e] * p.scale / p.softcap) *
-                  kLog2e;
-            } else {
-              x = s[4 * j + e] * scale_log2;
-            }
-            const int row = row0 + (e >> 1) * 8;
-            const int col = n0 + j * 8 + 2 * t + (e & 1);
-            bool ok = col < p.len_k;
-            if (p.causal) ok = ok && col <= row;
-            if (p.window > 0) ok = ok && col > row - p.window;
-            x = ok ? x : kNegInf;
-            s[4 * j + e] = x;
             const int c = (j & 1) * 2 + (e & 1);
-            mc[e >> 1][c] = fmaxf(mc[e >> 1][c], x);
+            mc[e >> 1][c] = fmaxf(mc[e >> 1][c], s[4 * j + e]);
           }
         }
       } else {
@@ -642,7 +848,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         issue_pv(stage, pn);
         wgmma_wait_all();
         fence_regs(o);
-        if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+        if (lane == 0) {
+          if constexpr (C::kProducerWarpgroup) {
+            mbar_arrive(empty0 + 8 * stage);
+          } else if (smem_inc(empty0 + 8 * stage) % kConsumerWarps ==
+                         kConsumerWarps - 1 &&
+                     i + kStages < n_tiles) {
+            load_kv(i + kStages);  // the last warp done with the slot
+          }
+        }
         if (i + 1 < n_tiles) {
           const int next = (i + 1) % kStages;
           mbar_wait(full0 + 8 * next, ((i + 1) / kStages) & 1);
@@ -710,9 +924,9 @@ EncodeTiled encoder() {
 }
 
 // 4-D map (D, S, heads, B) of a bf16 operand with byte strides (S, heads,
-// B); boxes of 64 columns x 128 rows, 128-byte swizzle, zeros past S.
+// B); boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros past S.
 int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int s,
-           int heads, int batch, const long long* strides) {
+           int heads, int batch, const long long* strides, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(heads),
@@ -720,7 +934,7 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int s,
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]),
                                static_cast<cuuint64_t>(strides[1]),
                                static_cast<cuuint64_t>(strides[2])};
-  const cuuint32_t box[4] = {kAtomCols, BN, 1, 1};
+  const cuuint32_t box[4] = {kAtomCols, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -730,30 +944,47 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int s,
   return res == CUDA_SUCCESS ? 0 : -static_cast<int>(res);
 }
 
+// Encodes the three maps (Q in BM-row boxes, K and V in BN-row boxes) and
+// launches. Zeroed maps for K and V when there are no keys: no tile is
+// loaded.
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk,
-           const CUtensorMap& tv, const Params& p, int batch,
+int launch(const void* q, const void* k, const void* v,
+           const long long* tma_strides, const Params& p, int batch,
            cudaStream_t stream) {
   using C = Cfg<D>;
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  int res = encode(fn, &tq, q, D, p.len_q, p.heads, batch, tma_strides, BM);
+  if (res == 0 && p.len_k > 0) {
+    res = encode(fn, &tk, k, D, p.len_k, p.kv_heads, batch, tma_strides + 3,
+                 C::BN);
+  }
+  if (res == 0 && p.len_k > 0) {
+    res = encode(fn, &tv, v, D, p.len_k, p.kv_heads, batch, tma_strides + 6,
+                 C::BN);
+  }
+  if (res != 0) return res;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.len_q + BM - 1) / BM, batch * p.heads);
-  flash_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(tq, tk, tv, p);
+  flash_wgmma_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv,
+                                                                 p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // o = attention(q, k, v) as described at the top of this file, bfloat16,
-// head_dim 64 or 128. tma_strides: 9 byte strides, (seq, head, batch) of q,
-// k and v in that order, each a positive multiple of 16 (the wrapper's
-// tensor_map_strides); out_strides: 3 element strides (batch, head, seq)
-// of o. Every operand has unit stride on the head dimension and a 16-byte
-// aligned start. window <= 0 means none; softcap <= 0 means none. Returns
-// 0, the launch's cudaError_t, -CUresult of a refused tensor map, or
-// -1000 when the driver offers no cuTensorMapEncodeTiled.
+// head_dim 64, 128 or 256. tma_strides: 9 byte strides, (seq, head, batch)
+// of q, k and v in that order, each a positive multiple of 16 (the
+// wrapper's tensor_map_strides); out_strides: 3 element strides (batch,
+// head, seq) of o. Every operand has unit stride on the head dimension and
+// a 16-byte aligned start. window <= 0 means none; softcap <= 0 means
+// none. Returns 0, the launch's cudaError_t, -CUresult of a refused tensor
+// map, or -1000 when the driver offers no cuTensorMapEncodeTiled.
 extern "C" int repro_flash_attention_wgmma(
     const void* q, const void* k, const void* v, void* o,
     const long long* tma_strides, const long long* out_strides, int batch,
@@ -761,23 +992,9 @@ extern "C" int repro_flash_attention_wgmma(
     int window, float softcap, void* stream) {
   if (batch <= 0 || len_q <= 0) return static_cast<int>(cudaSuccess);
   if (kv_heads <= 0 || heads % kv_heads != 0 || len_k < 0 ||
-      (head_dim != 64 && head_dim != 128)) {
+      (head_dim != 64 && head_dim != 128 && head_dim != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return kNoEncoder;
-  // Zeroed maps for K and V when there are no keys: no tile is loaded.
-  CUtensorMap tq = {}, tk = {}, tv = {};
-  int res = encode(fn, &tq, q, head_dim, len_q, heads, batch, tma_strides);
-  if (res == 0 && len_k > 0) {
-    res = encode(fn, &tk, k, head_dim, len_k, kv_heads, batch,
-                 tma_strides + 3);
-  }
-  if (res == 0 && len_k > 0) {
-    res = encode(fn, &tv, v, head_dim, len_k, kv_heads, batch,
-                 tma_strides + 6);
-  }
-  if (res != 0) return res;
   Params p;
   p.o = o;
   p.o_b = out_strides[0];
@@ -792,6 +1009,7 @@ extern "C" int repro_flash_attention_wgmma(
   p.scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64>(tq, tk, tv, p, batch, s);
-  return launch<128>(tq, tk, tv, p, batch, s);
+  if (head_dim == 64) return launch<64>(q, k, v, tma_strides, p, batch, s);
+  if (head_dim == 128) return launch<128>(q, k, v, tma_strides, p, batch, s);
+  return launch<256>(q, k, v, tma_strides, p, batch, s);
 }

@@ -5,12 +5,13 @@ sliding-window, logit softcap, GQA, forward only. Same signature as the
 TPU kernel's entry point minus its block sizes: any ``Sq``/``Sk`` is
 accepted. Three designs, fixed by (dtype, head_dim) in ``design()``:
 
-* ``"wgmma"`` — bfloat16 at head_dim 64 and 128, the models' widths
+* ``"wgmma"`` — bfloat16 at head_dim 64, 128 and 256, the models' widths
   (``csrc/flash_attention_wgmma.cu``): TMA copies into a ring of shared
   memory slots fed by a producer warpgroup, ``wgmma`` for Q·Kᵀ and P·V
-  in two consumer warpgroups, 128-row query tiles;
-* ``"mma_sync"`` — bfloat16 at head_dim 16, 32 and 256
-  (``csrc/flash_attention.cu``): ``mma.sync`` m16n8k16, 64-row tiles;
+  in two consumer warpgroups, 128-row query tiles (64-key tiles at 256);
+* ``"mma_sync"`` — bfloat16 at head_dim 16 and 32, the smoke configs'
+  widths (``csrc/flash_attention.cu``): ``mma.sync`` m16n8k16, 64-row
+  tiles;
 * ``"ffma"`` — float32 at every head_dim (``csrc/flash_attention.cu``):
   full-precision FFMA, no TF32.
 
@@ -39,7 +40,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535
 DESIGNS = ("wgmma", "mma_sync", "ffma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 # design -> (csrc/<source>.cu, its C entry point)
 LIBRARIES = {
     "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma"),

@@ -267,11 +267,12 @@ def test_launch_counters_count_no_plain_call():
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_design_table(dtype, head_dim):
-    """bf16 at the models' head_dims 64/128 goes to wgmma; bf16 at 16, 32
-    and 256 to mma.sync; float32 everywhere to FFMA (no TF32)."""
+    """bf16 at the models' head_dims 64/128/256 goes to wgmma; bf16 at the
+    smoke configs' 16 and 32 to mma.sync; float32 everywhere to FFMA (no
+    TF32)."""
     want = {
         "float32": "ffma",
-        "bfloat16": "wgmma" if head_dim in (64, 128) else "mma_sync",
+        "bfloat16": "wgmma" if head_dim in (64, 128, 256) else "mma_sync",
     }[dtype]
     got = flash_mod.design(TORCH_DTYPE[dtype], head_dim)
     assert got == want and got in flash_mod.DESIGNS
@@ -297,6 +298,7 @@ def _views():
     dims (whose strides torch leaves free)."""
     bf16 = torch.bfloat16
     fused = torch.zeros(2, 37, 14 + 2 * 2, 128, dtype=bf16)
+    fused256 = torch.zeros(2, 7, 8 + 2 * 4, 256, dtype=bf16)
     return {
         "contiguous": torch.zeros(2, 14, 37, 64, dtype=bf16),
         "model_layout": torch.zeros(3, 33, 14, 64, dtype=bf16).transpose(1, 2),
@@ -308,11 +310,17 @@ def _views():
         "all_1": torch.zeros(1, 1, 1, 128, dtype=bf16),
         "odd_strides": torch.zeros(4096, dtype=bf16).as_strided(
             (1, 2, 3, 64), (0, 1280, 192, 1), storage_offset=64),
+        # head_dim 256 (Gemma2-2B): 512-byte rows
+        "d256_contiguous": torch.zeros(2, 4, 9, 256, dtype=bf16),
+        "d256_model_layout": torch.zeros(2, 9, 8, 256, dtype=bf16).transpose(1, 2),
+        "d256_fused_k": fused256[:, :, 8:12].transpose(1, 2),
+        "d256_batch_1": torch.zeros(1, 5, 4, 256, dtype=bf16).transpose(1, 2),
     }
 
 
 VIEW_NAMES = ["contiguous", "model_layout", "fused_q", "fused_v", "batch_1",
-              "heads_1", "seq_1", "all_1", "odd_strides"]
+              "heads_1", "seq_1", "all_1", "odd_strides", "d256_contiguous",
+              "d256_model_layout", "d256_fused_k", "d256_batch_1"]
 
 
 @pytest.mark.parametrize("name", VIEW_NAMES)
@@ -350,13 +358,33 @@ WGMMA_PLAIN_CASES = [
     (1, 7, 1, 77, 77, 128, True, 20, 30.0),       # group 7, D = 128
     (1, 8, 2, 40, 70, 64, False, None, None),     # non-causal, Sq < Sk
     (1, 4, 4, 90, 33, 128, False, None, 30.0),    # non-causal, Sq > Sk
+    # D = 256 (Gemma2-2B's width; 64-key tiles on the card)
+    (1, 8, 4, 128, 128, 256, True, 48, 50.0),     # window with softcap
+    (2, 8, 4, 100, 100, 256, True, None, 50.0),   # S not a multiple of 64
+    (1, 4, 2, 64, 160, 256, False, None, 50.0),   # Sq < Sk
+    (1, 4, 4, 192, 64, 256, False, 65, 30.0),     # rows 128.. see no key
 ]
+# The Pallas kernel's blocks per case (it needs S % block == 0), chosen
+# so that every key-less row lies in a whole query block (which the kernel
+# skips, giving zeros as the port does).
+PALLAS_BLOCKS = {100: 50, 128: 64, 64: 64, 160: 32, 192: 64, 77: 77,
+                 40: 40, 70: 35, 90: 45, 33: 33}
+
+
+def _keyless_rows(sq, sk, causal, window):
+    """Query rows that no key may reach: zeros in the port and the Pallas
+    kernel, a uniform average of V in the JAX oracle."""
+    rows = np.arange(sq)
+    last = rows if causal else np.full(sq, sk - 1)
+    first = rows - window + 1 if window else np.zeros(sq, int)
+    return (np.minimum(last, sk - 1) < np.maximum(first, 0))
 
 
 @pytest.mark.parametrize("case", range(len(WGMMA_PLAIN_CASES)))
 def test_flash_plain_matches_jax_at_wgmma_cases(case):
     """The plain version (what the card's kernel is held to) against the
-    JAX oracle in bf16 at the shapes the new design takes on."""
+    JAX oracle in bf16 at the shapes the new design takes on; rows that no
+    key reaches are zeros (the oracle averages V there)."""
     b, h, kv, sq, sk, d, causal, window, cap = WGMMA_PLAIN_CASES[case]
     arrays = _qkv(300 + case, b, h, kv, sq, sk, d)
     got = ops.flash_attention(*_torch(arrays, "bfloat16"), causal=causal,
@@ -365,6 +393,23 @@ def test_flash_plain_matches_jax_at_wgmma_cases(case):
                                       causal=causal, window=window,
                                       softcap=cap)
     assert got.shape == (b, h, sq, d)
+    keyless = _keyless_rows(sq, sk, causal, window)
+    assert torch.count_nonzero(got[:, :, keyless]) == 0
+    _close(got[:, :, ~keyless], np.asarray(exp, np.float32)[:, :, ~keyless],
+           "bfloat16")
+
+
+@pytest.mark.parametrize("case", range(5, len(WGMMA_PLAIN_CASES)))
+def test_flash_plain_matches_pallas_at_wgmma_head_dim_256(case):
+    """The D = 256 cases against the Pallas kernel in interpret mode at
+    the JAX package's bf16 tolerance, key-less rows included."""
+    b, h, kv, sq, sk, d, causal, window, cap = WGMMA_PLAIN_CASES[case]
+    arrays = _qkv(300 + case, b, h, kv, sq, sk, d)
+    got = ops.flash_attention(*_torch(arrays, "bfloat16"), causal=causal,
+                              window=window, softcap=cap)
+    exp = pallas_flash(*_jax(arrays, "bfloat16"), causal=causal,
+                       window=window, softcap=cap, block_q=PALLAS_BLOCKS[sq],
+                       block_k=PALLAS_BLOCKS[sk], interpret=True)
     _close(got, exp, "bfloat16")
 
 

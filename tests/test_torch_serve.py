@@ -32,6 +32,10 @@ TOL = 1e-4  # rtol = atol, fp32 on the CPU: sums in another order only
 CONFIGS = {
     "qwen2": (jax_qwen.SMOKE_CONFIG, torch_qwen.SMOKE_CONFIG),
     "gemma2": (jax_gemma.SMOKE_CONFIG, torch_gemma.SMOKE_CONFIG),
+    # Gemma2-2B's head_dim (256) at smoke width: the model path whose
+    # prefill the card serves through the wgmma design's 64-key tiles
+    "gemma2_d256": (dataclasses.replace(jax_gemma.SMOKE_CONFIG, head_dim=256),
+                    dataclasses.replace(torch_gemma.SMOKE_CONFIG, head_dim=256)),
 }
 
 
@@ -61,7 +65,8 @@ def _assert_caches_equal(jax_caches, torch_caches):
     "name,prompt,steps",
     [("qwen2", 9, 12),     # global layers only
      ("gemma2", 10, 12),   # the ring buffer wraps during decode (window 16)
-     ("gemma2", 20, 6)],   # the prompt already fills the window: reordering
+     ("gemma2", 20, 6),    # the prompt already fills the window: reordering
+     ("gemma2_d256", 20, 6)],  # the same at head_dim 256
 )
 def test_prefill_and_decode_match_jax(name, prompt, steps):
     jcfg, tcfg = CONFIGS[name]
