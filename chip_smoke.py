@@ -30,15 +30,17 @@ calls:
   tokens and 64 greedy tokens through the same two kernels.
 
 First it builds the hand-written kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
-each, all at once; ``flash_attention`` has two, its ``wgmma`` design for
-bf16 at head_dim 64/128/256 and its ``mma.sync``/FFMA designs for the
-rest;
-``decode_attention`` has two, its ``mma`` design for bf16 and its FFMA
-design for float32) and holds each against its plain PyTorch version on
-the card, also at the shapes the paths give them, and shows that the
-checks refuse a faulty plain version. Needs a CUDA device and ``nvcc``; there is
-no CPU path. Any failed phase raises and the script exits non-zero.
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (six sources, one process
+each, all at once: ``mixing_combine``; ``flash_attention`` has three,
+``flash_attention_wgmma`` for bf16 at head_dim 64/128/256,
+``flash_attention`` (``mma.sync``) for bf16 at 16/32 and
+``flash_attention_ffma`` for float32 at every head_dim;
+``decode_attention`` has two, ``decode_attention_mma`` for bf16 and
+``decode_attention`` (FFMA) for float32) and holds each against its plain
+PyTorch version on the card, also at the shapes the paths give them, and
+shows that the checks refuse a faulty plain version. Needs a CUDA device
+and ``nvcc``; there is no CPU path. Any failed phase raises and the script
+exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
@@ -122,9 +124,12 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
 # kernel -> (source in csrc/ that serves its main path, the TPU kernel it
-# replaces). Both attention kernels have two sources, chosen by (dtype,
-# head_dim): the serving paths (bf16, head_dim 64 and 256) run
-# flash_attention_wgmma.cu and decode_attention_mma.cu.
+# replaces). The attention kernels have more sources, chosen by (dtype,
+# head_dim): flash_attention three (wgmma, mma_sync, ffma), decode_attention
+# two (mma, ffma). The serving paths (bf16, head_dim 64 and 256) run
+# flash_attention_wgmma.cu and decode_attention_mma.cu; the float32
+# serve_check runs and ffma_times run flash_attention_ffma.cu and
+# decode_attention.cu.
 KERNELS = {
     "mixing_sgd_combine": (
         "mixing_combine", "src/repro/kernels/mixing_combine.py:38"),
@@ -135,7 +140,7 @@ KERNELS = {
 }
 # Every kernel source, built at once (one nvcc process each).
 SOURCES = ("mixing_combine", "flash_attention", "flash_attention_wgmma",
-           "decode_attention", "decode_attention_mma")
+           "flash_attention_ffma", "decode_attention", "decode_attention_mma")
 
 FP32_TOL = 1e-5   # the reference's own (tests/test_kernels.py)
 BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
@@ -202,6 +207,12 @@ FLASH_WGMMA_CASES = [
 # A wrong swizzle, LBO/SBO or fragment packing gives garbage at one
 # head_dim only, with no fault: every check runs the table at each.
 WGMMA_CASE_HEAD_DIMS = (64, 128, 256)
+# The ffma design of flash_attention (float32), run at every head_dim: the
+# same columns as FLASH_WGMMA_CASES, held at ATTN_FP32_TOL, each asserted
+# to run "ffma".
+FLASH_FFMA_CASES = FLASH_WGMMA_CASES + [
+    (1, 4, 2, 300, 100, True, None, 50.0, "dense"),    # causal, Sq > Sk
+]
 # Decode in float32 at head_dim 256 (32-slot tiles): (b, h, kv, s, d,
 # length, softcap, dtype).
 DECODE_F32_D256_CASES = [
@@ -1462,8 +1473,8 @@ def faulty_flash_plain(q, k, v, fault, row0: int = 0, window=None,
     with one fault, for the query rows ``row0 .. row0 + Sq - 1`` that
     ``q`` holds: ``"head_mod"`` puts query head h on KV head h % KV;
     ``"strict_causal"`` excludes the causal diagonal (key j valid for
-    query i only when j < i); ``("drop", start)`` leaves keys ``start`` ..
-    ``start + WGMMA_D256_TILE - 1`` out (a kernel that skips one tile)."""
+    query i only when j < i); ``("drop", start, width)`` leaves keys
+    ``start`` .. ``start + width - 1`` out (a kernel that skips one tile)."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     if fault == "head_mod":
@@ -1479,9 +1490,52 @@ def faulty_flash_plain(q, k, v, fault, row0: int = 0, window=None,
     if window is not None:
         valid = valid & (kpos > qpos - window)
     if isinstance(fault, tuple):
-        start = fault[1]
-        valid = valid & ((kpos < start) | (kpos >= start + WGMMA_D256_TILE))
+        _, start, width = fault
+        valid = valid & ((kpos < start) | (kpos >= start + width))
     return ref._softmax_pv(s, valid, v).reshape(b, h, sq, d).to(q.dtype)
+
+
+def layout_inputs(gen, b, h, kv, sq, sk, d, dtype, layout):
+    """q, k, v in a case table's layout: "model" or "dense" (``attn_inputs``)
+    or "fused" (sliced from one ``[B,S,H+2KV,D]`` tensor; ``sq == sk``)."""
+    if layout != "fused":
+        return attn_inputs(gen, b, h, kv, sq, sk, d, dtype,
+                           model_layout=layout == "model")
+    t = torch.randn((b, sq, h + 2 * kv, d), generator=gen,
+                    device="cuda").to(dtype)
+    return (t[:, :, :h].transpose(1, 2), t[:, :, h:h + kv].transpose(1, 2),
+            t[:, :, h + kv:].transpose(1, 2))
+
+
+def check_design_cases(gen, cases, head_dims, dtype, want: str) -> list[dict]:
+    """A flash design's case table (the columns of FLASH_WGMMA_CASES) at
+    every head_dim in ``head_dims``: each case held to the plain version at
+    the tables' tolerance, asserted to run the design ``want``; rows that
+    no key reaches (from ``sk - 1 + window`` on) are zeros exactly. bf16
+    cases are also held at the main paths' data-scaled limit."""
+    name = {torch.bfloat16: "bf16", torch.float32: "float32"}[dtype]
+    results = []
+    for d in head_dims:
+        for b, h, kv, sq, sk, causal, window, cap, layout in cases:
+            q, k, v = layout_inputs(gen, b, h, kv, sq, sk, d, dtype, layout)
+            res, got = check_flash(
+                f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} "
+                f"causal={causal} window={window} softcap={cap} {name} "
+                f"({layout} layout)", q, k, v, window, cap, causal=causal)
+            if res["design"] != want:
+                raise AssertionError(f"{res['case']} ran {res['design']}")
+            results.append(res)
+            if dtype == torch.bfloat16:
+                results.append(hold(
+                    f"{res['case']} (data-scaled limit)", got,
+                    ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, softcap=cap),
+                    scaled=True))
+            if window is not None and sq > sk - 1 + window:
+                if bool(got[:, :, sk - 1 + window:].ne(0).any()):
+                    raise AssertionError(f"{res['case']}: keyless rows not 0")
+            del q, k, v, got
+    return results
 
 
 def phase_attention_check(seed: int) -> list[dict]:
@@ -1491,7 +1545,9 @@ def phase_attention_check(seed: int) -> list[dict]:
     wgmma design of flash_attention at head_dim 64, 128 and 256
     (``FLASH_WGMMA_CASES``: window with softcap, non-causal Sq != Sk, S in
     {1, 77, 129, 1000}, groups of 1 and 7, strided and fused views, rows
-    with no key), asserting that design ran; decode in float32 at head_dim
+    with no key) and its ffma design at every head_dim (``FLASH_FFMA_CASES``,
+    the same table in float32 plus causal Sq > Sk), asserting each design
+    ran; decode in float32 at head_dim
     256; the mma design of decode_attention (``DECODE_MMA_CASES``: groups
     1, 7 and 16, every head_dim, length 1 and S, S = 77, softcap 50, [B]
     lengths with a 0 (zeros exactly), strided views, Gemma2-2B's decode
@@ -1520,33 +1576,10 @@ def phase_attention_check(seed: int) -> list[dict]:
             f"flash b={b} h={h} kv={kv} s={s} d={d} window={window} "
             f"softcap={cap} {dt} (model layout)", q, k, v, window, cap)[0])
 
-    for d in WGMMA_CASE_HEAD_DIMS:
-        for b, h, kv, sq, sk, causal, window, cap, layout in FLASH_WGMMA_CASES:
-            if layout == "fused":
-                t = torch.randn((b, sq, h + 2 * kv, d), generator=gen,
-                                device="cuda").to(bf16)
-                q, k, v = (t[:, :, :h].transpose(1, 2),
-                           t[:, :, h:h + kv].transpose(1, 2),
-                           t[:, :, h + kv:].transpose(1, 2))
-            else:
-                q, k, v = attn_inputs(gen, b, h, kv, sq, sk, d, bf16,
-                                      model_layout=layout == "model")
-            res, got = check_flash(
-                f"flash b={b} h={h} kv={kv} sq={sq} sk={sk} d={d} "
-                f"causal={causal} window={window} softcap={cap} bf16 "
-                f"({layout} layout)", q, k, v, window, cap, causal=causal)
-            if res["design"] != "wgmma":
-                raise AssertionError(f"{res['case']} ran {res['design']}")
-            results.append(res)
-            # also at the main paths' data-scaled limit
-            results.append(hold(
-                f"{res['case']} (data-scaled limit)", got,
-                ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        softcap=cap), scaled=True))
-            if window is not None and not causal and sq > sk - 1 + window:
-                # rows that see no key are zeros, exactly
-                if bool(got[:, :, sk - 1 + window:].ne(0).any()):
-                    raise AssertionError(f"{res['case']}: keyless rows not 0")
+    results += check_design_cases(gen, FLASH_WGMMA_CASES,
+                                  WGMMA_CASE_HEAD_DIMS, bf16, "wgmma")
+    results += check_design_cases(gen, FLASH_FFMA_CASES, flash_mod.HEAD_DIMS,
+                                  f32, "ffma")
 
     for b, h, kv, s, d, length, cap, dt in DECODE_CASES + DECODE_F32_D256_CASES:
         q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, dt, model_layout=False)
@@ -1623,6 +1656,7 @@ def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
       same parameters: the kernel path may be at most twice as far from it
       as the torch-op path is, plus 1e-4 (float32 summation order).
 
+    The float32 prefill must run the ``ffma`` flash design once a layer.
     Returns the attention kernels' launches by design in each run."""
     cfg32 = dataclasses.replace(
         cfg, param_dtype="float32", compute_dtype="float32"
@@ -1659,6 +1693,11 @@ def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
                 want[:, s - 1:s + steps].to(torch.float32, copy=True))
 
     got32, truth = run(cfg32, tree_map(lambda p: p.to(torch.float32), params))
+    flash32 = launches["float32"]["flash_attention"]
+    if flash32 != {**dict.fromkeys(flash_mod.DESIGNS, 0),
+                   "ffma": cfg.num_layers}:
+        raise AssertionError(f"serve_check {cfg.name} float32 prefill: "
+                             f"flash launches {flash32}")
     err32 = {
         "prefill": assert_close(got32[:, 0], truth[:, 0], 2e-2,
                                 f"serve_check {cfg.name} float32 prefill logits"),
@@ -1883,28 +1922,30 @@ def tile_dropped_plain(q, k, v, length: int, start: int):
 
 
 def hold_flash_layer(what, q, k, v, requests, window=None, softcap=None,
-                     drop_tile: int | None = None):
-    """A main-path flash layer against its plain version at the
-    data-scaled limit (``check_flash`` on ``requests``), and the faulty
-    plain versions that limit must refuse on request 0's later half of
-    query rows (each keeps the layer's window and softcap): ``kv = h % KV``,
-    the causal diagonal excluded and, with ``drop_tile``, keys
-    ``drop_tile`` .. ``drop_tile + 63`` left out. Returns (result,
-    refusals)."""
+                     drop_tile: int | None = None,
+                     tile: int = WGMMA_D256_TILE):
+    """A main-path flash layer against its plain version (``check_flash``:
+    on ``requests`` at the data-scaled limit, or with ``requests=None`` on
+    the whole batch at the tables' tolerance), and the faulty plain
+    versions that limit must refuse on request 0's later half of query
+    rows (each keeps the layer's window and softcap): ``kv = h % KV``, the
+    causal diagonal excluded and, with ``drop_tile``, keys ``drop_tile`` ..
+    ``drop_tile + tile - 1`` left out. Returns (result, refusals)."""
     res, got = check_flash(what, q, k, v, window, softcap, requests=requests)
     row0 = q.shape[2] // 2
     faults = [("kv = h % KV", "head_mod"),
               ("the causal diagonal excluded", "strict_causal")]
     if drop_tile is not None:
-        faults.append((f"keys {drop_tile} .. {drop_tile + WGMMA_D256_TILE - 1}"
-                       " left out (one key tile)", ("drop", drop_tile)))
+        faults.append((f"keys {drop_tile} .. {drop_tile + tile - 1}"
+                       " left out (one key tile)", ("drop", drop_tile, tile)))
     refused = []
     for text, fault in faults:
         bad = faulty_flash_plain(q[:1, :, row0:], k[:1], v[:1], fault, row0,
                                  window, softcap)
         refused.append(refuse(
             f"a flash plain version with {text} ({what}, request 0, query "
-            f"rows from {row0})", got[:1, :, row0:], bad, scaled=True))
+            f"rows from {row0})", got[:1, :, row0:], bad,
+            scaled=requests is not None))
         del bad
     del got
     torch.cuda.empty_cache()
@@ -2156,11 +2197,15 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
     their plain versions at the tables' 2e-5, timed beside their bounds
     (flash: flops at the FFMA peak, TF32 being off; decode: bytes), their
     plain versions and, where no softcap rules it out, SDPA's
-    memory-efficient backend in float32. ``checks``: the launches by
-    design of each ``serve_check`` run, by config name."""
+    memory-efficient backend in float32. At each flash layer the 2e-5
+    limit must refuse three faulty plain versions (``hold_flash_layer``:
+    ``kv = h % KV``, the causal diagonal excluded, one ``ffma`` key tile
+    left out), each keeping the layer's window and softcap. ``checks``:
+    the launches by design of each ``serve_check`` run, by config name."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     f32 = torch.float32
     rows = {"flash_attention": [], "decode_attention": []}
+    refused = []
     for cfg, b, s in SERVE_CHECKS:
         launches = {} if checks is None else {
             "launches_serve_check_float32": checks[cfg.name]["float32"]}
@@ -2170,13 +2215,20 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
         for kind in sorted(set(cfg.block_pattern)):
             window = cfg.sliding_window if kind == "local" else None
             q, k, v = attn_inputs(gen, b, h, kv, s, s, d, f32)
-            res = check_flash(f"flash ffma {cfg.name} {kind} layer "
-                              f"q={list(q.shape)} float32", q, k, v,
-                              window, cap)[0]
+            bn = flash_mod.ffma_tile(d).bn
+            res, refusals = hold_flash_layer(
+                f"flash ffma {cfg.name} {kind} layer q={list(q.shape)} "
+                f"float32", q, k, v, None, window, cap,
+                drop_tile=s * 3 // 4 // bn * bn, tile=bn)
+            if res["design"] != "ffma":
+                raise AssertionError(f"{res['case']} ran {res['design']}")
+            refused += refusals
             row = {"config": cfg.name, "layer": kind, "q": list(q.shape),
                    "k": list(k.shape), "window": window, "softcap": cap,
                    "design": res["design"], "max_abs_err": res["max_abs_err"],
                    **time_flash_layer(q, k, v, window, cap),
+                   "graph_ms": time_graph(lambda: ops.flash_attention(
+                       q, k, v, window=window, softcap=cap), reps=TIMING_REPS),
                    "plain_ms": time_cuda(lambda: ref.flash_attention_ref(
                        q, k, v, window=window, softcap=cap), reps=5),
                    **{key: by_kernel["flash_attention"]
@@ -2221,10 +2273,12 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
     torch.cuda.empty_cache()
     out = {
         **rows,
+        "refused": refused,
         "library_call": "scaled_dot_product_attention, efficient backend, "
                         "float32, TF32 off, k/v repeated to H heads",
-        "timing": "flash: eager, CUDA events; decode and its library call: "
-                  "replayed from a CUDA graph",
+        "timing": "flash: eager, CUDA events (graph_ms: replayed from a "
+                  "CUDA graph); decode and its library call: replayed from a "
+                  "CUDA graph",
         "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                  "cudnn": torch.backends.cudnn.allow_tf32},
     }

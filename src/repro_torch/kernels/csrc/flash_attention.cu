@@ -1,9 +1,9 @@
-// Blocked online-softmax attention (prefill) for NVIDIA Hopper (sm_90a):
-// the float32 design at every head_dim and the bfloat16 design at head_dim
-// 16 and 32 (the smoke configs' widths). bfloat16 at head_dim 64, 128 and
+// Blocked online-softmax attention (prefill) in bfloat16 for NVIDIA Hopper
+// (sm_90a) at head_dim 16 and 32 (the smoke configs' widths): design
+// "mma_sync" of kernels/flash_attention.py. bfloat16 at head_dim 64, 128 and
 // 256, the models' widths, is served by flash_attention_wgmma.cu (wgmma +
-// TMA); the wrapper's design() in kernels/flash_attention.py is the table
-// that picks one.
+// TMA), and float32 at every head_dim by flash_attention_ffma.cu; the
+// wrapper's design() is the table that picks one.
 //
 // Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
 // src/repro/kernels/flash_attention.py for those (dtype, head_dim) pairs:
@@ -19,16 +19,16 @@
 // per live (query, key) pair against 2 bytes per element moved once, far
 // above the card's flops-per-byte ridge, so the work has to be on the
 // tensor cores. What the design does about that:
-//   * bfloat16: one block of 4 warps per (batch*head, 64-query tile); each
-//     warp owns 16 query rows and runs Q.K^T and P.V as mma.sync m16n8k16
-//     (bf16 in, fp32 accumulate) out of shared memory; P stays in
-//     registers between the two products (the accumulator fragment of S is
-//     the A fragment of P.V). P is rounded to bf16 for the P.V product, as
-//     the JAX model path rounds its probabilities; the row sums use the
-//     fp32 P. Q, K and V fragments come from shared memory by ldmatrix
-//     (V transposed); rows are padded by 16 bytes so that none of them has
-//     bank conflicts. K/V tiles are double-buffered with cp.async, so the
-//     next tile's copy overlaps this tile's products.
+//   * one block of 4 warps per (batch*head, 64-query tile); each warp owns
+//     16 query rows and runs Q.K^T and P.V as mma.sync m16n8k16 (bf16 in,
+//     fp32 accumulate) out of shared memory; P stays in registers between
+//     the two products (the accumulator fragment of S is the A fragment of
+//     P.V). P is rounded to bf16 for the P.V product, as the JAX model path
+//     rounds its probabilities; the row sums use the fp32 P. Q, K and V
+//     fragments come from shared memory by ldmatrix (V transposed); rows
+//     are padded by 16 bytes so that none of them has bank conflicts. K/V
+//     tiles are double-buffered with cp.async, so the next tile's copy
+//     overlaps this tile's products.
 //   * the softmax runs in the log2 domain (one multiply folds D^-0.5 and
 //     log2 e, then ex2.approx), and the mask is evaluated only on tiles
 //     that cross the causal diagonal, the window's edge or the end of the
@@ -36,9 +36,6 @@
 //   * the k-tile loop runs only over the tiles that the causal and window
 //     reach of the block's rows can see (the TPU kernel's `pl.when(live)`),
 //     and the q-tiles are scheduled heaviest first.
-//   * float32: no TF32 (its 10-bit mantissa would break the 2e-5
-//     tolerance). One warp per query row at a time on FFMA: lanes split the
-//     32 keys of a tile for Q.K^T and the head dimension for P.V.
 //   * the kernel takes element strides for batch, head and sequence (unit
 //     stride on D), so the model hands it [B,S,H,D] activations as
 //     transposed views and no copy is made.
@@ -53,8 +50,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 
 struct Strides {
   long long b, h, s;  // elements; D has unit stride
@@ -72,31 +67,6 @@ struct Params {
   float scale;
   float softcap;  // <= 0: none
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Logit after scale and softcap, or kNegInf where the key is not valid.
-__device__ __forceinline__ float masked_logit(float dot, const Params& p,
-                                              int row, int col) {
-  float x = dot * p.scale;
-  if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-  bool ok = col < p.len_k;
-  if (p.causal) ok = ok && col <= row;
-  if (p.window > 0) ok = ok && col > row - p.window;
-  return ok ? x : kNegInf;
-}
 
 // Key tiles [kt_begin, kt_end) that rows [q0, q0 + rows) can see.
 __device__ __forceinline__ void key_tiles(const Params& p, int q0, int rows,
@@ -418,119 +388,6 @@ flash_bf16_kernel(const Params p) {
   }
 }
 
-// ---- float32: FFMA, one warp per query row --------------------------------
-
-template <int D>
-struct F32Tile {
-  static constexpr int BM = 16;      // query rows (4 per warp)
-  static constexpr int BN = 32;      // keys per tile, one per lane
-  static constexpr int LDK = D + 1;  // conflict-free column reads of K
-  static constexpr int DPL = (D + 31) / 32;  // head-dim entries per lane
-  static constexpr size_t kSmem =
-      (static_cast<size_t>(BM) * D + BN * LDK + BN * D) * sizeof(float);
-};
-
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld,
-                                              const float* src,
-                                              long long stride, int rows,
-                                              int valid, int d) {
-  for (int c = threadIdx.x; c < rows * d; c += blockDim.x) {
-    const int r = c / d;
-    const int col = c - r * d;
-    dst[r * ld + col] = r < valid ? src[r * stride + col] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_f32_kernel(const Params p) {
-  using Tile = F32Tile<D>;
-  constexpr int BM = Tile::BM, BN = Tile::BN, LDK = Tile::LDK;
-  constexpr int DPL = Tile::DPL;
-  constexpr int RPW = BM / kWarps;  // rows per warp
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + BM * D;
-  float* sV = sK + BN * LDK;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / p.heads;
-  const int h = blockIdx.y - b * p.heads;
-  const int kvh = h / (p.heads / p.kv_heads);
-  const int q0 = qt * BM;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
-  float* o = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
-
-  load_rows_f32(sQ, D, q + q0 * p.sq.s, p.sq.s, BM, min(BM, p.len_q - q0), D);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[i][c] = 0.f;
-  }
-
-  int kt_begin, kt_end;
-  key_tiles(p, q0, BM, BN, kt_begin, kt_end);
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int n0 = kt * BN;
-    __syncthreads();
-    const int valid = min(BN, p.len_k - n0);
-    load_rows_f32(sK, LDK, k + n0 * p.sk.s, p.sk.s, BN, valid, D);
-    load_rows_f32(sV, D, v + n0 * p.sv.s, p.sv.s, BN, valid, D);
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp * RPW + i;
-      const float* qr = sQ + r * D;
-      const float* kr = sK + lane * LDK;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const float x = masked_logit(dot, p, q0 + r, n0 + lane);
-      const float m_new = fmaxf(m[i], warp_max(x));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      const float pe = x == kNegInf ? 0.f : expf(x - m_new);
-      l[i] = l[i] * alpha + warp_sum(pe);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[i][c] *= alpha;
-#pragma unroll 4
-      for (int j = 0; j < BN; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pe, j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) acc[i][c] = fmaf(pj, sV[j * D + d], acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = q0 + warp * RPW + i;
-    if (row >= p.len_q) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) o[row * p.so.s + d] = acc[i][c] / denom;
-    }
-  }
-}
-
 // ---- launch ---------------------------------------------------------------
 
 template <typename Kernel>
@@ -551,19 +408,8 @@ int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const Params& p, int batch, cudaStream_t stream) {
-  using Tile = F32Tile<D>;
-  cudaError_t err = allow_smem(flash_f32_kernel<D>, Tile::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.len_q + Tile::BM - 1) / Tile::BM, batch * p.heads);
-  flash_f32_kernel<D><<<grid, kThreads, Tile::kSmem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // bfloat16 at head_dim 64, 128 and 256 is served by
-// flash_attention_wgmma.cu, so this file instantiates mma.sync only at 16
-// and 32.
+// flash_attention_wgmma.cu, so mma.sync is instantiated only at 16 and 32.
 int dispatch_bf16(const Params& p, int batch, int d, cudaStream_t s) {
   switch (d) {
     case 16: return launch_bf16<16>(p, batch, s);
@@ -572,34 +418,18 @@ int dispatch_bf16(const Params& p, int batch, int d, cudaStream_t s) {
   }
 }
 
-int dispatch_f32(const Params& p, int batch, int d, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_f32<16>(p, batch, s);
-    case 32: return launch_f32<32>(p, batch, s);
-    case 64: return launch_f32<64>(p, batch, s);
-    case 128: return launch_f32<128>(p, batch, s);
-    case 256: return launch_f32<256>(p, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
-// dtype codes shared with the Python wrapper.
-#define REPRO_DTYPE_F32 0
-#define REPRO_DTYPE_BF16 1
-
-// o = attention(q, k, v) as described at the top of this file.
+// o = attention(q, k, v) in bfloat16 as described at the top of this file.
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
-// order; every operand has unit stride on the head dimension d, which is
-// 16, 32, 64, 128 or 256 for float32 and 16 or 32 for bfloat16.
+// order; every operand has unit stride on the head dimension d (16 or 32).
 // window <= 0 means none; softcap <= 0 means none.
 // Returns the launch's cudaError_t (0 = ok).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int batch, int heads, int kv_heads, int len_q,
     int len_k, int head_dim, int causal, int window, float softcap,
-    int dtype, void* stream) {
+    void* stream) {
   if (batch <= 0 || len_q <= 0) return static_cast<int>(cudaSuccess);
   if (kv_heads <= 0 || heads % kv_heads != 0 || len_k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -622,7 +452,5 @@ extern "C" int repro_flash_attention(
   p.scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_DTYPE_BF16) return dispatch_bf16(p, batch, head_dim, s);
-  if (dtype == REPRO_DTYPE_F32) return dispatch_f32(p, batch, head_dim, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_bf16(p, batch, head_dim, s);
 }

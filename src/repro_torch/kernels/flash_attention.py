@@ -12,8 +12,10 @@ accepted. Three designs, fixed by (dtype, head_dim) in ``design()``:
 * ``"mma_sync"`` — bfloat16 at head_dim 16 and 32, the smoke configs'
   widths (``csrc/flash_attention.cu``): ``mma.sync`` m16n8k16, 64-row
   tiles;
-* ``"ffma"`` — float32 at every head_dim (``csrc/flash_attention.cu``):
-  full-precision FFMA, no TF32.
+* ``"ffma"`` — float32 at every head_dim (``csrc/flash_attention_ffma.cu``):
+  full-precision FFMA, no TF32; 64-row query tiles of 256 threads, each
+  thread a 4 × 4 tile of S and 4 rows × D/16 columns of O in registers,
+  64-key K/V tiles through a ring of ``cp.async`` slots (``ffma_tile``).
 
 Operands are ``[B, H, S, D]`` tensors of any element strides with unit
 stride on D (``D`` ∈ {16, 32, 64, 128, 256}), so the model passes its
@@ -31,12 +33,13 @@ entry of ``launch_count_by_design()``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535
 DESIGNS = ("wgmma", "mma_sync", "ffma")
@@ -45,10 +48,16 @@ WGMMA_HEAD_DIMS = (64, 128, 256)
 LIBRARIES = {
     "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma"),
     "mma_sync": ("flash_attention", "repro_flash_attention"),
-    "ffma": ("flash_attention", "repro_flash_attention"),
+    "ffma": ("flash_attention_ffma", "repro_flash_attention_ffma"),
 }
 # Largest byte stride a tensor map takes (2^40).
 MAX_TMA_STRIDE = 1 << 40
+# The ffma design's tile table, as csrc/flash_attention_ffma.cu has it:
+# query rows a block, keys a tile, threads a block, floats of pad on a
+# Q/K/V row and on a P row, K/V ring slots (at head_dim 256 and elsewhere).
+FFMA_BM, FFMA_BN, FFMA_THREADS = 64, 64, 256
+FFMA_PAD_KV, FFMA_PAD_P = 4, 8
+FFMA_SLOTS_D256, FFMA_SLOTS = 2, 4
 
 _launches = dict.fromkeys(DESIGNS, 0)
 _bound: dict[str, object] = {}
@@ -81,6 +90,29 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     raise TypeError(f"no flash_attention design for {dtype}")
 
 
+@dataclasses.dataclass(frozen=True)
+class FfmaTile:
+    bm: int           # query rows of a block
+    bn: int           # keys of a tile
+    threads: int      # threads of a block
+    slots: int        # K/V ring slots: K(t), V(t), K(t+1), ...
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+def ffma_tile(head_dim: int) -> FfmaTile:
+    """The ``ffma`` design's tile at ``head_dim``, mirroring
+    ``FfmaTile<D>`` of ``csrc/flash_attention_ffma.cu``: Q, the K/V ring
+    and P in shared memory, rows padded, plus a float per row for each of
+    the block's two key halves."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not one of {HEAD_DIMS}")
+    slots = FFMA_SLOTS_D256 if head_dim == 256 else FFMA_SLOTS
+    ld = head_dim + FFMA_PAD_KV
+    floats = (FFMA_BM * ld + slots * FFMA_BN * ld
+              + FFMA_BM * (FFMA_BN + FFMA_PAD_P) + 2 * FFMA_BM)
+    return FfmaTile(FFMA_BM, FFMA_BN, FFMA_THREADS, slots, 4 * floats)
+
+
 def _library(name: str):
     fn = _bound.get(name)
     if fn is not None:
@@ -109,7 +141,6 @@ def _library(name: str):
             ctypes.c_int, ctypes.c_int, ctypes.c_int,           # Sq, Sk, D
             ctypes.c_int, ctypes.c_int,                         # causal, window
             ctypes.c_float,                                     # softcap
-            ctypes.c_int,                                       # dtype code
             ctypes.c_void_p,                                    # stream
         ]
     _bound[name] = fn
@@ -122,7 +153,7 @@ def check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
-        if t.dtype not in DTYPE_CODE:
+        if t.dtype not in DTYPES:
             raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
@@ -230,8 +261,6 @@ def flash_attention(
     else:
         args = [(ctypes.c_longlong * 12)(*strides)]
     tail = [b, h, kv, sq, sk, d, int(causal), window or 0, float(softcap or 0.0)]
-    if name != "wgmma":
-        tail.append(DTYPE_CODE[q.dtype])
     fn = _library(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -269,15 +269,18 @@ def test_launch_counters_count_no_plain_call():
 def test_design_table(dtype, head_dim):
     """bf16 at the models' head_dims 64/128/256 goes to wgmma; bf16 at the
     smoke configs' 16 and 32 to mma.sync; float32 everywhere to FFMA (no
-    TF32)."""
+    TF32). Each design has its own source."""
     want = {
         "float32": "ffma",
         "bfloat16": "wgmma" if head_dim in (64, 128, 256) else "mma_sync",
     }[dtype]
     got = flash_mod.design(TORCH_DTYPE[dtype], head_dim)
     assert got == want and got in flash_mod.DESIGNS
-    source, _ = flash_mod.LIBRARIES[got]
-    assert (source == "flash_attention_wgmma") == (got == "wgmma")
+    source, symbol = flash_mod.LIBRARIES[got]
+    assert source == {"wgmma": "flash_attention_wgmma",
+                      "mma_sync": "flash_attention",
+                      "ffma": "flash_attention_ffma"}[got]
+    assert symbol == f"repro_{source}"
 
 
 @pytest.mark.parametrize("dtype,head_dim,error", [

@@ -58,7 +58,8 @@ def test_package_has_the_slices_modules():
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention", "flash_attention_wgmma",
-                "decode_attention", "decode_attention_mma"):
+                "flash_attention_ffma", "decode_attention",
+                "decode_attention_mma"):
         assert (PKG / "kernels" / "csrc" / f"{src}.cu").is_file()
 
 
