@@ -61,7 +61,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +124,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_paths
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+L2_BYTES = 50 * 2**20  # the L2 cache
 
 # kernel -> (source in csrc/ that serves its main path, the TPU kernel it
 # replaces). The attention kernels have more sources, chosen by (dtype,
@@ -235,6 +238,24 @@ DECODE_MMA_CASES = [
 ] + [
     (2, 8, 4, 8192, 256, 8192, 50.0, "model"),    # Gemma2-2B's decode layer
 ]
+# The ffma design of decode_attention (float32): the columns of
+# DECODE_MMA_CASES, each shape at every head_dim, then Gemma2-2B's decode
+# layer at its fp32 serve_check depth. Held at ATTN_FP32_TOL, each asserted
+# to run "ffma"; rows of length 0 are zeros exactly.
+DECODE_FFMA_CASES = [
+    (b, h, kv, s, d, length, cap, layout)
+    for d in flash_mod.HEAD_DIMS
+    for b, h, kv, s, length, cap, layout in (
+        (2, 16, 1, 300, 300, None, "model"),          # group 16, length = S
+        (3, 4, 4, 129, 1, None, "dense"),             # group 1, length 1
+        (2, 14, 2, 1000, 999, 50.0, "model"),         # group 7, softcap 50
+        (3, 14, 2, 1000, [0, 517, 1000], None, "model"),  # [B], a 0
+        (2, 7, 1, 77, 77, None, "dense"),             # S = 77, no whole tile
+        (2, 4, 2, 100, 0, None, "model"),             # length 0
+    )
+] + [
+    (1, 8, 4, 4616, 256, 4616, 50.0, "model"),    # Gemma2-2B's decode layer
+]
 
 # Serving main path: B prompts of PROMPT tokens, caches MAX_LEN deep,
 # NEW_TOKENS greedy tokens (the first from prefill's logits).
@@ -246,6 +267,9 @@ GEMMA2_SERVE_BATCH = 8
 # layer has softcap 50. The local layer is timed at 2 requests (its
 # earlier timings' shape).
 GEMMA2_LAYERS = (("local", 2, 4096), ("global", GEMMA2_SERVE_BATCH, None))
+# Sequence of the mma_sync flash design's timed shape (bf16, head_dim 16
+# and 32, q [4, 8, S, D], k/v [4, 4, S, D], causal).
+MMA_SYNC_SEQ = 4096
 # A key tile of the wgmma design at head_dim 256: the faulty plain version
 # at Gemma2's layers leaves one such tile out.
 WGMMA_D256_TILE = 64
@@ -332,16 +356,23 @@ def time_graph(fn, reps: int, replays: int = 5) -> float:
     """Mean milliseconds of ``fn()`` replayed from a CUDA graph of ``reps``
     calls: the device's time alone, without the host's cost of each eager
     launch (which paces a kernel of tens of microseconds)."""
-    fn()
+    return time_graph_cycle([fn] * reps, replays)
+
+
+def time_graph_cycle(fns, replays: int = 5) -> float:
+    """Mean milliseconds of one call replayed from a CUDA graph that calls
+    each of ``fns`` once, in order."""
+    for fn in dict.fromkeys(fns):
+        fn()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fns[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
+        for fn in fns:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -352,7 +383,7 @@ def time_graph(fn, reps: int, replays: int = 5) -> float:
         graph.replay()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * replays)
+    return start.elapsed_time(stop) / (len(fns) * replays)
 
 
 def compare(got, want, rtol: float, atol) -> tuple[bool, float, float]:
@@ -1538,6 +1569,33 @@ def check_design_cases(gen, cases, head_dims, dtype, want: str) -> list[dict]:
     return results
 
 
+def check_decode_cases(gen, cases, dtype, want: str) -> list[dict]:
+    """A decode design's case table (the columns of DECODE_MMA_CASES):
+    each case held to the plain version, bf16 at the data-scaled limit and
+    float32 at the tables' 2e-5, asserted to run the design ``want``; rows
+    of length 0 are zeros exactly."""
+    name = {torch.bfloat16: "bf16", torch.float32: "float32"}[dtype]
+    results = []
+    for b, h, kv, s, d, length, cap, layout in cases:
+        q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, dtype,
+                              model_layout=layout == "model")
+        n = (torch.tensor(length, dtype=torch.int32, device="cuda")
+             if isinstance(length, list) else length)
+        res, got = check_decode(
+            f"decode b={b} h={h} kv={kv} s={s} d={d} length={length} "
+            f"softcap={cap} {name} ({layout} layout)", q, k, v, n, cap,
+            scaled=dtype == torch.bfloat16)
+        if res["design"] != want:
+            raise AssertionError(f"{res['case']} ran {res['design']}")
+        results.append(res)
+        lengths = length if isinstance(length, list) else [length] * b
+        for i, li in enumerate(lengths):
+            if li == 0 and bool(got[i].ne(0).any()):
+                raise AssertionError(f"{res['case']}: length 0 is not zeros")
+        del q, k, v, got
+    return results
+
+
 def phase_attention_check(seed: int) -> list[dict]:
     """Both attention kernels against their plain versions on the card at
     small shapes: the case tables of tests/test_kernels.py, ragged S,
@@ -1551,7 +1609,9 @@ def phase_attention_check(seed: int) -> list[dict]:
     256; the mma design of decode_attention (``DECODE_MMA_CASES``: groups
     1, 7 and 16, every head_dim, length 1 and S, S = 77, softcap 50, [B]
     lengths with a 0 (zeros exactly), strided views, Gemma2-2B's decode
-    layer) at the data-scaled limit, asserting that design ran. Every
+    layer) at the data-scaled limit, and its ffma design
+    (``DECODE_FFMA_CASES``: the same in float32 at every head_dim, and
+    length 0) at 2e-5, asserting each design ran. Every
     decode call must run the design ``design()`` names. Also shows that
     the check refuses a decode plain version with ``length - 1``. The main
     path's shapes are held in ``phase_attention_kernels``."""
@@ -1606,23 +1666,8 @@ def phase_attention_check(seed: int) -> list[dict]:
         "decode length as a 0-d int32 tensor", q, k, v,
         torch.tensor(650, dtype=torch.int32, device="cuda"))[0])
 
-    for b, h, kv, s, d, length, cap, layout in DECODE_MMA_CASES:
-        q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, bf16,
-                              model_layout=layout == "model")
-        n = (torch.tensor(length, dtype=torch.int32, device="cuda")
-             if isinstance(length, list) else length)
-        res, got = check_decode(
-            f"decode b={b} h={h} kv={kv} s={s} d={d} length={length} "
-            f"softcap={cap} bf16 ({layout} layout)", q, k, v, n, cap,
-            scaled=True)
-        if res["design"] != "mma":
-            raise AssertionError(f"{res['case']} ran {res['design']}")
-        results.append(res)
-        lengths = length if isinstance(length, list) else [length] * b
-        for i, li in enumerate(lengths):
-            if li == 0 and bool(got[i].ne(0).any()):
-                raise AssertionError("decode with length 0 is not zeros")
-        del q, k, v, got
+    results += check_decode_cases(gen, DECODE_MMA_CASES, bf16, "mma")
+    results += check_decode_cases(gen, DECODE_FFMA_CASES, f32, "ffma")
     torch.cuda.synchronize()
     emit("attention_check", cases=results, refused=refused)
     return results
@@ -1656,7 +1701,8 @@ def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
       same parameters: the kernel path may be at most twice as far from it
       as the torch-op path is, plus 1e-4 (float32 summation order).
 
-    The float32 prefill must run the ``ffma`` flash design once a layer.
+    The float32 prefill must run the ``ffma`` flash design once a layer,
+    and each float32 step the ``ffma`` decode design once a layer.
     Returns the attention kernels' launches by design in each run."""
     cfg32 = dataclasses.replace(
         cfg, param_dtype="float32", compute_dtype="float32"
@@ -1698,6 +1744,11 @@ def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
                    "ffma": cfg.num_layers}:
         raise AssertionError(f"serve_check {cfg.name} float32 prefill: "
                              f"flash launches {flash32}")
+    decode32 = launches["float32"]["decode_attention"]
+    if decode32 != {**dict.fromkeys(decode_mod.DESIGNS, 0),
+                    "ffma": cfg.num_layers * steps}:
+        raise AssertionError(f"serve_check {cfg.name} float32 decode: "
+                             f"decode launches {decode32}")
     err32 = {
         "prefill": assert_close(got32[:, 0], truth[:, 0], 2e-2,
                                 f"serve_check {cfg.name} float32 prefill logits"),
@@ -1910,15 +1961,136 @@ def decode_bound(q, k, length: int) -> tuple[float, str]:
     return moved / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
-def tile_dropped_plain(q, k, v, length: int, start: int):
+def tile_dropped_plain(q, k, v, length: int, start: int,
+                       tile: int = DECODE_TILE, softcap=None):
     """The plain decode version with cache slots ``start`` ..
-    ``start + DECODE_TILE - 1`` left out (a kernel that skips one tile)."""
+    ``start + tile - 1`` left out (a kernel that skips one tile)."""
     s, dev = k.shape[2], k.device
     keep = torch.cat([torch.arange(start, device=dev),
-                      torch.arange(start + DECODE_TILE, s, device=dev)])
+                      torch.arange(start + tile, s, device=dev)])
     return ref.decode_attention_ref(
-        q, k.index_select(2, keep), v.index_select(2, keep),
-        length - DECODE_TILE)
+        q, k.index_select(2, keep), v.index_select(2, keep), length - tile,
+        softcap=softcap)
+
+
+def head_mod_decode_plain(q, k, v, length, softcap=None):
+    """The plain decode version with query head h on KV head h % KV."""
+    h, kv = q.shape[1], k.shape[1]
+    heads = torch.tensor([i % kv for i in range(h)], device=q.device)
+    return ref.decode_attention_ref(q, k.index_select(1, heads),
+                                    v.index_select(1, heads), length,
+                                    softcap=softcap)
+
+
+def graph_replays(fn, want, replays: int = 3) -> int:
+    """``fn()`` captured once in a CUDA graph and replayed ``replays``
+    times in a row, its output overwritten with NaN before each replay:
+    every replay must give ``want`` (the eager output) bit for bit. A
+    decode launch combines its splits on arrival counters that its last
+    blocks set back to 0, so this fails if one is left behind."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for i in range(replays):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"graph replay {i + 1} differs from the "
+                                 "eager output")
+    del graph
+    return replays
+
+
+def kernel_device_us(fn, calls: int = 50) -> dict:
+    """Mean device microseconds of each kernel that ``fn()`` launches, by
+    its function name (torch.profiler over ``calls`` eager calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        name = re.search(r"(\w+)(<[^>]*>)?\(", ev.key)
+        if ev.device_time_total > 0 and ev.count:
+            key = "".join(name.groups("")) if name else ev.key
+            out[key] = {"us": ev.device_time_total / ev.count,
+                        "launches": ev.count}
+    return out
+
+
+def decode_step_times(q, k, v, depth: int, softcap) -> dict:
+    """A decode step timed as its check runs it (with its softcap): the
+    launch replayed from a CUDA graph beside its byte bound, with the cache
+    warm in L2 as the repeated call leaves it (``ms``) and cold
+    (``cold_ms``: the graph cycles through copies of K and V, twice the L2
+    in all, so each launch finds its cache evicted, as a model's layers
+    do); each kernel it launches apart (``kernel_device_us``); the same
+    launch at length 1 (the floor of one launch's fixed costs); and the
+    split plan: tiles, splits, blocks and the share of the SMs those
+    occupy."""
+    b, h = q.shape[:2]
+    kv, d = k.shape[1], k.shape[3]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = decode_mod.resident_blocks(q.dtype, d, h // kv, q.device)
+    tile = decode_mod.tile_slots(q.dtype, d)
+    tiles, splits = decode_mod.split_plan(b, kv, depth, sms, resident, tile)
+    blocks = b * kv * splits
+
+    def step(n: int, kk=k, vv=v):
+        length = torch.tensor(n, dtype=torch.int32, device=q.device)
+        return lambda: ops.decode_attention(q, kk, vv, length, softcap=softcap)
+
+    ms = time_graph(step(depth), reps=TIMING_REPS)
+    bound, by = decode_bound(q, k, depth)
+    cache_bytes = 2 * k.numel() * k.element_size()
+    copies = min(128, max(2, math.ceil(2 * L2_BYTES / cache_bytes)))
+    cold_ms = time_graph_cycle([step(depth, k.clone(), v.clone())
+                                for _ in range(copies)])
+    return {
+        "ms": ms, "cold_ms": cold_ms, "cold_copies": copies,
+        "bound_ms": bound, "bound_by": by,
+        "share_of_bound_cold": bound / cold_ms,
+        "length_1_ms": time_graph(step(1), reps=TIMING_REPS),
+        "kernel_us": kernel_device_us(step(depth)),
+        "tile": tile, "tiles": tiles, "splits": splits, "blocks": blocks,
+        "resident_blocks_per_sm": resident,
+        "sm_share": min(blocks, sms) / sms,
+    }
+
+
+def decode_ffma_times(seed: int) -> list[dict]:
+    """The float32 decode steps of both SERVE_CHECKS configs (the global
+    cache at its last teacher-forced depth) timed alone by
+    ``decode_step_times``, no check: the one measurement of the ffma decode
+    design that also runs against an earlier tree of the package, to
+    compare designs in one call."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    rows = []
+    for cfg, b, s in SERVE_CHECKS:
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        q, k, v = attn_inputs(gen, b, h, kv, 1, s + CHECK_STEPS, d,
+                              torch.float32)
+        rows.append({
+            "config": cfg.name, "q": list(q.shape), "k": list(k.shape),
+            "softcap": cfg.attn_logit_softcap,
+            **decode_step_times(q, k, v, s + CHECK_STEPS,
+                                cfg.attn_logit_softcap),
+        })
+        del q, k, v
+    emit("decode_ffma_times", steps=rows)
+    return rows
 
 
 def hold_flash_layer(what, q, k, v, requests, window=None, softcap=None,
@@ -2002,6 +2174,9 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
       ``kv = h % KV`` and one with the causal diagonal excluded;
     * a head_dim-128 layer, Mixtral-8x7B's 32 heads / 8 KV heads at batch
       4, with the same controls and SDPA's time beside the kernel's;
+    * the mma_sync design at head_dim 32 and 16 (q [4, 8, 4096, D], causal)
+      on two requests, with its plain version's and SDPA's time beside the
+      kernel's;
     * the served decode step and DECODE_32K's decode layer (also with
       ragged [B] lengths); at both, the limit refuses a plain version with
       ``length - 1`` and one with a tile of the cache left out;
@@ -2078,6 +2253,36 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
         "ms_over_library_ms": ms128 / lib128,
     }]
     del q, k, v
+    torch.cuda.empty_cache()
+
+    # The mma_sync design (bf16, head_dim 16 and 32), which no model of the
+    # port serves at scale: 8 heads / 4 KV heads at batch 4 x MMA_SYNC_SEQ,
+    # causal, held on two requests and timed beside its bound, its plain
+    # version and SDPA.
+    for dm in (32, 16):
+        q, k, v = attn_inputs(gen, 4, 8, 4, MMA_SYNC_SEQ, MMA_SYNC_SEQ, dm,
+                              bf16)
+        res = check_flash(
+            f"flash mma_sync layer q={list(q.shape)} k={list(k.shape)} bf16",
+            q, k, v, requests=(0, 3))[0]
+        if res["design"] != "mma_sync":
+            raise AssertionError(f"{res['case']} ran {res['design']}")
+        cases.append(res)
+        ms = time_cuda(lambda: ops.flash_attention(q, k, v), reps=TIMING_REPS)
+        lib = time_cuda(lambda: library_attention(q, k, v, True),
+                        reps=TIMING_REPS)
+        bound, by = flash_bound(q, k)
+        flash["shapes"].append({
+            "case": f"mma_sync design, head_dim {dm}", "q": list(q.shape),
+            "k": list(k.shape), "design": res["design"],
+            "max_abs_err": res["max_abs_err"], "ms": ms, "library_ms": lib,
+            "plain_ms": time_cuda(lambda: ref.flash_attention_ref(q, k, v),
+                                  reps=2),
+            "bound_ms": bound, "bound_by": by,
+            "live_tflops_per_s": flash_flops(q) / (ms * 1e-3) / 1e12,
+            "ms_over_library_ms": ms / lib,
+        })
+        del q, k, v
     torch.cuda.empty_cache()
 
     shapes = []
@@ -2200,8 +2405,12 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
     memory-efficient backend in float32. At each flash layer the 2e-5
     limit must refuse three faulty plain versions (``hold_flash_layer``:
     ``kv = h % KV``, the causal diagonal excluded, one ``ffma`` key tile
-    left out), each keeping the layer's window and softcap. ``checks``:
-    the launches by design of each ``serve_check`` run, by config name."""
+    left out), each keeping the layer's window and softcap; at each decode
+    step (timed with its softcap, ``decode_step_times``) three more:
+    ``length - 1``, one ``ffma`` tile of the cache left out and ``kv = h %
+    KV``; and the step replayed from a CUDA graph three times in a row must
+    equal its eager output (``graph_replays``). ``checks``: the launches
+    by design of each ``serve_check`` run, by config name."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     f32 = torch.float32
     rows = {"flash_attention": [], "decode_attention": []}
@@ -2244,18 +2453,31 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
             rows["flash_attention"].append(row)
             del q, k, v
         # decode at the last step: the global cache (or the only kind) at
-        # its full depth
+        # its full depth, with the config's softcap
         q, k, v = attn_inputs(gen, b, h, kv, 1, depth, d, f32)
         n = torch.tensor(depth, dtype=torch.int32, device="cuda")
-        res = check_decode(f"decode ffma {cfg.name} q={list(q.shape)} "
-                           f"k={list(k.shape)} float32", q, k, v, n, cap)[0]
-        bound, by = decode_bound(q, k, depth)
+        what = (f"decode ffma {cfg.name} q={list(q.shape)} k={list(k.shape)} "
+                f"float32")
+        res, got = check_decode(what, q, k, v, n, cap)
+        tile = decode_mod.tile_slots(f32, d)
+        start = depth // 2 // tile * tile
+        for text, faulty in (
+            ("length - 1", lambda: ref.decode_attention_ref(
+                q, k, v, n - 1, softcap=cap)),
+            (f"cache slots {start} .. {start + tile - 1} left out (one "
+             "ffma tile)", lambda: tile_dropped_plain(
+                 q, k, v, n, start, tile, cap)),
+            ("kv = h % KV", lambda: head_mod_decode_plain(q, k, v, n, cap)),
+        ):
+            refused.append(refuse(f"a decode plain version with {text} "
+                                  f"({what})", got, faulty(), scaled=False))
+        replays = graph_replays(
+            lambda: ops.decode_attention(q, k, v, n, softcap=cap), got)
         row = {"config": cfg.name, "q": list(q.shape), "k": list(k.shape),
                "length": depth, "softcap": cap, "design": res["design"],
                "max_abs_err": res["max_abs_err"],
-               "ms": time_graph(lambda: ops.decode_attention(q, k, v, n),
-                                reps=TIMING_REPS),
-               "bound_ms": bound, "bound_by": by,
+               "graph_replays_equal_to_eager": replays,
+               **decode_step_times(q, k, v, depth, cap),
                "plain_ms": time_cuda(lambda: ref.decode_attention_ref(
                    q, k, v, n, softcap=cap), reps=TIMING_REPS),
                **{key: by_kernel["decode_attention"]
@@ -2269,7 +2491,7 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
         else:
             row["library_ms"] = None
         rows["decode_attention"].append(row)
-        del q, k, v
+        del q, k, v, got
     torch.cuda.empty_cache()
     out = {
         **rows,
@@ -2278,7 +2500,7 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
                         "float32, TF32 off, k/v repeated to H heads",
         "timing": "flash: eager, CUDA events (graph_ms: replayed from a "
                   "CUDA graph); decode and its library call: replayed from a "
-                  "CUDA graph",
+                  "CUDA graph, kernel_us by torch.profiler",
         "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                  "cudnn": torch.backends.cudnn.allow_tf32},
     }

@@ -7,16 +7,23 @@ length S is accepted. Two designs, fixed by the dtype in ``design()``:
 * ``"mma"`` — bfloat16 at every head_dim (``csrc/decode_attention_mma.cu``):
   the G query heads of a KV head are the 16 rows of ``mma.sync`` m16n8k16
   tiles for Q·Kᵀ and P·V; each warp streams its own 32-slot tiles through
-  a ring of ``cp.async`` stages; the splits are combined by the last block
-  of each (batch, KV head) inside the same launch;
+  a ring of ``cp.async`` stages;
 * ``"ffma"`` — float32 at every head_dim (``csrc/decode_attention.cu``):
-  full-precision FFMA (no TF32), two ``cp.async`` stages, and a second
-  small kernel that combines the splits.
+  full-precision FFMA (no TF32). A block of eight warps streams 32-slot
+  tiles (64 at head_dim 16) through a ring of ``cp.async`` stages (96 KB a
+  block at two blocks an SM, 192 KB at one); each warp owns an eighth of
+  every tile's slots and its own (m, l, O) for all G heads, so every warp
+  works at any group, and the warps merge once at the end of the block.
+  The kernel is compiled for the group rounded up to 2, 4, 8 or 16 heads.
 
 Both split the cache into a balanced partition of its tiles (``split_plan``)
 so that the blocks fill whole waves (to ``WAVE_FILL``) of what the design
 keeps resident per SM, read once per (device, design, head_dim, group)
-from the CUDA occupancy calculator.
+from the CUDA occupancy calculator. Both combine the splits inside the
+same launch: each block writes its partial (m, l, acc), and the last block
+of its (batch, KV head) to arrive combines them, counted on int32 arrival
+counters (``_split_counters``) that it sets back to 0, so a launch replays
+from a CUDA graph.
 
 ``q [B, H, 1, D]`` and ``k``/``v [B, KV, S, D]`` may have any element
 strides with unit stride on D, so the model passes its ``[B, S, KV, D]``
@@ -30,8 +37,7 @@ The output is ``[B, H, 1, D]``, laid out as ``[B, 1, H, D]``.
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
 CUDA tensor launches the design's kernel or raises (also when the build
 fails). Every call on the card adds one to ``launch_count()`` and to its
-design's entry of ``launch_count_by_design()`` (the ``ffma`` design's split
-and combine kernels are one launch of this wrapper).
+design's entry of ``launch_count_by_design()``.
 """
 
 from __future__ import annotations
@@ -56,7 +62,10 @@ LIBRARIES = {
     "ffma": ("decode_attention", "repro_decode_attention"),
 }
 MAX_GROUP = 16     # query heads per KV head that one block holds
-MAX_SPLITS = 256   # the mma design's combine holds [16, splits] weights
+MAX_SPLITS = 256   # each design's combine holds [16, splits] weights
+# Cache slots of an ffma tile: the constexpr lines kTile and kTileD16 of
+# csrc/decode_attention.cu.
+FFMA_TILE, FFMA_TILE_D16 = 32, 64
 WAVE_FILL = 0.95   # split_plan: the least share of its last wave a plan fills
 
 _launches = dict.fromkeys(DESIGNS, 0)
@@ -96,12 +105,13 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
 def tile_slots(dtype: torch.dtype, head_dim: int) -> int:
     """Cache slots of one tile of the design serving ``(dtype, head_dim)``,
     the unit of a split: for ``mma`` a warp's step, 32 slots (16 at
-    head_dim 256); for ``ffma`` a block's, 64 slots (32 at head_dim 256).
-    At 256 the larger tile's stages would not fit a block's shared memory.
-    Each library reports its own, and the wrapper raises on a mismatch."""
+    head_dim 256); for ``ffma`` a block's, whose eight warps take an eighth
+    each, 32 slots (64 at head_dim 16, where a warp's slots must be 8 for
+    its lanes to split the 4 chunks of a row). Each library reports its
+    own, and the wrapper raises on a mismatch."""
     if design(dtype, head_dim) == "mma":
         return 16 if head_dim == 256 else 32
-    return 32 if head_dim == 256 else 64
+    return FFMA_TILE_D16 if head_dim == 16 else FFMA_TILE
 
 
 def split_plan(batch: int, kv_heads: int, s: int, sm_count: int,
@@ -142,13 +152,12 @@ def _library(name: str):
     lib = build.load(source)
     fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
-    parts = [ctypes.c_void_p] * (4 if name == "mma" else 3)  # (+ counters)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
         ctypes.c_void_p,                                    # o
         ctypes.c_void_p, ctypes.c_longlong,                 # length, stride
         ctypes.POINTER(ctypes.c_longlong),                  # 11 strides
-        *parts,                                             # partials
+        *[ctypes.c_void_p] * 4,                             # m, l, acc, counters
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # B, H, KV
         ctypes.c_int, ctypes.c_int,                         # S, D
         ctypes.c_int, ctypes.c_int, ctypes.c_int,           # tile, tiles, splits
@@ -199,8 +208,8 @@ def resident_blocks(dtype: torch.dtype, head_dim: int, group: int,
 
 
 def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    """int32 zeros, at least ``n``, kept per device: the mma kernel's
-    arrival counters, which it leaves at 0 after every launch."""
+    """int32 zeros, at least ``n``, kept per device: the kernels' arrival
+    counters, which each launch leaves at 0."""
     index = _device_index(device)
     buf = _counters.get(index)
     if buf is None or buf.numel() < n:
@@ -261,17 +270,15 @@ def decode_attention(
         b, kv, s, _sm_count(q.device),
         resident_blocks(q.dtype, d, h // kv, q.device), tile)
     # One scratch tensor: acc [B*H*splits*D] first (16-byte aligned), then
-    # m and l [B*H*splits]. The mma design needs none at one split.
+    # m and l [B*H*splits]; and the arrival counters. None at one split.
     rows = b * h * splits
-    parts = [0, 0, 0]
-    if name == "ffma" or splits > 1:
+    parts = [0, 0, 0, 0]
+    if splits > 1:
         scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
                               device=q.device)
         acc_ptr = scratch.data_ptr()
-        parts = [acc_ptr + 4 * rows * d, acc_ptr + 4 * rows * (d + 1), acc_ptr]
-    if name == "mma":
-        parts.append(_split_counters(q.device, b * kv).data_ptr()
-                     if splits > 1 else 0)
+        parts = [acc_ptr + 4 * rows * d, acc_ptr + 4 * rows * (d + 1), acc_ptr,
+                 _split_counters(q.device, b * kv).data_ptr()]
     strides = kernel_strides(q, k, v) + kernel_strides(out, dims=2)
     fn, _ = _library(name)
     with torch.cuda.device(q.device):

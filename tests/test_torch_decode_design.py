@@ -52,12 +52,12 @@ def test_design_refuses_what_no_kernel_serves(dtype, head_dim, error):
 
 @pytest.mark.parametrize("head_dim", flash_mod.HEAD_DIMS)
 def test_tile_slots(head_dim):
-    """mma: 32-slot tiles (a warp's step), 16 at head_dim 256; ffma: 64,
-    32 at head_dim 256."""
+    """mma: 32-slot tiles (a warp's step), 16 at head_dim 256; ffma: 32 (a
+    block's step, 4 slots a warp), 64 at head_dim 16."""
     assert decode_mod.tile_slots(torch.bfloat16, head_dim) == (
         16 if head_dim == 256 else 32)
     assert decode_mod.tile_slots(torch.float32, head_dim) == (
-        32 if head_dim == 256 else 64)
+        64 if head_dim == 16 else 32)
 
 
 # (batch, kv_heads, S): the served step, DECODE_32K, chip_smoke's small
