@@ -30,10 +30,9 @@ calls:
   tokens and 64 greedy tokens through the same two kernels.
 
 First it builds the hand-written kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc`` (six sources, one process
-each, all at once: ``mixing_combine``; ``flash_attention`` has three,
-``flash_attention_wgmma`` for bf16 at head_dim 64/128/256,
-``flash_attention`` (``mma.sync``) for bf16 at 16/32 and
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
+each, all at once: ``mixing_combine``; ``flash_attention`` has two,
+``flash_attention_wgmma`` for bf16 at every head_dim and
 ``flash_attention_ffma`` for float32 at every head_dim;
 ``decode_attention`` has two, ``decode_attention_mma`` for bf16 and
 ``decode_attention`` (FFMA) for float32) and holds each against its plain
@@ -60,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -124,15 +124,25 @@ from repro_torch.tree import tree_leaves, tree_map, tree_paths
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# Results a clock of one SM's MUFU, the unit that computes ex2 and tanh:
+# 16 on compute capability 9.0 (the CUDA C++ Programming Guide's table of
+# arithmetic instruction throughput, "32-bit floating-point reciprocal,
+# reciprocal square root, base-2 logarithm, base 2 exponential, sine,
+# cosine"). A flash layer's kernels issue one fp32 ex2 a live (query, key)
+# pair and one tanh more under a softcap; times the SMs and the max SM
+# clock that nvidia-smi reads in the same run (mufu_per_s). This bounds
+# that choice of instruction, not the card: exponentials can also run on
+# the FMA pipe (a polynomial) or two at a time (ex2.approx.f16x2).
+MUFU_PER_CLOCK_PER_SM = 16
 L2_BYTES = 50 * 2**20  # the L2 cache
 
 # kernel -> (source in csrc/ that serves its main path, the TPU kernel it
 # replaces). The attention kernels have more sources, chosen by (dtype,
-# head_dim): flash_attention three (wgmma, mma_sync, ffma), decode_attention
-# two (mma, ffma). The serving paths (bf16, head_dim 64 and 256) run
-# flash_attention_wgmma.cu and decode_attention_mma.cu; the float32
-# serve_check runs and ffma_times run flash_attention_ffma.cu and
-# decode_attention.cu.
+# head_dim): flash_attention two (wgmma for bf16 at every head_dim, ffma
+# for float32), decode_attention two (mma, ffma). The serving paths (bf16,
+# head_dim 64 and 256) run flash_attention_wgmma.cu and
+# decode_attention_mma.cu; the float32 serve_check runs and ffma_times run
+# flash_attention_ffma.cu and decode_attention.cu.
 KERNELS = {
     "mixing_sgd_combine": (
         "mixing_combine", "src/repro/kernels/mixing_combine.py:38"),
@@ -142,8 +152,8 @@ KERNELS = {
         "decode_attention_mma", "src/repro/kernels/decode_attention.py:73"),
 }
 # Every kernel source, built at once (one nvcc process each).
-SOURCES = ("mixing_combine", "flash_attention", "flash_attention_wgmma",
-           "flash_attention_ffma", "decode_attention", "decode_attention_mma")
+SOURCES = ("mixing_combine", "flash_attention_wgmma", "flash_attention_ffma",
+           "decode_attention", "decode_attention_mma")
 
 FP32_TOL = 1e-5   # the reference's own (tests/test_kernels.py)
 BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
@@ -191,8 +201,8 @@ DECODE_CASES = [
     (3, 4, 1, 512, 32, 1, None, torch.float32),
     (2, 4, 2, 512, 64, 511, 50.0, torch.bfloat16),
 ]
-# The wgmma design of flash_attention (bf16, head_dim 64, 128 and 256), run
-# at every head_dim in WGMMA_CASE_HEAD_DIMS: (b, h, kv, sq, sk, causal,
+# The wgmma design of flash_attention (bf16 at every head_dim), run at
+# every head_dim in WGMMA_CASE_HEAD_DIMS: (b, h, kv, sq, sk, causal,
 # window, softcap, layout), with
 # layout "model" ([B,S,H,D] storage, transposed views), "dense"
 # ([B,H,S,D]) or "fused" (q, k, v sliced from one [B,S,H+2KV,D] tensor).
@@ -209,7 +219,7 @@ FLASH_WGMMA_CASES = [
 ]
 # A wrong swizzle, LBO/SBO or fragment packing gives garbage at one
 # head_dim only, with no fault: every check runs the table at each.
-WGMMA_CASE_HEAD_DIMS = (64, 128, 256)
+WGMMA_CASE_HEAD_DIMS = (16, 32, 64, 128, 256)
 # The ffma design of flash_attention (float32), run at every head_dim: the
 # same columns as FLASH_WGMMA_CASES, held at ATTN_FP32_TOL, each asserted
 # to run "ffma".
@@ -267,9 +277,9 @@ GEMMA2_SERVE_BATCH = 8
 # layer has softcap 50. The local layer is timed at 2 requests (its
 # earlier timings' shape).
 GEMMA2_LAYERS = (("local", 2, 4096), ("global", GEMMA2_SERVE_BATCH, None))
-# Sequence of the mma_sync flash design's timed shape (bf16, head_dim 16
-# and 32, q [4, 8, S, D], k/v [4, 4, S, D], causal).
-MMA_SYNC_SEQ = 4096
+# Sequence of the wgmma flash design's timed shape at head_dim 16 and 32
+# (bf16, q [4, 8, S, D], k/v [4, 4, S, D], causal).
+SMALL_D_SEQ = 4096
 # A key tile of the wgmma design at head_dim 256: the faulty plain version
 # at Gemma2's layers leaves one such tile out.
 WGMMA_D256_TILE = 64
@@ -1600,7 +1610,7 @@ def phase_attention_check(seed: int) -> list[dict]:
     """Both attention kernels against their plain versions on the card at
     small shapes: the case tables of tests/test_kernels.py, ragged S,
     ``length`` as a [B] vector, and head_dim 16 of the smoke configs; the
-    wgmma design of flash_attention at head_dim 64, 128 and 256
+    wgmma design of flash_attention at every head_dim
     (``FLASH_WGMMA_CASES``: window with softcap, non-causal Sq != Sk, S in
     {1, 77, 129, 1000}, groups of 1 and 7, strided and fused views, rows
     with no key) and its ffma design at every head_dim (``FLASH_FFMA_CASES``,
@@ -1920,11 +1930,36 @@ def library_attention(q, k, v, causal: bool):
         )
 
 
+def live_pairs(q, window=None) -> int:
+    """Live causal (window) (query, key) pairs of ``q [B,H,Sq,D]`` with
+    Sk == Sq, over every batch entry and head."""
+    b, h, sq, _ = q.shape
+    return b * h * sum(min(i + 1, window or i + 1) for i in range(sq))
+
+
 def flash_flops(q, window=None) -> int:
-    """4·B·H·D flops per live causal (window) (query, key) pair."""
-    b, h, sq, d = q.shape
-    live = sum(min(i + 1, window or i + 1) for i in range(sq))
-    return 4 * b * h * d * live
+    """4·D flops per live causal (window) (query, key) pair."""
+    return 4 * q.shape[-1] * live_pairs(q, window)
+
+
+@functools.lru_cache(maxsize=None)
+def mufu_per_s() -> float:
+    """MUFU results a second of torch's device 0: MUFU_PER_CLOCK_PER_SM x
+    its SMs x its max SM clock as nvidia-smi reads it, the card picked by
+    its UUID (nvidia-smi's indices ignore CUDA_VISIBLE_DEVICES)."""
+    props = torch.cuda.get_device_properties(0)
+    uuid = str(props.uuid).lower().removeprefix("gpu-")
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    mhz = {r.split(",")[0].strip().lower().removeprefix("gpu-"):
+           float(r.split(",")[1]) for r in rows}
+    if uuid not in mhz:
+        raise AssertionError(f"nvidia-smi lists no card with UUID {uuid}: "
+                             f"{rows}")
+    return MUFU_PER_CLOCK_PER_SM * props.multi_processor_count * mhz[uuid] * 1e6
 
 
 def library_attention_f32(q, k, v, causal: bool):
@@ -1943,15 +1978,38 @@ def repeat_kv(t, heads: int):
     return t.repeat_interleave(heads // t.shape[1], dim=1)
 
 
-def flash_bound(q, k, window=None) -> tuple[float, str]:
-    """Least ms: the live pairs' flops at the peak of q's type (bf16 on
-    the tensor cores; float32 on FFMA, TF32 being off), or q, k, v, o
-    moved once at the memory rate."""
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_ops = flash_flops(q, window) / peak * 1e3
+def flash_bound(q, k, window=None, softcap=None) -> dict:
+    """Least ms of a flash layer, the largest of three times: the live
+    pairs' flops at the peak of q's type (``"tensor"``: bf16 on the tensor
+    cores; ``"ffma"``: float32, TF32 being off), the fp32 ex2 the kernels
+    issue on the MUFU (``"mufu_ex2_f32"``: one a live pair, one tanh more
+    with a softcap, at ``mufu_per_s()``; the bound of that instruction, not
+    the card's least time for exponentials), and q, k, v, o moved once at
+    the memory rate (``"bytes"``). ``bound_by`` is "operations" or
+    "bytes", ``bound_unit`` the one of the three that binds; all three are
+    in ``bound_ms_by``."""
+    pairs = live_pairs(q, window)
+    bf16 = q.dtype == torch.bfloat16
     moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    times = {
+        "tensor" if bf16 else "ffma":
+            4 * q.shape[-1] * pairs
+            / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) * 1e3,
+        "mufu_ex2_f32": pairs * (2 if softcap else 1) / mufu_per_s() * 1e3,
+        "bytes": moved / PEAK_BYTES_PER_S * 1e3,
+    }
+    unit = max(times, key=times.get)
+    return {"bound_ms": times[unit],
+            "bound_by": "bytes" if unit == "bytes" else "operations",
+            "bound_unit": unit, "bound_ms_by": times}
+
+
+def bound_shares(bound: dict, ms: float) -> dict:
+    """The share of ``flash_bound``'s binding time that ``ms`` reaches,
+    and the share of each of its three times."""
+    return {"share_of_bound": bound["bound_ms"] / ms,
+            "share_of_bound_by": {unit: t / ms for unit, t
+                                  in bound["bound_ms_by"].items()}}
 
 
 def decode_bound(q, k, length: int) -> tuple[float, str]:
@@ -2125,12 +2183,13 @@ def hold_flash_layer(what, q, k, v, requests, window=None, softcap=None,
 
 
 def time_flash_layer(q, k, v, window=None, softcap=None) -> dict:
-    """The kernel's time at a layer beside its bound and live TFLOP/s."""
+    """The kernel's time at a layer beside its bound (and the share of it
+    reached) and live TFLOP/s."""
     ms = time_cuda(lambda: ops.flash_attention(q, k, v, window=window,
                                                softcap=softcap),
                    reps=TIMING_REPS)
-    bound, by = flash_bound(q, k, window)
-    return {"ms": ms, "bound_ms": bound, "bound_by": by,
+    bound = flash_bound(q, k, window, softcap)
+    return {"ms": ms, **bound, **bound_shares(bound, ms),
             "live_tflops_per_s": flash_flops(q, window) / (ms * 1e-3) / 1e12}
 
 
@@ -2174,9 +2233,10 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
       ``kv = h % KV`` and one with the causal diagonal excluded;
     * a head_dim-128 layer, Mixtral-8x7B's 32 heads / 8 KV heads at batch
       4, with the same controls and SDPA's time beside the kernel's;
-    * the mma_sync design at head_dim 32 and 16 (q [4, 8, 4096, D], causal)
-      on two requests, with its plain version's and SDPA's time beside the
-      kernel's;
+    * the wgmma design at head_dim 32 and 16 (q [4, 8, 4096, D], causal)
+      on two requests, with the same two controls and a third that leaves
+      one 128-key tile out, and its plain version's and SDPA's time beside
+      the kernel's and its bound (the MUFU's ex2);
     * the served decode step and DECODE_32K's decode layer (also with
       ragged [B] lengths); at both, the limit refuses a plain version with
       ``length - 1`` and one with a tile of the cache left out;
@@ -2212,12 +2272,13 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
     flash_plain_ms = time_cuda(plain_by_request, reps=2)
     flash_lib_ms = time_cuda(lambda: library_attention(q, k, v, True),
                              reps=TIMING_REPS)
-    bound, by = flash_bound(q, k)
+    bound = flash_bound(q, k)
     flash = {
         **kernel_fields("flash_attention"),
         "design": res["design"],
         "max_abs_err": res["max_abs_err"], "ms": flash_ms,
-        "plain_ms": flash_plain_ms, "bound_ms": bound, "bound_by": by,
+        "plain_ms": flash_plain_ms, **bound,
+        **bound_shares(bound, flash_ms),
         "library_ms": flash_lib_ms,
         "library_call": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), flash backend",
@@ -2243,44 +2304,47 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
     ms128 = time_cuda(lambda: ops.flash_attention(q, k, v), reps=TIMING_REPS)
     lib128 = time_cuda(lambda: library_attention(q, k, v, True),
                        reps=TIMING_REPS)
-    bound128, by128 = flash_bound(q, k)
+    bound128 = flash_bound(q, k)
     flash["shapes"] = [{
         "case": "head_dim-128 layer (Mixtral-8x7B, batch 4)",
         "q": list(q.shape), "k": list(k.shape), "design": res["design"],
         "max_abs_err": res["max_abs_err"], "ms": ms128,
-        "library_ms": lib128, "bound_ms": bound128, "bound_by": by128,
+        "library_ms": lib128, **bound128,
+        **bound_shares(bound128, ms128),
         "live_tflops_per_s": flash_flops(q) / (ms128 * 1e-3) / 1e12,
         "ms_over_library_ms": ms128 / lib128,
     }]
     del q, k, v
     torch.cuda.empty_cache()
 
-    # The mma_sync design (bf16, head_dim 16 and 32), which no model of the
-    # port serves at scale: 8 heads / 4 KV heads at batch 4 x MMA_SYNC_SEQ,
-    # causal, held on two requests and timed beside its bound, its plain
-    # version and SDPA.
+    # The wgmma design at head_dim 32 and 16, which no model of the port
+    # serves at scale: 8 heads / 4 KV heads at batch 4 x SMALL_D_SEQ,
+    # causal, held on two requests with the three faulty plain versions
+    # refused (one leaves a 128-key tile out), and timed beside its bound
+    # (the MUFU's, one ex2 a live pair), its plain version and SDPA.
     for dm in (32, 16):
-        q, k, v = attn_inputs(gen, 4, 8, 4, MMA_SYNC_SEQ, MMA_SYNC_SEQ, dm,
+        q, k, v = attn_inputs(gen, 4, 8, 4, SMALL_D_SEQ, SMALL_D_SEQ, dm,
                               bf16)
-        res = check_flash(
-            f"flash mma_sync layer q={list(q.shape)} k={list(k.shape)} bf16",
-            q, k, v, requests=(0, 3))[0]
-        if res["design"] != "mma_sync":
+        bn = flash_mod.wgmma_tile(dm).bn
+        res, refusals = hold_flash_layer(
+            f"flash head_dim-{dm} layer q={list(q.shape)} k={list(k.shape)} "
+            "bf16", q, k, v, requests=(0, 3),
+            drop_tile=SMALL_D_SEQ * 3 // 4 // bn * bn, tile=bn)
+        if res["design"] != "wgmma":
             raise AssertionError(f"{res['case']} ran {res['design']}")
         cases.append(res)
-        ms = time_cuda(lambda: ops.flash_attention(q, k, v), reps=TIMING_REPS)
+        refused += refusals
+        timed = time_flash_layer(q, k, v)
         lib = time_cuda(lambda: library_attention(q, k, v, True),
                         reps=TIMING_REPS)
-        bound, by = flash_bound(q, k)
         flash["shapes"].append({
-            "case": f"mma_sync design, head_dim {dm}", "q": list(q.shape),
+            "case": f"head_dim-{dm} layer", "q": list(q.shape),
             "k": list(k.shape), "design": res["design"],
-            "max_abs_err": res["max_abs_err"], "ms": ms, "library_ms": lib,
+            "max_abs_err": res["max_abs_err"], **timed, "library_ms": lib,
             "plain_ms": time_cuda(lambda: ref.flash_attention_ref(q, k, v),
                                   reps=2),
-            "bound_ms": bound, "bound_by": by,
-            "live_tflops_per_s": flash_flops(q) / (ms * 1e-3) / 1e12,
-            "ms_over_library_ms": ms / lib,
+            "ms_over_library_ms": timed["ms"] / lib,
+            "mufu_per_s": mufu_per_s(),
         })
         del q, k, v
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 // Blocked online-softmax attention (prefill) in float32 for NVIDIA Hopper
 // (sm_90a): design "ffma" of kernels/flash_attention.py, every head_dim
-// (16, 32, 64, 128, 256). The bfloat16 designs are flash_attention_wgmma.cu
-// and flash_attention.cu; the wrapper's design() is the table that picks.
+// (16, 32, 64, 128, 256). The bfloat16 design is flash_attention_wgmma.cu;
+// the wrapper's design() is the table that picks.
 //
 // Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
 // src/repro/kernels/flash_attention.py in float32:

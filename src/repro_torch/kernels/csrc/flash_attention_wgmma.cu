@@ -1,12 +1,12 @@
 // Blocked online-softmax attention (prefill) for NVIDIA Hopper (sm_90a):
-// the bfloat16 design at head_dim 64, 128 and 256, on wgmma and TMA.
+// the bfloat16 design at every head_dim (16, 32, 64, 128, 256), on wgmma
+// and TMA.
 //
 // Replaces the TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py:96, body `_flash_kernel` :30) for bfloat16 operands
-// with D = 64, 128 or 256 (Qwen2-0.5B has 64; Mistral-Large, Mixtral,
-// LLaVA-NeXT-34B and Jamba have 128; Gemma2-2B has 256); every other
-// (dtype, head_dim) stays on csrc/flash_attention.cu. It computes the same
-// function:
+// (Qwen2-0.5B has D = 64; Mistral-Large, Mixtral, LLaVA-NeXT-34B and Jamba
+// have 128; Gemma2-2B has 256; the smoke configs 16 and 32); float32 is
+// served by csrc/flash_attention_ffma.cu. It computes the same function:
 //
 //     o[b,h,i] = sum_j softmax_j(mask(cap*tanh((q_i . k_j) * D^-0.5 / cap))) v_j
 //
@@ -19,15 +19,22 @@
 // pair and head against 2 bytes per element moved once, far above the
 // card's flops-per-byte ridge, so the time is the tensor cores' and the
 // softmax's. mma.sync cannot reach the tensor cores' rate on Hopper; only
-// wgmma does. At D = 256 a score costs 1024 tensor flops, about a quarter
-// of an SM's clock at 989 TFLOP/s, and the softmax's scalar work per score
-// (the softcap's tanh, ex2, the mask, rescaling O) is of the same order,
-// so there the softmax may set the pace. Gemma2-2B's layers at 8 x 8192
-// tokens: the local one (window 4096, 2 requests) does 0.41 TFLOP of live
-// pairs, 0.417 ms at 989 TFLOP/s; the global one (causal) 2.20 TFLOP,
-// 2.224 ms. What the design does about that:
+// wgmma does. Every live pair also costs one ex2 on the SM's 16 MUFU lanes
+// (and one tanh under a softcap): at D <= 32 that, not the tensor cores,
+// is the bound (at D = 32 a score's 128 tensor flops take 1/30 of a clock
+// of an SM, its ex2 1/16), so there the per-score instruction stream is
+// the whole design: one FMAX for the row maximum, one FFMA (scale and
+// maximum folded), ex2, one FADD into the row sum and half a packed
+// cvt.rn.bf16x2, nothing else. At D = 256 a score costs 1024 tensor
+// flops, about a quarter of an SM's clock at 989 TFLOP/s, and the
+// softmax's scalar work per score (the softcap's tanh, ex2, the mask,
+// rescaling O) is of the same order, so there the softmax may set the
+// pace. Gemma2-2B's layers at 8 x 8192 tokens: the local one (window 4096,
+// 2 requests) does 0.41 TFLOP of live pairs, 0.417 ms at 989 TFLOP/s; the
+// global one (causal) 2.20 TFLOP, 2.224 ms. What the design does about
+// that:
 //   * one block per (128-query tile, batch*head), heaviest causal tiles
-//     first. At D = 64 and 128, in three warpgroups: warpgroup 0 is the
+//     first. At D <= 128, in three warpgroups: warpgroup 0 is the
 //     producer, one thread of which issues TMA copies of the block's Q
 //     tile (once) and of K and V tiles into a ring of kStages slots, each
 //     slot with a "full" mbarrier (the copy's bytes arrived) and an
@@ -46,7 +53,8 @@
 //     slot's tile has retired, and the eighth copies the slot's next tile
 //     in (no thread waits for another to refill);
 //   * per K/V tile a consumer computes S = Q.K^T as wgmma m64nBNk16 with
-//     both operands in shared memory (128-byte swizzle, K-major), runs the
+//     both operands in shared memory (K-major, swizzled at the row's
+//     width: 32, 64 or 128 bytes at D = 16, 32, >= 64), runs the
 //     online softmax on the accumulator registers, rounds P to bf16 in
 //     registers (the accumulator fragment of S, packed in pairs, is the
 //     register A fragment of the next product), and computes O += P.V as
@@ -61,18 +69,24 @@
 //     keeps S, P and O live at once, more than ptxas holds without spilling
 //     and serialising the products, so there each consumer waits for each
 //     product in turn and the two run side by side (measured faster on the
-//     H100 at D = 128);
+//     H100 at D = 128). So they do at D <= 32, where the products are short
+//     beside the softmax and the turns only held each consumer back until
+//     the other had finished its softmax (measured slower on the H100);
 //   * 128-row blocks: each K/V tile is read by half as many blocks as with
 //     64-row tiles, and a TMA copy costs the consumers few instructions
-//     and no registers. K/V tiles are 128 keys at D = 64 and 128 (BM ==
-//     BN) and 64 keys at D = 256: there O is m64n256 in fp32, 128
+//     and no registers. K/V tiles are 128 keys at D <= 128 (BM == BN)
+//     and 64 keys at D = 256: there O is m64n256 in fp32, 128
 //     registers a consumer thread, and S (32) + P (16) of a 64-key tile
 //     keep the total within 255, where a 128-key tile (64 + 32) would
 //     spill. Shared memory at D = 256 is Q 64 KB + 2 stages x (K 32 KB +
 //     V 32 KB) = 192 KB; a third stage would need 256 KB. Q.K^T is then
 //     m64n64k16 over 16 k-steps (four 64-column swizzle atoms of Q and of
 //     K, BM and BN rows apart) and P.V m64n256k16 (wgmma's widest N) over
-//     4;
+//     4. At D = 16 and 32 a row is one swizzle atom wide (32 or 64
+//     bytes, 8-row atoms of 256 or 512 bytes): Q.K^T is m64n128k16 over
+//     1 or 2 k-steps, each 32 bytes further along the row, and P.V
+//     m64n16k16 or m64n32k16 over 8 with V MN-major one atom wide. A K or
+//     V tile is 4 or 8 KB, so the ring has 4 stages (37 / 73 KB in all);
 //   * the softmax is the other half of the time (one ex2 per score, on 16
 //     lanes an SM), so its instruction stream is kept short: log2 domain,
 //     and on tiles that need no mask and no softcap the raw scores' row
@@ -112,9 +126,6 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int BM = 128;          // query rows per block, 64 per consumer
-constexpr int kAtomCols = 64;    // bf16 columns of one 128-byte swizzle row
-constexpr uint32_t kRowBytes = 128;
-constexpr uint32_t kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
 constexpr int kConsumerThreads = 256;  // two consumer warpgroups
 constexpr uint32_t kConsumerWarps = kConsumerThreads / 32;
 constexpr int kProducerRegs = 24;
@@ -122,15 +133,27 @@ constexpr int kConsumerRegs = 240;  // 128*24 + 256*240 = 384*168 registers
 constexpr size_t kMaxSmem = 232448;  // what one block may use (227 KB)
 constexpr long long kHangCycles = 1LL << 32;  // about 2 s at 1.98 GHz
 
-// Shared memory, from a 1024-byte-aligned base (the swizzle atom's
-// alignment): Q [kSub][BM rows x 128 B], then kStages slots of K and of V,
-// each [kSub][BN rows x 128 B] (column atom a holds columns 64a .. 64a+63),
-// then the mbarriers.
+// Shared memory, from a 1024-byte-aligned base (the largest swizzle atom's
+// alignment): Q [kSub][BM rows x kRowBytes], then kStages slots of K and of
+// V, each [kSub][BN rows x kRowBytes] (column atom a holds columns
+// kAtomCols*a onwards), then the mbarriers.
 template <int D>
 struct Cfg {
-  static_assert(D == 64 || D == 128 || D == 256,
-                "wgmma design: head_dim 64, 128 or 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "wgmma design: head_dim 16, 32, 64, 128 or 256");
+  // A swizzle row holds 64 bf16 columns (128 bytes) at D >= 64 and the
+  // whole row (32 or 64 bytes) below; its swizzle span is its width, and
+  // eight rows make one swizzle atom.
+  static constexpr int kAtomCols = D < 64 ? D : 64;
+  static constexpr uint32_t kRowBytes = 2 * kAtomCols;
+  static constexpr uint32_t kAtomBytes = 8 * kRowBytes;
   static constexpr int kSub = D / kAtomCols;
+  // Matrix descriptor layout type (bits 62-63): 1 = 128-byte swizzle,
+  // 2 = 64-byte, 3 = 32-byte.
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+  // k16 steps (32 bytes each) along one swizzle row.
+  static constexpr int kStepsPerRow = kRowBytes / 32;
   // Keys per K/V tile. At D = 256, O alone is 128 registers a consumer
   // thread; with S and P of a 64-key tile (32 + 16) it fits the 240 of
   // kConsumerRegs, with a 128-key tile (64 + 32) it would spill. Two
@@ -139,18 +162,23 @@ struct Cfg {
   static constexpr int BN = D == 256 ? 64 : 128;
   // At D = 64 a slot is released only once P.V of its tile has run on
   // into the next tile's softmax, so the ring needs a third slot to keep
-  // the next loads ahead of the products (112 KB; 160 KB at D = 128,
-  // 192 KB at D = 256).
-  static constexpr int kStages = D == 64 ? 3 : 2;
+  // the next loads ahead of the products (112 KB at D = 64; 160 KB at
+  // D = 128, 192 KB at D = 256). At D <= 32 a K or V tile is 4 or 8 KB,
+  // and four slots are cheap.
+  static constexpr int kStages = D <= 32 ? 4 : (D == 64 ? 3 : 2);
   // Ping-pong (see the file comment) keeps S, P and O in registers at once;
   // at D >= 128 that is more than ptxas can hold without serialising the
   // products, so there the two products of a tile are waited for in turn.
+  // At D <= 32 the products are short beside the softmax, and the turns
+  // only held each consumer back until the other had finished its softmax
+  // (measured slower on the H100), so there too each product is waited
+  // for in turn.
   static constexpr bool kPingPong = D == 64;
   // A producer warpgroup that hands its registers to the consumers
-  // (setmaxnreg) at D = 64 and 128. ptxas allocates every thread of the
+  // (setmaxnreg) at D <= 128. ptxas allocates every thread of the
   // kernel within one SM sub-partition's 16384 registers for the warps
-  // placed there (3 of 12 warps -> 168), setmaxnreg or not, and at D = 256
-  // a consumer needs more (O 128 + S 32 + P 16 and addresses: 988 bytes
+  // placed there (3 of 12 warps -> 168), setmaxnreg or not, and at D =
+  // 256 a consumer needs more (O 128 + S 32 + P 16 and addresses: 988 bytes
   // spilled and wgmma serialised at 384 threads, also at 288). So at D =
   // 256 the block is the two consumer warpgroups alone (2 warps a
   // sub-partition -> 255 registers): one consumer thread loads Q and the
@@ -167,8 +195,25 @@ struct Cfg {
   static constexpr uint32_t kV = kK + kStages * kKVBytes;
   static constexpr uint32_t kBar = kV + kStages * kKVBytes;
   static constexpr size_t kSmem = kBar + (1 + 2 * kStages) * 8 + 1024;
-  static_assert(kSmem <= kMaxSmem, "Q and the ring exceed a block's smem");
+  static_assert(kSmem <= kMaxSmem,
+                "Q and the ring exceed a block's smem");
 };
+
+// The tile table that flash_attention.wgmma_tile() mirrors (the CPU test
+// reads these lines): keys a tile, ring stages, swizzle bytes and shared
+// memory of a block, at each head_dim.
+static_assert(Cfg<16>::BN == 128 && Cfg<16>::kStages == 4 &&
+              Cfg<16>::kRowBytes == 32 && Cfg<16>::kSmem == 37960, "D 16");
+static_assert(Cfg<32>::BN == 128 && Cfg<32>::kStages == 4 &&
+              Cfg<32>::kRowBytes == 64 && Cfg<32>::kSmem == 74824, "D 32");
+static_assert(Cfg<64>::BN == 128 && Cfg<64>::kStages == 3 &&
+              Cfg<64>::kRowBytes == 128 && Cfg<64>::kSmem == 115768, "D 64");
+static_assert(Cfg<128>::BN == 128 && Cfg<128>::kStages == 2 &&
+              Cfg<128>::kRowBytes == 128 && Cfg<128>::kSmem == 164904,
+              "D 128");
+static_assert(Cfg<256>::BN == 64 && Cfg<256>::kStages == 2 &&
+              Cfg<256>::kRowBytes == 128 && Cfg<256>::kSmem == 197672,
+              "D 256");
 
 struct Params {
   void* o;
@@ -241,7 +286,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box (64 columns x BM or BN rows of one head of one batch entry) of a
+// One box (a column atom x BM or BN rows of one head of one batch entry) of a
 // 4-D tensor map (D, S, heads, B) into shared memory; completes on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int col, int row, int head,
@@ -256,14 +301,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 
 // ---- wgmma ------------------------------------------------------------------
 
-// Shared-memory matrix descriptor with 128-byte swizzle: start address,
-// leading- and stride-dimension byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor of a swizzled operand: start address,
+// leading- and stride-dimension byte offsets (16-byte units) and the
+// layout type (Cfg::kLayout) in bits 62-63; base offset 0, as every tile
+// starts on its swizzle atom. K-major (Q, K): rows kRowBytes apart inside
+// an 8-row atom, SBO from one atom to the next, LBO unused (1). MN-major
+// (V): LBO from one column atom to the next, SBO from one 8-key atom to
+// the next.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
+         layout << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -371,6 +421,39 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 16] += A[64 x 16] . B[16 x 16] with A in registers (bf16 pairs)
+// and B in shared memory, MN-major (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] . B[16 x 32] with A in registers (bf16 pairs)
+// and B in shared memory, MN-major (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 // D[64 x 64] += A[64 x 16] . B[16 x 64] with A in registers (bf16 pairs)
@@ -491,7 +574,11 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_v) {
-  if constexpr (D == 64) {
+  if constexpr (D == 16) {
+    wgmma_m64n16k16_rs(o, a, desc_v);
+  } else if constexpr (D == 32) {
+    wgmma_m64n32k16_rs(o, a, desc_v);
+  } else if constexpr (D == 64) {
     wgmma_m64n64k16_rs(o, a, desc_v);
   } else if constexpr (D == 128) {
     wgmma_m64n128k16_rs(o, a, desc_v);
@@ -580,7 +667,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
     for (int a = 0; a < C::kSub; ++a) {
-      tma_load(sQ + a * C::kQSubBytes, &tq, a * kAtomCols, q0, h, b, q_full);
+      tma_load(sQ + a * C::kQSubBytes, &tq, a * C::kAtomCols, q0, h, b,
+               q_full);
     }
   };
   auto load_kv = [&](int i) {
@@ -591,8 +679,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int a = 0; a < C::kSub; ++a) {
       const uint32_t off = stage * C::kKVBytes + a * C::kKVSubBytes;
-      tma_load(sK + off, &tk, a * kAtomCols, n0, kvh, b, full);
-      tma_load(sV + off, &tv, a * kAtomCols, n0, kvh, b, full);
+      tma_load(sK + off, &tk, a * C::kAtomCols, n0, kvh, b, full);
+      tma_load(sV + off, &tv, a * C::kAtomCols, n0, kvh, b, full);
     }
   };
   if constexpr (!C::kProducerWarpgroup) {
@@ -632,7 +720,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float cap_in = capped ? p.scale / p.softcap : 0.f;
     const float cap_log2 = p.softcap * kLog2e;
     // This warpgroup's 64 rows of Q: 8 swizzle atoms down each column atom.
-    const uint32_t sQw = sQ + 64 * cw * kRowBytes;
+    const uint32_t sQw = sQ + 64 * cw * C::kRowBytes;
 
     float o[D / 2];
     float s[BN / 2];
@@ -644,29 +732,34 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float l[2] = {0.f, 0.f};
 
     // S = Q K^T of the tile in `slot`: D/16 k-steps; a step moves 32 bytes
-    // along a swizzled 128-byte row, and every fourth moves to the next
-    // column atom (Q's and K's atoms lie BM and BN rows apart).
+    // along a swizzled row (kStepsPerRow steps a row: 1, 2 or 4), then on
+    // to the next column atom (Q's and K's atoms lie BM and BN rows apart).
     auto issue_qk = [&](int slot) {
       const uint32_t tK = sK + slot * C::kKVBytes;
+      constexpr int kRow = C::kStepsPerRow;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t col = (kk % 4) * 32;
+        const uint32_t col = (kk % kRow) * 32;
         wgmma_qk<BN>(
-            s, sw128_desc(sQw + (kk / 4) * C::kQSubBytes + col, 16, kAtomBytes),
-            sw128_desc(tK + (kk / 4) * C::kKVSubBytes + col, 16, kAtomBytes),
+            s,
+            smem_desc(sQw + (kk / kRow) * C::kQSubBytes + col, 16,
+                      C::kAtomBytes, C::kLayout),
+            smem_desc(tK + (kk / kRow) * C::kKVSubBytes + col, 16,
+                      C::kAtomBytes, C::kLayout),
             kk > 0);
       }
       wgmma_commit();
     };
-    // O += P V: BN/16 k-steps of 16 keys (2 swizzle atoms, 2048 bytes); V
-    // is MN-major: SBO steps 8 keys, LBO steps to the next column atom.
+    // O += P V: BN/16 k-steps of 16 keys (2 swizzle atoms); V is MN-major:
+    // SBO steps 8 keys, LBO steps to the next column atom (none at D <= 64,
+    // where N = D is one atom wide).
     auto issue_pv = [&](int slot, const uint32_t (&pa)[BN / 16][4]) {
       const uint32_t tV = sV + slot * C::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         wgmma_pv<D>(o, pa[kk],
-                    sw128_desc(tV + kk * 2 * kAtomBytes, C::kKVSubBytes,
-                               kAtomBytes));
+                    smem_desc(tV + kk * 2 * C::kAtomBytes, C::kKVSubBytes,
+                              C::kAtomBytes, C::kLayout));
       }
       wgmma_commit();
     };
@@ -924,9 +1017,12 @@ EncodeTiled encoder() {
 }
 
 // 4-D map (D, S, heads, B) of a bf16 operand with byte strides (S, heads,
-// B); boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros past S.
+// B); boxes of `cols` columns x `rows` rows, swizzled over `cols` * 2
+// bytes (32, 64 or 128: the box's inner bytes never exceed the span),
+// zeros past S.
 int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int s,
-           int heads, int batch, const long long* strides, int rows) {
+           int heads, int batch, const long long* strides, int cols,
+           int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(heads),
@@ -934,12 +1030,17 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d, int s,
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]),
                                static_cast<cuuint64_t>(strides[1]),
                                static_cast<cuuint64_t>(strides[2])};
-  const cuuint32_t box[4] = {kAtomCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B);
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -static_cast<int>(res);
 }
@@ -955,14 +1056,15 @@ int launch(const void* q, const void* k, const void* v,
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kNoEncoder;
   CUtensorMap tq = {}, tk = {}, tv = {};
-  int res = encode(fn, &tq, q, D, p.len_q, p.heads, batch, tma_strides, BM);
+  int res = encode(fn, &tq, q, D, p.len_q, p.heads, batch, tma_strides,
+                   C::kAtomCols, BM);
   if (res == 0 && p.len_k > 0) {
     res = encode(fn, &tk, k, D, p.len_k, p.kv_heads, batch, tma_strides + 3,
-                 C::BN);
+                 C::kAtomCols, C::BN);
   }
   if (res == 0 && p.len_k > 0) {
     res = encode(fn, &tv, v, D, p.len_k, p.kv_heads, batch, tma_strides + 6,
-                 C::BN);
+                 C::kAtomCols, C::BN);
   }
   if (res != 0) return res;
   cudaError_t err = cudaFuncSetAttribute(
@@ -978,7 +1080,7 @@ int launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // o = attention(q, k, v) as described at the top of this file, bfloat16,
-// head_dim 64, 128 or 256. tma_strides: 9 byte strides, (seq, head, batch)
+// head_dim 16, 32, 64, 128 or 256. tma_strides: 9 byte strides, (seq, head, batch)
 // of q, k and v in that order, each a positive multiple of 16 (the
 // wrapper's tensor_map_strides); out_strides: 3 element strides (batch,
 // head, seq) of o. Every operand has unit stride on the head dimension and
@@ -992,7 +1094,8 @@ extern "C" int repro_flash_attention_wgmma(
     int window, float softcap, void* stream) {
   if (batch <= 0 || len_q <= 0) return static_cast<int>(cudaSuccess);
   if (kv_heads <= 0 || heads % kv_heads != 0 || len_k < 0 ||
-      (head_dim != 64 && head_dim != 128 && head_dim != 256)) {
+      (head_dim != 16 && head_dim != 32 && head_dim != 64 &&
+       head_dim != 128 && head_dim != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -1009,6 +1112,8 @@ extern "C" int repro_flash_attention_wgmma(
   p.scale = 1.0f / sqrtf(static_cast<float>(head_dim));
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 16) return launch<16>(q, k, v, tma_strides, p, batch, s);
+  if (head_dim == 32) return launch<32>(q, k, v, tma_strides, p, batch, s);
   if (head_dim == 64) return launch<64>(q, k, v, tma_strides, p, batch, s);
   if (head_dim == 128) return launch<128>(q, k, v, tma_strides, p, batch, s);
   return launch<256>(q, k, v, tma_strides, p, batch, s);

@@ -3,15 +3,14 @@
 Counterpart of the JAX package's ``kernels/flash_attention.py``: causal,
 sliding-window, logit softcap, GQA, forward only. Same signature as the
 TPU kernel's entry point minus its block sizes: any ``Sq``/``Sk`` is
-accepted. Three designs, fixed by (dtype, head_dim) in ``design()``:
+accepted. Two designs, fixed by (dtype, head_dim) in ``design()``:
 
-* ``"wgmma"`` — bfloat16 at head_dim 64, 128 and 256, the models' widths
+* ``"wgmma"`` — bfloat16 at every head_dim
   (``csrc/flash_attention_wgmma.cu``): TMA copies into a ring of shared
   memory slots fed by a producer warpgroup, ``wgmma`` for Q·Kᵀ and P·V
-  in two consumer warpgroups, 128-row query tiles (64-key tiles at 256);
-* ``"mma_sync"`` — bfloat16 at head_dim 16 and 32, the smoke configs'
-  widths (``csrc/flash_attention.cu``): ``mma.sync`` m16n8k16, 64-row
-  tiles;
+  in two consumer warpgroups, 128-row query tiles; rows swizzled at their
+  own width (32, 64 or 128 bytes), 128-key tiles (64 at head_dim 256)
+  (``wgmma_tile``);
 * ``"ffma"`` — float32 at every head_dim (``csrc/flash_attention_ffma.cu``):
   full-precision FFMA, no TF32; 64-row query tiles of 256 threads, each
   thread a 4 × 4 tile of S and 4 rows × D/16 columns of O in registers,
@@ -42,14 +41,19 @@ from repro_torch.kernels import build, ref
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535
-DESIGNS = ("wgmma", "mma_sync", "ffma")
-WGMMA_HEAD_DIMS = (64, 128, 256)
+DESIGNS = ("wgmma", "ffma")
 # design -> (csrc/<source>.cu, its C entry point)
 LIBRARIES = {
     "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma"),
-    "mma_sync": ("flash_attention", "repro_flash_attention"),
     "ffma": ("flash_attention_ffma", "repro_flash_attention_ffma"),
 }
+# The wgmma design's tile table, as Cfg<D> of csrc/flash_attention_wgmma.cu
+# has it: query rows a block, threads a block (a producer warpgroup and
+# two consumers; the consumers alone at head_dim 256), keys a tile and
+# ring stages by head_dim.
+WGMMA_BM = 128
+WGMMA_BN = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+WGMMA_STAGES = {16: 4, 32: 4, 64: 3, 128: 2, 256: 2}
 # Largest byte stride a tensor map takes (2^40).
 MAX_TMA_STRIDE = 1 << 40
 # The ffma design's tile table, as csrc/flash_attention_ffma.cu has it:
@@ -86,7 +90,7 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32:
         return "ffma"
     if dtype == torch.bfloat16:
-        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+        return "wgmma"
     raise TypeError(f"no flash_attention design for {dtype}")
 
 
@@ -111,6 +115,34 @@ def ffma_tile(head_dim: int) -> FfmaTile:
     floats = (FFMA_BM * ld + slots * FFMA_BN * ld
               + FFMA_BM * (FFMA_BN + FFMA_PAD_P) + 2 * FFMA_BM)
     return FfmaTile(FFMA_BM, FFMA_BN, FFMA_THREADS, slots, 4 * floats)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaTile:
+    bm: int             # query rows of a block
+    bn: int             # keys of a K/V tile
+    stages: int         # K/V ring slots
+    threads: int        # threads of a block
+    swizzle_bytes: int  # a shared-memory row: the swizzle span
+    box_cols: int       # columns of a TMA box (a column atom)
+    smem_bytes: int     # dynamic shared memory of a block
+
+
+def wgmma_tile(head_dim: int) -> WgmmaTile:
+    """The ``wgmma`` design's tile at ``head_dim``, mirroring ``Cfg<D>`` of
+    ``csrc/flash_attention_wgmma.cu``: a row of a swizzle atom holds
+    min(D, 64) bf16 columns; shared memory is Q, the K and V ring and one
+    mbarrier for Q plus two a stage, from a base aligned up to 1024
+    bytes."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} is not one of {HEAD_DIMS}")
+    bn, stages = WGMMA_BN[head_dim], WGMMA_STAGES[head_dim]
+    cols = min(head_dim, 64)
+    row = 2 * head_dim  # bytes of a Q/K/V row, all column atoms
+    smem = (WGMMA_BM * row + 2 * stages * bn * row
+            + (1 + 2 * stages) * 8 + 1024)
+    threads = 256 if head_dim == 256 else 384
+    return WgmmaTile(WGMMA_BM, bn, stages, threads, 2 * cols, cols, smem)
 
 
 def _library(name: str):

@@ -267,18 +267,14 @@ def test_launch_counters_count_no_plain_call():
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_design_table(dtype, head_dim):
-    """bf16 at the models' head_dims 64/128/256 goes to wgmma; bf16 at the
-    smoke configs' 16 and 32 to mma.sync; float32 everywhere to FFMA (no
-    TF32). Each design has its own source."""
-    want = {
-        "float32": "ffma",
-        "bfloat16": "wgmma" if head_dim in (64, 128, 256) else "mma_sync",
-    }[dtype]
+    """bf16 at every head_dim goes to wgmma (the models' 64/128/256 and
+    the smoke configs' 16/32); float32 everywhere to FFMA (no TF32). Each
+    design has its own source."""
+    want = {"float32": "ffma", "bfloat16": "wgmma"}[dtype]
     got = flash_mod.design(TORCH_DTYPE[dtype], head_dim)
     assert got == want and got in flash_mod.DESIGNS
     source, symbol = flash_mod.LIBRARIES[got]
     assert source == {"wgmma": "flash_attention_wgmma",
-                      "mma_sync": "flash_attention",
                       "ffma": "flash_attention_ffma"}[got]
     assert symbol == f"repro_{source}"
 
@@ -366,7 +362,19 @@ WGMMA_PLAIN_CASES = [
     (2, 8, 4, 100, 100, 256, True, None, 50.0),   # S not a multiple of 64
     (1, 4, 2, 64, 160, 256, False, None, 50.0),   # Sq < Sk
     (1, 4, 4, 192, 64, 256, False, 65, 30.0),     # rows 128.. see no key
+    # D = 16 and 32 (the smoke configs' widths; 32- and 64-byte swizzle on
+    # the card)
+    (1, 8, 4, 128, 128, 16, True, 48, 50.0),      # window with softcap
+    (1, 4, 2, 64, 160, 16, False, None, None),    # non-causal, Sq < Sk
+    (2, 7, 1, 100, 100, 16, True, None, None),    # ragged S, group 7
+    (1, 4, 4, 192, 64, 16, False, 65, 30.0),      # rows 128.. see no key
+    (1, 8, 4, 128, 128, 32, True, 48, 50.0),      # window with softcap
+    (1, 4, 2, 64, 160, 32, False, None, None),    # non-causal, Sq < Sk
+    (2, 7, 1, 100, 100, 32, True, None, None),    # ragged S, group 7
+    (1, 4, 4, 192, 64, 32, False, 65, 30.0),      # rows 128.. see no key
 ]
+D256_CASES = range(5, 9)
+SMALL_D_CASES = range(9, 17)
 # The Pallas kernel's blocks per case (it needs S % block == 0), chosen
 # so that every key-less row lies in a whole query block (which the kernel
 # skips, giving zeros as the port does).
@@ -402,10 +410,7 @@ def test_flash_plain_matches_jax_at_wgmma_cases(case):
            "bfloat16")
 
 
-@pytest.mark.parametrize("case", range(5, len(WGMMA_PLAIN_CASES)))
-def test_flash_plain_matches_pallas_at_wgmma_head_dim_256(case):
-    """The D = 256 cases against the Pallas kernel in interpret mode at
-    the JAX package's bf16 tolerance, key-less rows included."""
+def _held_to_pallas(case):
     b, h, kv, sq, sk, d, causal, window, cap = WGMMA_PLAIN_CASES[case]
     arrays = _qkv(300 + case, b, h, kv, sq, sk, d)
     got = ops.flash_attention(*_torch(arrays, "bfloat16"), causal=causal,
@@ -414,6 +419,21 @@ def test_flash_plain_matches_pallas_at_wgmma_head_dim_256(case):
                        window=window, softcap=cap, block_q=PALLAS_BLOCKS[sq],
                        block_k=PALLAS_BLOCKS[sk], interpret=True)
     _close(got, exp, "bfloat16")
+
+
+@pytest.mark.parametrize("case", D256_CASES)
+def test_flash_plain_matches_pallas_at_wgmma_head_dim_256(case):
+    """The D = 256 cases against the Pallas kernel in interpret mode at
+    the JAX package's bf16 tolerance, key-less rows included."""
+    _held_to_pallas(case)
+
+
+@pytest.mark.parametrize("case", SMALL_D_CASES)
+def test_flash_plain_matches_pallas_at_wgmma_head_dim_16_32(case):
+    """The D = 16 and 32 cases (window with softcap, non-causal Sq < Sk,
+    ragged S, key-less rows) against the Pallas kernel in interpret mode
+    at the JAX package's bf16 tolerance."""
+    _held_to_pallas(case)
 
 
 def test_flash_plain_matches_pallas_at_head_dim_128_bf16():

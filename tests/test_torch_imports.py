@@ -57,7 +57,7 @@ def test_package_has_the_slices_modules():
         "repro_torch.paper.priced_training",
     ):
         assert want in names
-    for src in ("mixing_combine", "flash_attention", "flash_attention_wgmma",
+    for src in ("mixing_combine", "flash_attention_wgmma",
                 "flash_attention_ffma", "decode_attention",
                 "decode_attention_mma"):
         assert (PKG / "kernels" / "csrc" / f"{src}.cu").is_file()
