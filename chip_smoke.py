@@ -15,6 +15,13 @@ calls:
   ``make_dpsgd_step`` → ``train_priced``), every update through the
   ``mixing_sgd_combine`` kernel, every round charged a τ sample that
   ``StochasticTau.price(engine="torch")`` priced on the card;
+* the launcher's training step — ``launch.train.build_train_artifacts``
+  in Qwen2-0.5B's ``data_dp`` layout at microbatch 2 (8 agents × 2 × 512
+  tokens), W designed on the card by ``launch.fabric`` and resolved to the
+  ``sparse`` gossip (the ``mixing_sgd_combine`` kernel's form without a
+  gradient, one launch per leaf), batches through ``data.Prefetcher``;
+  the smoke model in every gossip mode against the CPU, and a checkpoint
+  round trip (``AsyncCheckpointer``, restore onto 7 agents);
 * design — the paper instance designed by the port's designer on the
   card (clique, ring, prim, FMMD-WP, SCA; every weight optimization in
   float64 on the card), held to the JAX designer's supports and τ; the
@@ -43,7 +50,7 @@ exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
-``train``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
+``train``, ``train_launch``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
 ``serve_gemma2``, ``attention_main_shapes``, ``ffma_times``), then the
 line
@@ -66,6 +73,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -76,7 +84,13 @@ import torch
 
 from repro_torch import compat
 from repro_torch.configs import gemma2_2b, qwen2_0_5b
-from repro_torch.configs.base import DECODE_32K, ShapeConfig
+from repro_torch.checkpoint import AsyncCheckpointer, restore
+from repro_torch.configs.base import (
+    DECODE_32K,
+    ShapeConfig,
+    TrainConfig,
+    get_train_config,
+)
 from repro_torch.core import dpsgd, gossip, mixing, weight_opt
 from repro_torch.core.fmmd import fmmd_wp
 from repro_torch.core.priced_training import (
@@ -91,11 +105,13 @@ from repro_torch.core.topology_baselines import (
     prim_design,
     ring_design,
 )
+from repro_torch.data import Prefetcher, make_batch_fn
 from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
-from repro_torch.launch import serve
+from repro_torch.launch import fabric, serve, train
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import model
 from repro_torch.net import (
     MarkovLinkModel,
@@ -340,6 +356,17 @@ JAX_DESIGN_TAU = {
 }
 JAX_DESIGN_SCA = {"links": 21, "tau": 3023.04, "rho": 0.704769947735897}
 FULL_WIDTH_AGENTS = 10    # Qwen2-0.5B trained over FMMD-WP's W
+# The launcher's step (phase train_launch): Qwen2-0.5B's TRAIN_CONFIG
+# (data_dp) at microbatch 2, 8 agents x 2 sequences x 512 tokens.
+TRAIN_LAUNCH_SHAPE = ShapeConfig("train_512", 512, 16, "train")
+TRAIN_LAUNCH_AGENTS = 8
+TRAIN_LAUNCH_STEPS = 3    # timed, after 1 warm-up step
+# The modelled fabric its W is designed on: one ring of agents whose links
+# carry 450e9 B/s each way (an H100's NVLink, NVIDIA's data sheet); a
+# uniform ring's W does not depend on the figure (every tau scales with
+# it). The cross-pod figure is unused with one pod.
+FABRIC_LINK_BW = 450e9
+FABRIC_CROSS_POD_BW = 50e9
 EIGH_M = 1000
 
 
@@ -531,6 +558,36 @@ def phase_kernel_check(seed: int) -> list[dict]:
         stacked(w_np, 1 << 20, bf16, f32)
         stacked(w_np, (1 << 20) + 3, bf16, bf16)   # odd row starts
     stacked(np.eye(8), 1 << 16, f32, f32)  # R = 0 table
+
+    def stacked_no_g(w_np, n, xdt):
+        """The mix alone (``g=None``); with neighbours, a plain version
+        that drops each agent's last neighbour must be refused."""
+        idx_np, wt_np = gossip.neighbor_table(w_np)
+        idx = torch.from_numpy(idx_np).to(dev)
+        wt = torch.from_numpy(wt_np).to(dev)
+        x = randn((w_np.shape[0], n), xdt)
+        got = ops.mixing_sgd_combine_stacked(x, idx, wt)
+        want = ref.mixing_sgd_combine_stacked_ref(x, idx, wt)
+        tol = FP32_TOL if xdt == torch.float32 else BF16_TOL
+        r = idx.shape[1]
+        name = f"stacked g=None a={w_np.shape[0]} r={r} n={n} x={xdt}"
+        err = assert_close(got, want, tol, name)
+        case = {"case": name, "tol": tol, "max_abs_err": err, "no_g": True}
+        if r:
+            faulty = ref.mixing_sgd_combine_stacked_ref(
+                x, idx[:, :-1].contiguous(), wt[:, :-1].contiguous())
+            agree, fault_err, _ = compare(got, faulty, tol, tol)
+            if agree:
+                raise AssertionError(
+                    f"{name}: the check cannot tell the kernel's output "
+                    "from a mix with a neighbour dropped")
+            case["dropped_neighbour_refused_max_abs_err"] = fault_err
+        results.append(case)
+
+    for w_np in (ring, clique, np.eye(8)):  # R = 2, 7 and 0
+        for n in (1 << 20, (1 << 20) + 3):  # odd N: scalar row starts
+            stacked_no_g(w_np, n, f32)
+            stacked_no_g(w_np, n, bf16)
     torch.cuda.synchronize()
     emit("kernel_check", cases=results)
     return results
@@ -1410,6 +1467,315 @@ def kernel_fields(name: str) -> dict:
         "source": f"src/repro_torch/kernels/csrc/{src}.cu",
         "replaces": replaces,
     }
+
+
+# ---------------------------------------------------------------------------
+# The launcher's training step (launch/train.py)
+# ---------------------------------------------------------------------------
+
+
+def hold_no_g(path: str, x: torch.Tensor, plan, scale: float) -> dict:
+    """The sparse gossip (``gossip.mix_sparse``: the kernel's ``g=None``
+    form) on one leaf ``x [A, ...]`` against its plain version at
+    ``combine_tolerance`` for the leaf's ``scale``. The comparison must be
+    able to fail: a mix with a dropped neighbour and one with another
+    agent's neighbour rows, held against the same output at the same
+    limit, have to be refused."""
+    a = x.shape[0]
+    flat = x.reshape(a, -1)
+    rtol, atol = combine_tolerance(x.dtype, scale)
+    got = gossip.mix_sparse({"leaf": x}, plan.idx, plan.weights)["leaf"]
+    got = got.reshape(a, -1)
+    want = ref.mixing_sgd_combine_stacked_ref(flat, plan.idx, plan.weights)
+    err = assert_close(got, want, rtol, f"g=None at {path}", atol=atol)
+    del want
+    # Each agent's first neighbour dropped (the table pads short rows at
+    # their end with zero weights, so the first column is a real one).
+    dropped = plan.weights.clone()
+    dropped[:, 1] = 0.0
+    refused = {}
+    for fault, idx, wt in (
+        ("dropped_neighbour", plan.idx, dropped),
+        ("wrong_neighbour_rows", plan.idx.roll(1, dims=0), plan.weights),
+    ):
+        faulty = ref.mixing_sgd_combine_stacked_ref(flat, idx, wt)
+        agree, _, worst = compare(got, faulty, rtol, atol)
+        if agree:
+            raise AssertionError(
+                f"g=None at {path}: the check cannot tell the kernel's "
+                f"output from a mix with a {fault}")
+        refused[fault] = worst
+        del faulty
+    return {"leaf": path, "shape": list(x.shape), "dtype": str(x.dtype),
+            "data_scale": scale, "rtol": rtol, "atol": atol,
+            "max_abs_err": err, "refused_err_over_limit": refused}
+
+
+def no_g_every_leaf(params, plan, seed: int) -> dict:
+    """``hold_no_g`` on every leaf of the run's parameters, each agent
+    pushed apart by noise of the leaf's scale: after a few steps from an
+    identical start the agents still agree to far below a bf16 ulp, which
+    would hide a wrong row."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    held = []
+    for path, p in tree_paths(params):
+        scale = leaf_scale(p)
+        x = torch.empty_like(p).normal_(generator=gen).mul_(scale).add_(p)
+        held.append(hold_no_g(path, x, plan, scale))
+        del x
+        torch.cuda.empty_cache()
+    return {
+        "leaves": held,
+        "max_abs_err": max(h["max_abs_err"] for h in held),
+        "fewest_refused_err_over_limit": min(
+            v for h in held for v in h["refused_err_over_limit"].values()),
+    }
+
+
+def no_g_times(leaf: torch.Tensor, plan) -> dict:
+    """The kernel's ``g=None`` form at one leaf of the run, timed beside
+    its bound, its plain version and one dense PyTorch product."""
+    x = leaf.reshape(leaf.shape[0], -1)
+    w_dense = plan.w.to(x.dtype)
+    ms = time_cuda(
+        lambda: ops.mixing_sgd_combine_stacked(x, plan.idx, plan.weights),
+        reps=TIMING_REPS)
+    plain_ms = time_cuda(
+        lambda: ref.mixing_sgd_combine_stacked_ref(x, plan.idx, plan.weights),
+        reps=5)
+    # One PyTorch call for the same mix with a dense W: a yardstick only.
+    library_ms = time_cuda(lambda: torch.mm(w_dense, x), reps=TIMING_REPS)
+    r = plan.idx.shape[1]
+    moved = (2 * x.numel() * x.element_size()      # x read once, out written
+             + plan.idx.numel() * 4 + plan.weights.numel() * 4)
+    flops = x.numel() * 2 * (r + 1)
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {
+        "form": "g=None", "shape": list(x.shape), "dtype": str(x.dtype),
+        "neighbours": r, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "library_call": "torch.mm(W, x)",
+        "bytes_moved_once": moved, "flops": flops,
+        "achieved_bytes_per_s": moved / (ms * 1e-3),
+    }
+
+
+def smoke_modes_check(seed: int, card=None) -> dict:
+    """Two steps of the launcher at SMOKE_CONFIG on the card (``card``;
+    None is CUDA) in every gossip mode, against the same steps on the CPU
+    (the kernel's plain version there): losses to rtol 1e-4 and parameters
+    to atol 1e-4. The second step's loss follows the first mix. The
+    comparison must be able to fail: the card's parameters in each mode,
+    held against the CPU's in every mode that mixes by another matrix
+    (the ring, J or none), have to be refused."""
+    cfg = qwen2_0_5b.SMOKE_CONFIG
+    m, steps, tol = 4, 2, 1e-4
+    shape = ShapeConfig("smoke", 16, 2 * m, "train")
+    ring, j = ring_matrix(m), mixing.ideal_matrix(m)
+    modes = {"dense": (ring, "ring"), "allreduce": (j, "J"),
+             "none": (ring, "none"), "sparse": (ring, "ring")}
+    stream = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, num_agents=m, seed=1))
+    out, params = {}, {}
+    for mode, (w, _) in modes.items():
+        tcfg = TrainConfig(agent_layout="data", gossip=mode, microbatch=2,
+                           learning_rate=0.05)
+        arts = {
+            d: train.build_train_artifacts(
+                cfg, tcfg, shape, launch_mesh.make_test_mesh((m, 1)), w,
+                device=d)
+            for d in ("cpu", card)
+        }
+        batch_fn = make_batch_fn(stream, arts["cpu"].batch_shapes,
+                                 cfg.vocab_size)
+        s_cpu = arts["cpu"].init_state(seed)
+        s_card = tree_map(
+            lambda t: t.to(card or "cuda") if torch.is_tensor(t) else t,
+            s_cpu)
+        losses = []
+        for k in range(steps):
+            s_cpu, m_cpu = arts["cpu"].step_fn(s_cpu, batch_fn(k))
+            s_card, m_card = arts[card].step_fn(s_card, batch_fn(k))
+            loss_cpu, loss_card = float(m_cpu["loss"]), float(m_card["loss"])
+            if not abs(loss_card - loss_cpu) <= tol * abs(loss_cpu):
+                raise AssertionError(
+                    f"smoke {mode} step {k}: loss {loss_card} on the card, "
+                    f"{loss_cpu} on the CPU")
+            losses.append(loss_card)
+        params[mode] = (tree_leaves(s_card["params"]),
+                        tree_leaves(s_cpu["params"]))
+        diff = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(*params[mode]))
+        if not diff <= tol:
+            raise AssertionError(
+                f"smoke {mode}: parameters {diff} apart from the CPU's")
+        out[mode] = {"resolved": arts[card].gossip, "losses": losses,
+                     "max_abs_param_diff": diff}
+    for mode, (_, mixes) in modes.items():
+        refused = {}
+        for other, (_, other_mixes) in modes.items():
+            if other_mixes == mixes:
+                continue
+            diff = max(float((a.cpu() - b).abs().max())
+                       for a, b in zip(params[mode][0], params[other][1]))
+            if diff <= tol:
+                raise AssertionError(
+                    f"smoke {mode}: the check cannot tell the card's "
+                    f"parameters from the CPU's in mode {other}")
+            refused[other] = diff
+        out[mode]["refused_max_abs_param_diff"] = refused
+    return out
+
+
+def checkpoint_round_trip(seed: int) -> dict:
+    """SMOKE_CONFIG, 8 agents: one step, an ``AsyncCheckpointer`` save,
+    a restore onto 7 agents (elastic remap) bitwise the saved leaves, and
+    one more step over a 7-agent fabric W."""
+    cfg = qwen2_0_5b.SMOKE_CONFIG
+    tcfg = TrainConfig(agent_layout="data_dp", microbatch=2)
+    kappa = float(model.parameter_count(cfg) * 4)
+    arts, batches = {}, {}
+    for m in (8, 7):
+        w, _ = fabric.design_mixing_matrix(
+            m, 1, kappa, link_bw=FABRIC_LINK_BW,
+            cross_pod_bw=FABRIC_CROSS_POD_BW)
+        arts[m] = train.build_train_artifacts(
+            cfg, tcfg, ShapeConfig("smoke", 16, 2 * m, "train"),
+            launch_mesh.make_test_mesh((m, 1)), w)
+        stream = SyntheticTokenStream(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=16, num_agents=m, seed=1))
+        batches[m] = make_batch_fn(stream, arts[m].batch_shapes,
+                                   cfg.vocab_size)
+    state, _ = arts[8].step_fn(arts[8].init_state(seed), batches[8](0))
+    with tempfile.TemporaryDirectory() as d:
+        saver = AsyncCheckpointer(d, keep=2)
+        saver.save(state["step"], state)
+        saver.close()
+        restored, step = restore(d, arts[7].state_shapes, num_agents=7)
+    for (path, got), want in zip(tree_paths(restored["params"]),
+                                 tree_leaves(state["params"])):
+        if got.dtype != want.dtype or not torch.equal(got, want[:7]):
+            raise AssertionError(f"restored {path} is not the saved leaf")
+    for got, want in zip(tree_leaves(restored["opt"]),
+                         tree_leaves(state["opt"])):
+        if not torch.equal(got, want[:7]):
+            raise AssertionError("restored momentum is not the saved one")
+    if step != state["step"] or restored["step"] != state["step"]:
+        raise AssertionError(f"restored step {step}, saved {state['step']}")
+    state7, met = arts[7].step_fn(restored, batches[7](1))
+    loss = float(met["loss"])
+    if not np.isfinite(loss) or state7["step"] != step + 1:
+        raise AssertionError(f"the restored run's step: loss {loss}")
+    return {"agents_saved": 8, "agents_restored": 7, "step": step,
+            "gossip_8": arts[8].gossip, "gossip_7": arts[7].gossip,
+            "loss_after_restore": loss, "restored_bitwise": True}
+
+
+def phase_train_launch(seed: int) -> dict:
+    """The launcher's D-PSGD step (``launch.train.build_train_artifacts``)
+    for Qwen2-0.5B, unreduced and bf16, in its ``TRAIN_CONFIG`` layout
+    (``data_dp``) at microbatch 2: 8 agents x 2 sequences x 512 tokens a
+    step (k = 2, mb = 1), W designed by ``launch.fabric`` (FMMD-WP on the
+    card, kappa one agent's bf16 bytes) and resolved to the ``sparse``
+    gossip, batches through ``make_batch_fn`` and ``Prefetcher``: 1
+    warm-up + 3 timed steps, exactly 14 launches of ``mixing_sgd_combine``
+    a step. Then the sparse gossip (the kernel's ``g=None`` form) held on
+    every leaf of the run's parameters with two faulty mixes refused at
+    each, and timed at the embedding leaf; the smoke model in every mode
+    against the CPU; and a checkpoint round trip onto 7 agents."""
+    cfg = qwen2_0_5b.CONFIG
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(get_train_config("qwen2-0.5b"), microbatch=2)
+    m = TRAIN_LAUNCH_AGENTS
+    n_params = model.parameter_count(cfg)
+    kappa = float(n_params * compat.dtype_of(cfg.param_dtype).itemsize)
+    t0 = time.perf_counter()
+    w, design = fabric.design_mixing_matrix(
+        m, 1, kappa, link_bw=FABRIC_LINK_BW, cross_pod_bw=FABRIC_CROSS_POD_BW)
+    design_seconds = time.perf_counter() - t0
+    art = train.build_train_artifacts(
+        cfg, tcfg, TRAIN_LAUNCH_SHAPE, launch_mesh.make_test_mesh((m, 1)), w)
+    if art.gossip != "sparse" or art.num_agents != m:
+        raise AssertionError(
+            f"train_launch: {art.num_agents} agents, gossip {art.gossip!r}, "
+            "not 8 and 'sparse'")
+    plan = dpsgd.mixing_plan(art.mixing_matrix, dev)
+    leaves = len(tree_leaves(art.state_shapes["params"]))
+    _, k, mb, s1 = art.batch_shapes["tokens"].shape
+    tokens_per_step = m * k * mb * (s1 - 1)
+    stream = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=s1 - 1, num_agents=m,
+        dirichlet_alpha=0.3, seed=1))
+    batch_fn = make_batch_fn(stream, art.batch_shapes, cfg.vocab_size)
+    state = art.init_state(seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    prefetch = Prefetcher(batch_fn, dev)
+    steps = []
+    for _ in range(1 + TRAIN_LAUNCH_STEPS):
+        k_step, batch = next(prefetch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = art.step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        steps.append({"step": k_step, "loss": float(metrics["loss"]),
+                      "lr": metrics["lr"], "step_ms": ms})
+    prefetch.close()
+    launches = ops.launch_count("mixing_sgd_combine")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != (1 + TRAIN_LAUNCH_STEPS) * leaves:
+        raise AssertionError(
+            f"train_launch: {launches} mixing_sgd_combine launches, not "
+            f"{1 + TRAIN_LAUNCH_STEPS} steps x {leaves} leaves")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"train_launch: non-finite loss {steps}")
+    if state["step"] != 1 + TRAIN_LAUNCH_STEPS:
+        raise AssertionError(f"train_launch: step counter {state['step']}")
+    for path, p in tree_paths(state["params"]):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"train_launch: non-finite {path}")
+    step_ms_mean = float(np.mean([s["step_ms"] for s in steps[1:]]))
+
+    no_g_held = no_g_every_leaf(state["params"], plan, seed)
+    no_g = no_g_times(state["params"]["embed"]["table"], plan)
+    no_g["max_abs_err"] = next(h["max_abs_err"] for h in no_g_held["leaves"]
+                               if h["leaf"] == "embed/table")
+    mix_ms_per_step = time_cuda(
+        lambda: gossip.mix_sparse(state["params"], plan.idx, plan.weights),
+        reps=5)
+    mix_bytes = sum(2 * p.numel() * p.element_size()
+                    for p in tree_leaves(state["params"]))
+    del state
+    torch.cuda.empty_cache()
+    smoke = smoke_modes_check(seed)
+    ckpt = checkpoint_round_trip(seed)
+    out = {
+        "config": cfg.name, "parameters_per_agent": n_params, "agents": m,
+        "leaves": leaves, "layout": tcfg.agent_layout, "remat": tcfg.remat,
+        "microbatches": k, "microbatch_size": mb, "seq_len": s1 - 1,
+        "tokens_per_step": tokens_per_step, "param_dtype": cfg.param_dtype,
+        "gossip": art.gossip, "neighbours": int(plan.idx.shape[1]),
+        "activated_links": len(design.activated_links), "rho": design.rho,
+        "design_seconds_on_card": design_seconds,
+        "fabric": {"link_bw": FABRIC_LINK_BW, "kappa_bytes": kappa},
+        "warmup_steps": 1, "timed_steps": TRAIN_LAUNCH_STEPS, "steps": steps,
+        "step_ms_mean_timed": step_ms_mean,
+        "tokens_per_s": tokens_per_step / (step_ms_mean * 1e-3),
+        "peak_memory_gb": peak_gb, "kernel_launches": launches,
+        "launches_per_step": leaves,
+        "no_g_every_leaf": no_g_held,
+        "no_g_at_embedding_leaf": no_g,
+        "mix_ms_per_step": mix_ms_per_step,
+        "mix_bound_ms_per_step": mix_bytes / PEAK_BYTES_PER_S * 1e3,
+        "smoke_modes": smoke, "checkpoint": ckpt,
+    }
+    emit("train_launch", **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2591,7 +2957,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
-    phase_kernel_check(args.seed)
+    checked = phase_kernel_check(args.seed)
     phase_attention_check(args.seed)
     phase_small_reference(args.seed)
     phase_rollout(args.profile)
@@ -2601,6 +2967,26 @@ def main(argv=None) -> int:
     kernels = [phase_kernels(params, plan, launches, leaves, args.seed)]
     del params, plan
     torch.cuda.empty_cache()
+    launched = phase_train_launch(args.seed)
+    no_g = launched["no_g_at_embedding_leaf"]
+    no_g_held = launched["no_g_every_leaf"]
+    kernels[0]["launches_train_launch"] = launched["kernel_launches"]
+    kernels[0]["launches_train_launch_per_step"] = launched["launches_per_step"]
+    kernels[0]["no_g"] = {
+        **{k: no_g[k] for k in ("form", "shape", "dtype", "neighbours",
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_call")},
+        "max_abs_err": max(
+            [no_g_held["max_abs_err"]]
+            + [c["max_abs_err"] for c in checked if c.get("no_g")]),
+        "max_abs_err_case_table": max(
+            c["max_abs_err"] for c in checked if c.get("no_g")),
+        "max_abs_err_every_leaf": no_g_held["max_abs_err"],
+        "max_abs_err_embedding_leaf": no_g["max_abs_err"],
+        "fewest_refused_err_over_limit_every_leaf":
+            no_g_held["fewest_refused_err_over_limit"],
+        "launches_train_launch": launched["kernel_launches"],
+    }
     designed = phase_design(args.seed, args.seq)
     kernels[0]["launches_gate"] = designed["gate"]
     kernels[0]["launches_gate_per_step"] = designed["gate_per_step"]
@@ -2610,7 +2996,7 @@ def main(argv=None) -> int:
     kernels[0]["max_abs_err_full_width"] = designed["full_width_max_abs_err"]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"], designed["gate_max_abs_err"],
-        designed["full_width_max_abs_err"])
+        designed["full_width_max_abs_err"], kernels[0]["no_g"]["max_abs_err"])
     checks = {cfg.name: phase_serve_check(args.seed, cfg, b, s)
               for cfg, b, s in SERVE_CHECKS}
     serve_run = phase_serve(args.seed, args.profile)

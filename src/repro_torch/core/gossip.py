@@ -6,12 +6,14 @@ x_i ← Σ_j W_ij x_j is realized as
   * ``mix_dense``     — einsum with W over the stacked agent axis
     (float32 accumulate): the Clique/J communication pattern. Baseline.
   * ``mix_allreduce`` — exact mean over agents (only valid for W = J).
-  * the sparse form   — ``neighbor_table(w)`` turns W's activated support
-    into the index/weight table the fused kernel
-    ``kernels.ops.mixing_sgd_combine_stacked`` reads. On one card the
-    agents are dim 0 of every leaf, so a "receive" is a read of the
-    neighbour's row; the multi-device forms (``mix_sparse_shardmap``,
-    ``mix_sparse_flat``) wait for a multi-card slice.
+  * ``mix_sparse``    — ``neighbor_table(w)`` turns W's activated support
+    into the index/weight table that the kernel
+    ``kernels.ops.mixing_sgd_combine_stacked`` reads, one launch per leaf
+    (its form without a gradient term). On one card the agents are dim 0
+    of every leaf, so a "receive" is a read of the neighbour's row; both
+    multi-device forms of the reference (``mix_sparse_shardmap``,
+    ``mix_sparse_flat``) give these values per leaf, and wait for a
+    multi-card slice.
 
 ``build_schedule`` (pure numpy) returns the identical ``GossipSchedule``
 as the JAX package: it is what a multi-device exchange would replay and
@@ -26,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
 
 
@@ -118,6 +121,21 @@ def mix_dense(params: Any, w: torch.Tensor) -> Any:
         ).to(p.dtype),
         params,
     )
+
+
+def mix_sparse(params: Any, idx: torch.Tensor, weights: torch.Tensor) -> Any:
+    """x_i ← Σ_j W_ij x_j over W's support, ``(idx, weights) =
+    neighbor_table(W)`` on the parameters' device: one launch of the
+    ``mixing_sgd_combine`` kernel per leaf (float32 accumulation over the
+    neighbours in ascending order, one rounding to the leaf's dtype)."""
+
+    def leaf(p):
+        a = p.shape[0]
+        return ops.mixing_sgd_combine_stacked(
+            p.reshape(a, -1), idx, weights
+        ).reshape(p.shape)
+
+    return tree_map(leaf, params)
 
 
 def mix_allreduce(params: Any) -> Any:

@@ -6,7 +6,13 @@
 //
 //     out = W_ii * x + sum_{r<R} W_{i,j_r} * nbr_r - lr * g
 //
-// with float32 accumulation and one rounding to the type of x.
+// with float32 accumulation and one rounding to the type of x. A launch
+// without g (g_dtype REPRO_DTYPE_NONE) computes the mix alone,
+//
+//     out = W_ii * x + sum_{r<R} W_{i,j_r} * nbr_r,
+//
+// from an instantiation that loads no g at all: the launcher's gossip step
+// mixes parameters that its optimizer has already updated.
 //
 // Bound: bytes moved. Every element costs 2(R+1)+1 flops against
 // (R+3) element reads/writes, far under the card's flops-per-byte ridge,
@@ -121,6 +127,8 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
 // ---- the kernel -----------------------------------------------------------
 
 // T: type of x / neighbours / out.  G: type of g (float or T).
+// HAS_G: the -lr*g term is loaded and added; false for the pure mix, whose
+// g is null and never read.
 // VECTOR: every row start is 16-byte aligned, so [0, n_vec*kN) of each row
 // goes through 16-byte packs; the rest of the row (all of it when VECTOR is
 // false) goes through the scalar loop.
@@ -130,7 +138,7 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
 //
 // Dynamic shared memory: (r+1) floats of weights, then r 64-bit element
 // offsets of the neighbour rows (8-byte aligned: r+1 floats are padded up).
-template <typename T, typename G, bool VECTOR>
+template <typename T, typename G, bool HAS_G, bool VECTOR>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const T* __restrict__ x, const T* __restrict__ nbr,
                const int* __restrict__ idx,
@@ -157,7 +165,7 @@ combine_kernel(const T* __restrict__ x, const T* __restrict__ nbr,
   __syncthreads();
 
   const T* xs = x + row * n;
-  const G* gs = g + row * n;
+  const G* gs = HAS_G ? g + row * n : nullptr;
   T* os = out + row * n;
   const float w_self = sw[0];
 
@@ -181,9 +189,11 @@ combine_kernel(const T* __restrict__ x, const T* __restrict__ nbr,
 #pragma unroll
       for (int k = 0; k < kN; ++k) acc[k] = fmaf(wq, v[k], acc[k]);
     }
-    load_vec<kN>(gs + e, v);
+    if constexpr (HAS_G) {
+      load_vec<kN>(gs + e, v);
 #pragma unroll
-    for (int k = 0; k < kN; ++k) acc[k] = fmaf(-lr, v[k], acc[k]);
+      for (int k = 0; k < kN; ++k) acc[k] = fmaf(-lr, v[k], acc[k]);
+    }
     store_vec(os + e, acc);
   }
 
@@ -192,7 +202,7 @@ combine_kernel(const T* __restrict__ x, const T* __restrict__ nbr,
     for (int q = 0; q < r; ++q) {
       acc = fmaf(sw[q + 1], to_float(nbr[soff[q] + e]), acc);
     }
-    acc = fmaf(-lr, to_float(gs[e]), acc);
+    if constexpr (HAS_G) acc = fmaf(-lr, to_float(gs[e]), acc);
     os[e] = from_float<T>(acc);
   }
 }
@@ -217,7 +227,7 @@ int sm_count() {
   return cached;
 }
 
-template <typename T, typename G>
+template <typename T, typename G, bool HAS_G>
 int launch(const void* x, const void* nbr, const int* idx,
            const float* weights, const void* g, void* out, long long rows,
            long long n, int r, float lr, cudaStream_t stream) {
@@ -248,10 +258,10 @@ int launch(const void* x, const void* nbr, const int* idx,
   const G* gp = static_cast<const G*>(g);
   T* op = static_cast<T*>(out);
   if (vec) {
-    combine_kernel<T, G, true><<<grid, block, smem, stream>>>(
+    combine_kernel<T, G, HAS_G, true><<<grid, block, smem, stream>>>(
         xp, np, idx, weights, gp, op, rows, n, r, lr);
   } else {
-    combine_kernel<T, G, false><<<grid, block, smem, stream>>>(
+    combine_kernel<T, G, HAS_G, false><<<grid, block, smem, stream>>>(
         xp, np, idx, weights, gp, op, rows, n, r, lr);
   }
   return static_cast<int>(cudaGetLastError());
@@ -262,29 +272,43 @@ int launch(const void* x, const void* nbr, const int* idx,
 // dtype codes shared with the Python wrapper.
 #define REPRO_DTYPE_F32 0
 #define REPRO_DTYPE_BF16 1
+#define REPRO_DTYPE_NONE -1  // g_dtype of a launch without g (g is null)
 
 // out[a] = w[a,0]*x[a] + sum_r w[a,r+1]*src(a,r) - lr*g[a],  a < rows, where
 // src(a,r) = nbr + idx[a*r_count + r]*n   if idx != NULL (stacked form), or
 //          = nbr + r*n                    if idx == NULL (per-agent form).
-// x, nbr, out have type x_dtype; g has type g_dtype (float32, or x_dtype);
-// weights is float32 [rows, r+1]. Returns the launch's cudaError_t (0 = ok).
+// x, nbr, out have type x_dtype; g has type g_dtype (float32, or x_dtype),
+// or is null with g_dtype REPRO_DTYPE_NONE, and then the -lr*g[a] term is
+// absent (lr unused). weights is float32 [rows, r+1]. Returns the launch's
+// cudaError_t (0 = ok).
 extern "C" int repro_mixing_sgd_combine(
     const void* x, const void* nbr, const int* idx, const float* weights,
     const void* g, void* out, long long rows, long long n, int r, float lr,
     int x_dtype, int g_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (r < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((g == nullptr) != (g_dtype == REPRO_DTYPE_NONE)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (x_dtype == REPRO_DTYPE_F32 && g_dtype == REPRO_DTYPE_F32) {
-    return launch<float, float>(x, nbr, idx, weights, g, out, rows, n, r, lr,
-                                s);
+    return launch<float, float, true>(x, nbr, idx, weights, g, out, rows, n,
+                                      r, lr, s);
   }
   if (x_dtype == REPRO_DTYPE_BF16 && g_dtype == REPRO_DTYPE_BF16) {
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, nbr, idx, weights, g, out,
-                                                rows, n, r, lr, s);
+    return launch<__nv_bfloat16, __nv_bfloat16, true>(
+        x, nbr, idx, weights, g, out, rows, n, r, lr, s);
   }
   if (x_dtype == REPRO_DTYPE_BF16 && g_dtype == REPRO_DTYPE_F32) {
-    return launch<__nv_bfloat16, float>(x, nbr, idx, weights, g, out, rows, n,
-                                        r, lr, s);
+    return launch<__nv_bfloat16, float, true>(x, nbr, idx, weights, g, out,
+                                              rows, n, r, lr, s);
+  }
+  if (x_dtype == REPRO_DTYPE_F32 && g_dtype == REPRO_DTYPE_NONE) {
+    return launch<float, float, false>(x, nbr, idx, weights, nullptr, out,
+                                       rows, n, r, 0.0f, s);
+  }
+  if (x_dtype == REPRO_DTYPE_BF16 && g_dtype == REPRO_DTYPE_NONE) {
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(
+        x, nbr, idx, weights, nullptr, out, rows, n, r, 0.0f, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

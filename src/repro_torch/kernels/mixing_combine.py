@@ -14,7 +14,11 @@ Two entry points over one CUDA kernel (``csrc/mixing_combine.cu``):
 * ``mixing_sgd_combine_stacked(x, idx, weights, g, lr=)`` — all agents
   of one card at once, ``x[A, N]``; agent a's r-th neighbour is the row
   ``x[idx[a, r]]`` read in place, so no ``recv`` buffer is materialised.
-  This is what the D-PSGD step launches, once per parameter leaf.
+  This is what the D-PSGD step launches, once per parameter leaf. With
+  ``g=None`` (and no ``lr``) it is the mix alone, ``Σ_j W_aj·x[j]``,
+  from an instantiation of the kernel that reads no gradient: the
+  launcher's ``sparse`` gossip (``launch/train.py``) mixes parameters
+  that ``optim.sgd`` has already updated.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
 CUDA tensor launches the kernel or raises (also when the build fails).
@@ -30,6 +34,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NO_G = -1  # g_dtype of the launch without a gradient term (g is NULL)
 
 _launches = 0
 _bound = None
@@ -63,7 +68,7 @@ def _library():
             ctypes.c_int,       # r
             ctypes.c_float,     # lr
             ctypes.c_int,       # x dtype code
-            ctypes.c_int,       # g dtype code
+            ctypes.c_int,       # g dtype code, _NO_G without g
             ctypes.c_void_p,    # stream
         ]
         _bound = fn
@@ -80,15 +85,18 @@ def _check_lr(lr) -> float:
 
 
 def _check_operands(x, others: dict, g_name: str, g) -> None:
-    """Device, dtype and contiguity of the float operands."""
+    """Device, dtype and contiguity of the float operands (``g`` may be
+    None: the mix without a gradient term)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if g.dtype != x.dtype and g.dtype != torch.float32:
+    if g is not None and g.dtype != x.dtype and g.dtype != torch.float32:
         raise TypeError(
             f"{g_name} must be float32 or the dtype of x ({x.dtype}), "
             f"got {g.dtype}"
         )
-    for name, t in {"x": x, g_name: g, **others}.items():
+    if g is not None:
+        others = {g_name: g, **others}
+    for name, t in {"x": x, **others}.items():
         if t.device != x.device:
             raise ValueError(
                 f"{name} is on {t.device}, x is on {x.device}"
@@ -109,15 +117,17 @@ def _launch(x, nbr, idx, weights, g, rows: int, n: int, r: int, lr: float):
         err = fn(
             x.data_ptr(), nbr.data_ptr(),
             idx.data_ptr() if idx is not None and r > 0 else None,
-            weights.data_ptr(), g.data_ptr(), out.data_ptr(),
-            rows, n, r, lr,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[g.dtype], stream,
+            weights.data_ptr(), None if g is None else g.data_ptr(),
+            out.data_ptr(), rows, n, r, lr,
+            _DTYPE_CODE[x.dtype],
+            _NO_G if g is None else _DTYPE_CODE[g.dtype], stream,
         )
     _launches += 1
     if err != 0:
         raise RuntimeError(
             f"mixing_sgd_combine kernel launch failed: cudaError {err} "
-            f"(rows={rows}, n={n}, r={r}, x={x.dtype}, g={g.dtype})"
+            f"(rows={rows}, n={n}, r={r}, x={x.dtype}, "
+            f"g={None if g is None else g.dtype})"
         )
     return out
 
@@ -162,11 +172,15 @@ def mixing_sgd_combine_stacked(
     x: torch.Tensor,        # [A, N] parameters of all agents (one leaf)
     idx: torch.Tensor,      # int32 [A, R] neighbour rows, R ≥ 0
     weights: torch.Tensor,  # fp32 [A, R+1]: [:, 0] = W_aa
-    g: torch.Tensor,        # [A, N] gradients (the kernel's momentum slot)
+    g: torch.Tensor | None = None,  # [A, N] gradients, or None: mix alone
     *,
-    lr: float,
+    lr: float | None = None,  # the step on g; given exactly when g is
 ) -> torch.Tensor:
-    lr = _check_lr(lr)
+    if (g is None) != (lr is None):
+        raise TypeError(
+            "lr scales g: pass both (the fused update) or neither (the mix)"
+        )
+    lr = 0.0 if g is None else _check_lr(lr)
     if x.dim() != 2:
         raise ValueError(f"x must be [A, N], got {tuple(x.shape)}")
     a, n = x.shape
@@ -181,7 +195,7 @@ def mixing_sgd_combine_stacked(
         raise ValueError(
             f"weights must be [{a}, {r + 1}], got {tuple(weights.shape)}"
         )
-    if g.shape != x.shape:
+    if g is not None and g.shape != x.shape:
         raise ValueError(
             f"g must be {tuple(x.shape)}, got {tuple(g.shape)}"
         )

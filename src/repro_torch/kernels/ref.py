@@ -113,21 +113,23 @@ def mixing_sgd_combine_stacked_ref(
     x: torch.Tensor,
     idx: torch.Tensor,
     weights: torch.Tensor,
-    g: torch.Tensor,
+    g: torch.Tensor | None = None,
     *,
-    lr: float,
+    lr: float | None = None,
 ) -> torch.Tensor:
     """All agents at once over the stacked axis (eq. (2) of the paper).
 
     ``out[a] = w[a,0]·x[a] + Σ_r w[a,r+1]·x[idx[a,r]] − lr·g[a]`` with
     x, g ``[A, N]``, idx ``int32[A, R]``, weights ``fp32[A, R+1]``;
-    float32 accumulation, one cast back to ``x.dtype``. Returns a new
-    tensor; ``x`` is not written.
+    float32 accumulation, one cast back to ``x.dtype``. With ``g=None``
+    the last term is absent (the mix alone). Returns a new tensor; ``x``
+    is not written.
     """
     w = weights.to(torch.float32)
     acc = x.to(torch.float32) * w[:, 0:1]
     for r in range(idx.shape[1]):
         rows = x.index_select(0, idx[:, r].to(torch.int64))
         acc = acc + rows.to(torch.float32) * w[:, r + 1 : r + 2]
-    acc = acc - lr * g.to(torch.float32)
+    if g is not None:
+        acc = acc - lr * g.to(torch.float32)
     return acc.to(x.dtype)

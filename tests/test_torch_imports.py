@@ -54,7 +54,12 @@ def test_package_has_the_slices_modules():
         "repro_torch.core.topology_baselines", "repro_torch.core.designer",
         "repro_torch.paper", "repro_torch.paper.scenario",
         "repro_torch.paper.fig5_training",
-        "repro_torch.paper.priced_training",
+        "repro_torch.paper.priced_training", "repro_torch.optim",
+        "repro_torch.optim.sgd", "repro_torch.optim.schedule",
+        "repro_torch.optim.adamw", "repro_torch.launch.mesh",
+        "repro_torch.launch.fabric", "repro_torch.launch.train",
+        "repro_torch.data", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention_wgmma",
@@ -137,6 +142,44 @@ def test_ast_scan(path):
         assert not isinstance(node, ast.Try), (path, node.lineno)
 
 
+LAUNCHER_SLICE = (
+    "optim/__init__.py", "optim/sgd.py", "optim/schedule.py",
+    "optim/adamw.py", "launch/mesh.py", "launch/fabric.py", "launch/train.py",
+    "data/pipeline.py", "checkpoint/__init__.py", "checkpoint/checkpoint.py",
+)
+
+
+@pytest.mark.parametrize("rel", LAUNCHER_SLICE)
+def test_ast_scan_covers_the_launcher_slice(rel):
+    """The launcher's modules are among the scanned sources (no forbidden
+    import, no `try`), and hold no JAX-only name."""
+    path = PKG / rel
+    assert path in SOURCES
+    names = {n.id for n in ast.walk(ast.parse(path.read_text()))
+             if isinstance(n, ast.Name)}
+    assert not names & {"jnp", "jax", "NamedSharding", "PartitionSpec"}
+
+
+def test_sparse_gossip_goes_through_the_kernel():
+    """`gossip.mix_sparse` reaches the stacked kernel's entry and mixes
+    nothing itself; the launcher's `sparse` mode calls `mix_sparse`."""
+    src = (PKG / "core" / "gossip.py").read_text()
+    fn = next(
+        n for n in ast.walk(ast.parse(src))
+        if isinstance(n, ast.FunctionDef) and n.name == "mix_sparse"
+    )
+    attrs = {n.attr for n in ast.walk(fn) if isinstance(n, ast.Attribute)}
+    assert "mixing_sgd_combine_stacked" in attrs
+    assert not attrs & {"addmm", "einsum", "matmul", "index_select"}
+    train_src = (PKG / "launch" / "train.py").read_text()
+    mix = next(
+        n for n in ast.walk(ast.parse(train_src))
+        if isinstance(n, ast.FunctionDef) and n.name == "mix_fn"
+    )
+    assert "mix_sparse" in {
+        n.attr for n in ast.walk(mix) if isinstance(n, ast.Attribute)}
+
+
 def test_default_update_calls_no_dense_mixing_on_the_fused_path():
     """`fused_update` (the default eq. (2) path) reaches the kernel wrapper
     and names neither `addmm` nor `einsum`."""
@@ -176,14 +219,19 @@ def _no_gpu():
     "entry", ["resolve_device", "model_init", "mixing_plan", "train_priced",
               "train", "params_from_jax", "init_caches",
               "build_serve_artifacts", "caches_from_jax",
-              "optimize_weights", "design", "gate_main"],
+              "optimize_weights", "design", "gate_main",
+              "build_train_artifacts", "prefetcher", "combine_without_g",
+              "design_mixing_matrix", "checkpoint_restore"],
 )
-def test_device_none_raises_without_a_gpu(entry):
-    from repro_torch import compat
+def test_device_none_raises_without_a_gpu(entry, tmp_path):
+    from repro_torch import checkpoint, compat
     from repro_torch.configs import qwen2_0_5b
     from repro_torch.configs.base import DECODE_32K
     from repro_torch.core import designer, dpsgd, priced_training, weight_opt
-    from repro_torch.launch import serve
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import Prefetcher
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fabric, mesh, serve, train
     from repro_torch.paper import priced_training as gate
     from repro_torch.models import convert, model
 
@@ -216,6 +264,21 @@ def test_device_none_raises_without_a_gpu(entry):
             designer.design("ring", None, 1.0, 4)
         elif entry == "gate_main":
             gate.main([])
+        elif entry == "build_train_artifacts":
+            train.build_train_artifacts(
+                cfg, TrainConfig(), DECODE_32K, mesh.make_test_mesh((1, 1)))
+        elif entry == "prefetcher":
+            Prefetcher(lambda step: {"tokens": np.zeros((1, 2), np.int32)})
+        elif entry == "combine_without_g":
+            # the sparse gossip's tables are built for device=None first
+            plan = dpsgd.mixing_plan(np.full((2, 2), 0.5))
+            ops.mixing_sgd_combine_stacked(
+                torch.zeros(2, 4), plan.idx, plan.weights)
+        elif entry == "design_mixing_matrix":
+            fabric.design_mixing_matrix(4, link_bw=1.0, cross_pod_bw=1.0)
+        elif entry == "checkpoint_restore":
+            checkpoint.save(str(tmp_path), 1, {"w": torch.zeros(2)})
+            checkpoint.restore(str(tmp_path), {"w": torch.zeros(2)})
         else:
             convert.caches_from_jax({}, cfg)
 

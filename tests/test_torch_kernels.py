@@ -201,3 +201,74 @@ def test_wrappers_reject_bad_operands(case):
             ops.mixing_sgd_combine(
                 x[0], torch.zeros(2, 7), wt[0], g[0], lr=0.1
             )
+
+
+MIX_CASES = [
+    ("ring8", _ring(8)), ("clique5", mixing.ideal_matrix(5)),
+    ("asym6", _asym_support(6)), ("identity4", np.eye(4)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name,w", MIX_CASES)
+def test_stacked_plain_without_g_is_the_g_form_at_zero(name, w, dtype):
+    """The mix alone (``g=None``, the launcher's sparse gossip) is bitwise
+    the fused form with ``g = 0``, and holds against the reference's
+    ``mix_dense`` (float32)."""
+    m = w.shape[0]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((m, 259)).astype(np.float32))
+    x = x.to(dtype)
+    idx_np, wt_np = gossip.neighbor_table(w)
+    idx, wt = torch.from_numpy(idx_np), torch.from_numpy(wt_np)
+    got = ops.mixing_sgd_combine_stacked(x, idx, wt)
+    zero = ref.mixing_sgd_combine_stacked_ref(
+        x, idx, wt, torch.zeros_like(x), lr=0.05)
+    assert got.dtype == dtype
+    assert torch.equal(got, zero)
+    assert torch.equal(got, ref.mixing_sgd_combine_stacked_ref(x, idx, wt))
+    if dtype == torch.float32:
+        want = jax_dpsgd.mix_params({"p": jnp.asarray(x.numpy())},
+                                    jnp.asarray(w))["p"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=FP32_TOL, atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("case", ["g_without_lr", "lr_without_g"])
+def test_stacked_lr_goes_with_g(case):
+    x = torch.zeros(4, 8)
+    idx = torch.zeros(4, 2, dtype=torch.int32)
+    wt = torch.zeros(4, 3)
+    with pytest.raises(TypeError, match="lr scales g"):
+        if case == "g_without_lr":
+            ops.mixing_sgd_combine_stacked(x, idx, wt, torch.zeros(4, 8))
+        else:
+            ops.mixing_sgd_combine_stacked(x, idx, wt, lr=0.1)
+
+
+def test_mix_sparse_is_one_g_free_call_per_leaf(monkeypatch):
+    """``gossip.mix_sparse`` reaches the kernel's entry once per leaf,
+    without a gradient, and agrees with ``mix_dense``."""
+    w = _ring(5)
+    rng = np.random.default_rng(4)
+    params = {
+        "a": torch.from_numpy(rng.standard_normal((5, 3, 7)).astype(np.float32)),
+        "b": {"c": torch.from_numpy(rng.standard_normal((5, 11)).astype(np.float32))},
+    }
+    idx_np, wt_np = gossip.neighbor_table(w)
+    calls = []
+    real = ops.mixing_sgd_combine_stacked
+
+    def spy(x, idx, weights, g=None, *, lr=None):
+        calls.append((tuple(x.shape), g, lr))
+        return real(x, idx, weights, g, lr=lr)
+
+    monkeypatch.setattr(ops, "mixing_sgd_combine_stacked", spy)
+    got = gossip.mix_sparse(params, torch.from_numpy(idx_np),
+                            torch.from_numpy(wt_np))
+    assert calls == [((5, 21), None, None), ((5, 11), None, None)]
+    want = gossip.mix_dense(params, torch.from_numpy(w))
+    torch.testing.assert_close(got["a"], want["a"], rtol=FP32_TOL, atol=FP32_TOL)
+    torch.testing.assert_close(got["b"]["c"], want["b"]["c"], rtol=FP32_TOL,
+                               atol=FP32_TOL)
