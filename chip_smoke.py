@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N] [--steps N] [--seq N] [--profile]
 
 Drives the port's paths at the full width and depth of Qwen2-0.5B (and,
-for serving, of Gemma2-2B) on one card, through the entry points a user
-calls:
+for serving, of Gemma2-2B, and of Mixtral-8x7B at full width and half its
+depth) on one card, through the entry points a user calls:
 
 * network pricing — the port's ``net/`` and its float64 torch rollout
   engine price 256 Monte-Carlo rollouts of a 220-agent star in one pass
@@ -34,7 +34,11 @@ calls:
   attention through the ``flash_attention`` (prefill) and
   ``decode_attention`` (decode) kernels; then Gemma2-2B (head_dim 256,
   local window-4096 and global layers, softcap 50) with 8 prompts of 8192
-  tokens and 64 greedy tokens through the same two kernels.
+  tokens and 64 greedy tokens through the same two kernels; then
+  Mixtral-8x7B at full width and 16 of its 32 layers (MoE FFN of 8
+  experts top-2 on every layer, head_dim 128, window 4096) with 4 prompts
+  of 8192 tokens and 64 greedy tokens, its MoE layer, attention shapes and
+  ``serve_check`` held on the card.
 
 First it builds the hand-written kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
@@ -52,7 +56,11 @@ Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
 ``train``, ``train_launch``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
-``serve_gemma2``, ``attention_main_shapes``, ``ffma_times``), then the
+``serve_gemma2``, ``moe_layer_check``, ``mixtral_attention``,
+``serve_check`` (Mixtral float32 at 2 layers), ``serve_mixtral``,
+``serve_mixtral_step``, ``serve_check`` (Mixtral bf16 at 16 layers),
+``serve_mixtral_total``,
+``attention_main_shapes``, ``ffma_times``), then the
 line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
 then
@@ -83,10 +91,11 @@ import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.configs import gemma2_2b, qwen2_0_5b
+from repro_torch.configs import gemma2_2b, mixtral_8x7b, qwen2_0_5b
 from repro_torch.checkpoint import AsyncCheckpointer, restore
 from repro_torch.configs.base import (
     DECODE_32K,
+    MOE_KINDS,
     ShapeConfig,
     TrainConfig,
     get_train_config,
@@ -112,7 +121,7 @@ from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import fabric, serve, train
 from repro_torch.launch import mesh as launch_mesh
-from repro_torch.models import model
+from repro_torch.models import attention, model, moe
 from repro_torch.net import (
     MarkovLinkModel,
     StochasticScenario,
@@ -293,6 +302,23 @@ GEMMA2_SERVE_BATCH = 8
 # layer has softcap 50. The local layer is timed at 2 requests (its
 # earlier timings' shape).
 GEMMA2_LAYERS = (("local", 2, 4096), ("global", GEMMA2_SERVE_BATCH, None))
+# Mixtral-8x7B served at full width: 16 of its 32 layers (all 32 are
+# 46.70 B parameters, 93.4 GB in bf16, more than the card holds; 16 are
+# 23.48 B = 46.96 GB), every width, the 4096 window and capacity 1.25 as
+# published; 4 prompts of 8192 tokens (past the window, so the flash window
+# and the ring cache bind), every layer a 4096-slot ring, 64 greedy tokens.
+MIXTRAL_CFG = dataclasses.replace(mixtral_8x7b.CONFIG, num_layers=16)
+MIXTRAL_SERVE_BATCH = 4
+# Its serve_check: capacity E / k = 4.0 drops nothing, so decoding equals
+# the teacher-forced forward (the smoke config's 8.0 does the same); bf16
+# at the served 16 layers, float32 at 2 (12.6 GB of float32 weights).
+MIXTRAL_CHECK = (dataclasses.replace(MIXTRAL_CFG, capacity_factor=4.0), 1,
+                 4608)
+MIXTRAL_CHECK_FP32_LAYERS = 2
+# One MoE layer at full width held on the card: tokens of one request.
+MOE_CHECK_TOKENS = 512
+MOE_ROW_RTOL = 2e-2   # bf16, rtol + MOE_ROW_ATOL x each token row's RMS
+MOE_ROW_ATOL = 2e-2
 # Sequence of the wgmma flash design's timed shape at head_dim 16 and 32
 # (bf16, q [4, 8, S, D], k/v [4, 4, S, D], causal).
 SMALL_D_SEQ = 4096
@@ -2054,6 +2080,15 @@ def phase_attention_check(seed: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+def serve_prompts(cfg, b: int, seed: int) -> torch.Tensor:
+    """``b`` prompts of SERVE_PROMPT tokens of ``cfg``'s vocabulary drawn
+    from ``seed``, on the card."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, SERVE_PROMPT), dtype=np.int32)
+    ).to("cuda")
+
+
 def serve_params(cfg, seed: int):
     """Random parameters of ``cfg`` on the card from an explicit generator
     (the repo holds no checkpoint)."""
@@ -2061,11 +2096,12 @@ def serve_params(cfg, seed: int):
     return model.init(cfg, gen, device="cuda")
 
 
-def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
+def phase_serve_check(seed: int, cfg, b: int, s: int,
+                      forms=("float32", "bfloat16"), params=None) -> dict:
     """The serving path end to end on the card: prefill of ``b`` prompts of
-    ``s`` tokens and CHECK_STEPS teacher-forced decode steps of ``cfg`` at
-    full width and depth, against ``model.forward`` (torch ops, no kernel)
-    at the same positions.
+    ``s`` tokens and CHECK_STEPS teacher-forced decode steps of ``cfg``,
+    against ``model.forward`` (torch ops, no kernel) at the same positions,
+    in each of ``forms``:
 
     * float32 (the config with float32 parameters and compute, so the
       kernels' float32 paths): within the JAX package's own model
@@ -2075,29 +2111,40 @@ def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
       ulps at the logits, more than 2e-2 (0.0625 in the first run of
       Qwen2-0.5B), so each is held against the float32 forward of the
       same parameters: the kernel path may be at most twice as far from it
-      as the torch-op path is, plus 1e-4 (float32 summation order).
+      as the torch-op path is, plus 1e-4 (float32 summation order). With
+      MoE layers the rule holds the median over (request, position) of
+      each position's largest error: a top-k choice near a tie flips under
+      either path's bf16 rounding, and the flipped positions, a few of
+      the nine, set the largest error of either path by chance.
 
     The float32 prefill must run the ``ffma`` flash design once a layer,
-    and each float32 step the ``ffma`` decode design once a layer.
+    and each float32 step the ``ffma`` decode design once a layer. Without
+    the float32 form, the float32 forward runs on ``params`` as they are
+    (each weight cast to float32 where it is used: the same values).
+    ``params``: ``cfg``'s parameters (``serve_params`` when None).
     Returns the attention kernels' launches by design in each run."""
     cfg32 = dataclasses.replace(
         cfg, param_dtype="float32", compute_dtype="float32"
     )
     steps = CHECK_STEPS
-    params = serve_params(cfg, seed)
+    params = serve_params(cfg, seed) if params is None else params
     rng = np.random.default_rng(seed + 6)
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (b, s + steps), dtype=np.int32)
     ).to("cuda")
     launches = {}
 
+    def forward(c, p):
+        with torch.inference_mode():
+            want, _ = model.forward(c, p, {"tokens": toks}, remat=False)
+        return want[:, s - 1:s + steps].to(torch.float32, copy=True)
+
     def run(c, p):
         """(serving path's logits, forward's) at positions s-1 .. s+steps-1."""
         art = serve.build_serve_artifacts(
             c, ShapeConfig("serve_check", s + steps, b, "prefill")
         )
-        with torch.inference_mode():
-            want, _ = model.forward(c, p, {"tokens": toks}, remat=False)
+        want = forward(c, p)
         ops.reset_launch_count()
         logits, caches = art.prefill_fn(p, {"tokens": toks[:, :s]})
         got = [logits[:, 0]]
@@ -2111,58 +2158,80 @@ def phase_serve_check(seed: int, cfg, b: int, s: int) -> dict:
         pos = {key: c_["pos"].tolist() for key, c_ in caches.items()}
         if any(v != [s + steps] * c.num_groups for v in pos.values()):
             raise AssertionError(f"serve_check: cache positions {pos}")
-        return (torch.stack(got, dim=1),
-                want[:, s - 1:s + steps].to(torch.float32, copy=True))
+        return torch.stack(got, dim=1), want
 
-    got32, truth = run(cfg32, tree_map(lambda p: p.to(torch.float32), params))
-    flash32 = launches["float32"]["flash_attention"]
-    if flash32 != {**dict.fromkeys(flash_mod.DESIGNS, 0),
-                   "ffma": cfg.num_layers}:
-        raise AssertionError(f"serve_check {cfg.name} float32 prefill: "
-                             f"flash launches {flash32}")
-    decode32 = launches["float32"]["decode_attention"]
-    if decode32 != {**dict.fromkeys(decode_mod.DESIGNS, 0),
-                    "ffma": cfg.num_layers * steps}:
-        raise AssertionError(f"serve_check {cfg.name} float32 decode: "
-                             f"decode launches {decode32}")
-    err32 = {
-        "prefill": assert_close(got32[:, 0], truth[:, 0], 2e-2,
-                                f"serve_check {cfg.name} float32 prefill logits"),
-        "decode": assert_close(got32[:, 1:], truth[:, 1:], 3e-2,
-                               f"serve_check {cfg.name} float32 decode logits"),
-    }
-    del got32
-    got16, want16 = run(cfg, params)
-    got16 = got16.float()
-    kernel_err = (got16 - truth).abs()
-    forward_err = (want16 - truth).abs()
-    bf16 = {
-        "kernel_path_vs_fp32_max": float(kernel_err.max()),
-        "kernel_path_vs_fp32_mean": float(kernel_err.mean()),
-        "forward_vs_fp32_max": float(forward_err.max()),
-        "forward_vs_fp32_mean": float(forward_err.mean()),
-        "kernel_path_vs_forward_max": float((got16 - want16).abs().max()),
-    }
-    if not bool(torch.isfinite(got16).all()) or not (
-        bf16["kernel_path_vs_fp32_max"]
-        <= 2 * bf16["forward_vs_fp32_max"] + FP32_ORDER_ATOL
-    ):
-        raise AssertionError(f"serve_check {cfg.name} bfloat16: {bf16}")
+    err32 = bf16 = None
+    if "float32" in forms:
+        got32, truth = run(cfg32, tree_map(lambda p: p.to(torch.float32),
+                                           params))
+        flash32 = launches["float32"]["flash_attention"]
+        if flash32 != {**dict.fromkeys(flash_mod.DESIGNS, 0),
+                       "ffma": cfg.num_layers}:
+            raise AssertionError(f"serve_check {cfg.name} float32 prefill: "
+                                 f"flash launches {flash32}")
+        decode32 = launches["float32"]["decode_attention"]
+        if decode32 != {**dict.fromkeys(decode_mod.DESIGNS, 0),
+                        "ffma": cfg.num_layers * steps}:
+            raise AssertionError(f"serve_check {cfg.name} float32 decode: "
+                                 f"decode launches {decode32}")
+        err32 = {
+            "prefill": assert_close(
+                got32[:, 0], truth[:, 0], 2e-2,
+                f"serve_check {cfg.name} float32 prefill logits"),
+            "decode": assert_close(
+                got32[:, 1:], truth[:, 1:], 3e-2,
+                f"serve_check {cfg.name} float32 decode logits"),
+        }
+        del got32
+    else:
+        truth = forward(cfg32, params)
+    if "bfloat16" in forms:
+        got16, want16 = run(cfg, params)
+        got16 = got16.float()
+        kernel_err = (got16 - truth).abs()
+        forward_err = (want16 - truth).abs()
+        bf16 = {
+            "kernel_path_vs_fp32_max": float(kernel_err.max()),
+            "kernel_path_vs_fp32_mean": float(kernel_err.mean()),
+            "forward_vs_fp32_max": float(forward_err.max()),
+            "forward_vs_fp32_mean": float(forward_err.mean()),
+            "kernel_path_vs_forward_max": float((got16 - want16).abs().max()),
+        }
+        held = ("kernel_path_vs_fp32_max", "forward_vs_fp32_max")
+        if any(kind in MOE_KINDS for kind in cfg.block_pattern):
+            per_pos = {
+                "kernel_path_vs_fp32_by_position":
+                    kernel_err.amax(dim=-1).flatten(),
+                "forward_vs_fp32_by_position":
+                    forward_err.amax(dim=-1).flatten(),
+            }
+            bf16.update({key: t.tolist() for key, t in per_pos.items()})
+            bf16.update({key.replace("by_position", "median"):
+                         float(t.median()) for key, t in per_pos.items()})
+            held = ("kernel_path_vs_fp32_median", "forward_vs_fp32_median")
+        if not bool(torch.isfinite(got16).all()) or not (
+            bf16[held[0]] <= 2 * bf16[held[1]] + FP32_ORDER_ATOL
+        ):
+            raise AssertionError(f"serve_check {cfg.name} bfloat16: {bf16}")
+        bf16["rule"] = f"{held[0]} <= 2 x {held[1]} + 1e-4"
+        del got16, want16
     emit(
-        "serve_check", config=cfg.name, batch=b, prompt=s,
-        decode_steps=steps, float32_max_abs_err=err32,
+        "serve_check", config=cfg.name, layers=cfg.num_layers,
+        capacity_factor=cfg.capacity_factor if cfg.num_experts else None,
+        batch=b, prompt=s, decode_steps=steps, forms=list(forms),
+        float32_max_abs_err=err32,
         float32_tolerance={"prefill": 2e-2, "decode": 3e-2},
-        bfloat16=bf16, bfloat16_rule="kernel path vs fp32 <= 2 x forward vs fp32 + 1e-4",
-        logit_scale=float(truth.abs().mean()), launches_by_design=launches,
+        bfloat16=bf16, logit_scale=float(truth.abs().mean()),
+        launches_by_design=launches,
     )
-    del params, truth, got16, want16
+    del params, truth
     torch.cuda.empty_cache()
     return launches
 
 
 def phase_serve(seed: int, with_profile: bool = False,
                 cfg=qwen2_0_5b.CONFIG, b: int = SERVE_BATCH,
-                phase: str = "serve") -> dict:
+                phase: str = "serve", params=None) -> dict:
     """A serving main path: ``b`` prompts of SERVE_PROMPT tokens of ``cfg``
     through ``prefill_fn``, then greedy decoding (the first token from
     prefill's logits, then one ``step_fn`` call per token), as
@@ -2170,19 +2239,18 @@ def phase_serve(seed: int, with_profile: bool = False,
     before and read just after; every layer's attention must go through
     the bf16 designs (``wgmma`` flash, ``mma`` decode). ``with_profile``:
     one more decode step (into the cache's last slot) under the profiler.
+    ``params``: ``cfg``'s parameters (``serve_params`` when None).
     Returns the counts: every kernel's launches in the run, flash launches
     in the prefill (and by design) and decode launches in the first step
-    (and by design)."""
+    (and by design), and the host clock's mean decode step after the
+    first."""
     prompt, max_len = SERVE_PROMPT, SERVE_MAX_LEN
     steps = SERVE_NEW_TOKENS - 1
     art = serve.build_serve_artifacts(
         cfg, ShapeConfig(f"{phase}_8k", max_len, b, "prefill")
     )
-    params = serve_params(cfg, seed)
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (b, prompt), dtype=np.int32)
-    ).to("cuda")
+    params = serve_params(cfg, seed) if params is None else params
+    tokens = serve_prompts(cfg, b, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2268,7 +2336,8 @@ def phase_serve(seed: int, with_profile: bool = False,
     return {"launches": launches, "flash_per_prefill": flash_per_prefill,
             "flash_by_design": flash_designs,
             "decode_per_step": decode_per_step[0],
-            "decode_by_design": decode_designs}
+            "decode_by_design": decode_designs,
+            "decode_step_ms_mean_after_first": float(np.mean(step_ms[1:]))}
 
 
 def phase_serve_gemma2(seed: int) -> dict:
@@ -2278,6 +2347,279 @@ def phase_serve_gemma2(seed: int) -> dict:
     step."""
     return phase_serve(seed, cfg=gemma2_2b.CONFIG, b=GEMMA2_SERVE_BATCH,
                        phase="serve_gemma2")
+
+
+def moe_layer_check(seed: int) -> dict:
+    """``moe.apply`` on the card at one Mixtral layer, full width (bf16, 8
+    experts top-2, d 4096, d_ff 14336), one request of MOE_CHECK_TOKENS:
+
+    * at capacity 4.0 (nothing dropped) against the dense oracle
+      ``apply_dense_reference``, at rtol 2e-2 + 2e-2 x each token row's RMS;
+    * its integer dispatch (``token_for_slot``, ``slot_for_choice``) at
+      capacities 4.0 and 1.25, bit for bit the same function's on the CPU
+      for the same expert choices;
+    * at capacity 1.25 the output must be refused by the same limit: the
+      check sees the dropped choices.
+
+    Each token is N(0, 1) plus one vector shared by all (itself N(0, 1)),
+    as a residual stream has a common component: the experts' loads then
+    differ, where isotropic tokens would load all eight within a few
+    percent of each other and capacity 1.25 would drop nothing."""
+    cfg = MIXTRAL_CFG
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    bf16 = torch.bfloat16
+    spec = {cf: moe.MoESpec(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                            cfg.num_experts_per_token, cf)
+            for cf in (MIXTRAL_CHECK[0].capacity_factor, cfg.capacity_factor)}
+    droppless, served = spec.values()
+    params = moe.init(gen, droppless, bf16, "cuda")
+    x = torch.randn((1, MOE_CHECK_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda")
+    x = x.add_(torch.randn(cfg.d_model, generator=gen, device="cuda")).to(bf16)
+    with torch.inference_mode():
+        want = moe.apply_dense_reference(params, x, droppless, bf16)
+        rms = want.float().square().mean(dim=-1, keepdim=True).sqrt()
+        atol = rms.mul_(MOE_ROW_ATOL)
+        got, aux = moe.apply(params, x, droppless, bf16)
+        err = assert_close(got, want, MOE_ROW_RTOL,
+                           "moe.apply (capacity 4.0) vs its dense oracle",
+                           atol=atol)
+        _, _, _, idx = moe.route(params, x, droppless)
+        dispatch = {}
+        for cf, sp in spec.items():
+            cap = moe.capacity(MOE_CHECK_TOKENS, sp)
+            on_card = moe.dispatch_indices(idx, cap, sp.num_experts)
+            on_cpu = moe.dispatch_indices(idx.cpu(), cap, sp.num_experts)
+            if not all(torch.equal(a.cpu(), b)
+                       for a, b in zip(on_card, on_cpu)):
+                raise AssertionError(f"moe dispatch at capacity {cf}: the "
+                                     "card's indices differ from the CPU's")
+            dispatch[str(cf)] = {
+                "capacity": cap,
+                "dropped_share": float(
+                    (on_card[1] == sp.num_experts * cap).float().mean()),
+            }
+        dropped, _ = moe.apply(params, x, served, bf16)
+        agree, _, worst = compare(dropped, want, MOE_ROW_RTOL, atol)
+    if agree:
+        raise AssertionError("moe.apply at capacity 1.25 passes for the "
+                             "dense oracle: the check cannot see drops")
+    out = {
+        "x": list(x.shape), "dtype": "bf16", "max_abs_err": err,
+        "limit": f"rtol {MOE_ROW_RTOL} + {MOE_ROW_ATOL} x row RMS",
+        "dispatch_bitwise_equal_to_cpu": dispatch,
+        "capacity_1.25_refused_err_over_limit": worst,
+        "aux": {key: float(v) for key, v in aux.items()},
+    }
+    del params, x, want, got, dropped
+    torch.cuda.empty_cache()
+    return out
+
+
+def library_attention_masked(q, k, v, mask):
+    """The windowed yardstick: SDPA's memory-efficient backend with the
+    window as a boolean mask (``mask`` [Sq, Sk], True = attend), k/v
+    already repeated to the query heads (no flash-backend call takes a
+    window)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)
+
+
+def mixtral_attention_kernels(seed: int) -> dict:
+    """Both attention kernels at Mixtral-8x7B's served shapes (bf16, 32
+    heads / 8 KV heads, head_dim 128), held against their plain versions at
+    the data-scaled limit and timed beside their bounds, plain versions and
+    a library call:
+
+    * flash at the prefill layer, q [4, 32, 8192, 128], window 4096: plain
+      version on the first and the last request, with ``hold_flash_layer``'s
+      controls refused (each keeps the window); the yardstick is SDPA's
+      memory-efficient backend with the window as a boolean mask, k/v
+      repeated to 32 heads, itself held to the kernel's output;
+    * decode at the served step, q [4, 32, 1, 128] against the full
+      4096-slot ring: ``length - 1`` and a dropped tile refused; kernel and
+      SDPA (flash backend, the ring's length) replayed from a CUDA graph."""
+    cfg = MIXTRAL_CFG
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    b, h, kv = MIXTRAL_SERVE_BATCH, cfg.num_heads, cfg.num_kv_heads
+    d, window, bf16 = cfg.resolved_head_dim, cfg.sliding_window, torch.bfloat16
+    q, k, v = attn_inputs(gen, b, h, kv, SERVE_PROMPT, SERVE_PROMPT, d, bf16)
+    res, refused = hold_flash_layer(
+        f"flash Mixtral-8x7B prefill layer q={list(q.shape)} "
+        f"k={list(k.shape)} bf16 window={window}", q, k, v,
+        requests=(0, b - 1), window=window)
+    if res["design"] != "wgmma":
+        raise AssertionError(f"{res['case']} ran {res['design']}")
+    timed = time_flash_layer(q, k, v, window=window)
+
+    def plain_by_request():
+        for i in range(b):
+            ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    window=window)
+
+    plain_ms = time_cuda(plain_by_request, reps=2)
+    mask = attention.causal_mask(SERVE_PROMPT, SERVE_PROMPT, window, "cuda")
+    kk, vv = repeat_kv(k, h), repeat_kv(v, h)
+    lib_out = library_attention_masked(q, kk, vv, mask)
+    lib_held = hold("SDPA (efficient, window mask) vs the flash kernel",
+                    lib_out, ops.flash_attention(q, k, v, window=window),
+                    scaled=True)
+    del lib_out
+    lib_ms = time_cuda(lambda: library_attention_masked(q, kk, vv, mask),
+                       reps=TIMING_REPS)
+    flash = {
+        "case": "Mixtral-8x7B prefill layer (window 4096)",
+        "q": list(q.shape), "k": list(k.shape), "window": window,
+        "design": res["design"], "max_abs_err": res["max_abs_err"],
+        "largest_err_over_limit": res["largest_err_over_limit"],
+        **timed, "plain_ms": plain_ms,
+        "plain_note": f"plain version run request by request, {b} calls",
+        "library_ms": lib_ms, "ms_over_library_ms": timed["ms"] / lib_ms,
+        "library_call": "scaled_dot_product_attention(attn_mask=window "
+                        "mask), efficient backend, k/v repeated to 32 heads",
+        "library_vs_kernel_max_abs_err": lib_held["max_abs_err"],
+    }
+    del q, k, v, kk, vv, mask
+    torch.cuda.empty_cache()
+
+    q, k, v = attn_inputs(gen, b, h, kv, 1, window, d, bf16)
+    _, refusals, decode = hold_decode_step(
+        "Mixtral-8x7B served step (4096-slot ring)", q, k, v, window,
+        decode_mod.tile_slots(bf16, d))
+    refused += refusals
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit("mixtral_attention", flash=flash, decode=decode, refused=refused)
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def decode_step_bytes(cfg, params, caches, b: int) -> dict:
+    """Bytes one decode step must move at least: every block weight once
+    (the vectorized dispatch multiplies every expert's weights each step,
+    whatever the routing), the final norm and the LM head's table, ``b``
+    rows of the embedding, the caches' K/V (full rings here), read once;
+    and the expert weights alone."""
+    leaf_bytes = {path: t.numel() * t.element_size()
+                  for path, t in tree_paths(params)}
+    table = "embed/table" if cfg.tie_embeddings else "unembed/table"
+    embed_row = params["embed"]["table"][0]
+    total = (sum(v for p, v in leaf_bytes.items() if p.startswith("blocks/"))
+             + leaf_bytes["final_norm/scale"] + leaf_bytes[table]
+             + b * embed_row.numel() * embed_row.element_size()
+             + sum(c[kv].numel() * c[kv].element_size()
+                   for c in caches.values() for kv in ("k", "v")))
+    experts = sum(v for p, v in leaf_bytes.items()
+                  if p.rsplit("/", 1)[-1] in ("gate", "up", "down")
+                  and "/ffn/" in p)
+    return {"bytes": total, "expert_bytes": experts}
+
+
+def prefill_drop_shares(art, params, tokens):
+    """The share of (token, choice) pairs that the capacity drops in each
+    MoE layer of one prefill of ``tokens``: an untimed prefill with
+    ``moe.apply`` wrapped to route each layer's input once more and count
+    the choices ``dispatch_indices`` leaves without a slot. Returns (the
+    shares by layer, the prefill's logits and caches)."""
+    shares = []
+    real = moe.apply
+
+    def counting(p, x, spec, cdt, with_aux=True):
+        cap = moe.capacity(x.shape[1], spec)
+        _, _, _, idx = moe.route(p, x.to(cdt), spec)
+        _, slot_for_choice = moe.dispatch_indices(idx, cap, spec.num_experts)
+        shares.append((slot_for_choice == spec.num_experts * cap)
+                      .float().mean())
+        return real(p, x, spec, cdt, with_aux)
+
+    moe.apply = counting
+    out = art.prefill_fn(params, {"tokens": tokens})
+    moe.apply = real
+    return [float(share) for share in shares], out
+
+
+def mixtral_step_and_drops(params, seed: int, host_step_ms: float) -> dict:
+    """After the served run, on its prompts: the prefill's dropped share by
+    layer (``prefill_drop_shares``), then one decode step replayed from a
+    CUDA graph (the device's time; each replay advances every ring by one
+    token, as a step does) beside the step's byte bound, and the share of
+    it that this time and ``host_step_ms`` (the host clock's) reach."""
+    cfg, b = MIXTRAL_CFG, MIXTRAL_SERVE_BATCH
+    art = serve.build_serve_artifacts(
+        cfg, ShapeConfig("serve_mixtral_8k", SERVE_MAX_LEN, b, "prefill"))
+    drops, (logits, caches) = prefill_drop_shares(
+        art, params, serve_prompts(cfg, b, seed))
+    if len(drops) != cfg.num_layers:
+        raise AssertionError(f"{len(drops)} MoE layers in the prefill")
+    token = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    device_ms = time_graph(lambda: art.step_fn(params, caches, token),
+                           reps=1, replays=10)
+    moved = decode_step_bytes(cfg, params, caches, b)
+    bound = moved["bytes"] / PEAK_BYTES_PER_S * 1e3
+    out = {
+        "prefill_dropped_share_by_layer": drops,
+        "capacity_factor": cfg.capacity_factor,
+        "decode_step_device_ms": device_ms,
+        "decode_step_device_timing": "one step_fn call replayed from a CUDA "
+                                     "graph, mean of 10 replays",
+        "decode_step_host_ms": host_step_ms,
+        "decode_step_bound_ms": bound, "decode_step_bound_by": "bytes",
+        "decode_step_bytes": moved["bytes"],
+        "decode_step_expert_bytes": moved["expert_bytes"],
+        "decode_step_expert_bound_ms":
+            moved["expert_bytes"] / PEAK_BYTES_PER_S * 1e3,
+        "decode_step_share_of_bound_host": bound / host_step_ms,
+        "decode_step_share_of_bound_device": bound / device_ms,
+    }
+    emit("serve_mixtral_step", **out)
+    del logits, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_mixtral(seed: int, with_profile: bool = False) -> dict:
+    """Mixtral-8x7B (MIXTRAL_CFG: 16 layers, full width, MoE FFN on every
+    layer, head_dim 128, window 4096) on one card:
+
+    * ``moe.apply`` at one full-width layer (``moe_layer_check``);
+    * both attention kernels at its served shapes
+      (``mixtral_attention_kernels``);
+    * ``serve_check`` at capacity 4.0 in float32 at MIXTRAL_CHECK_FP32_LAYERS
+      layers (the ``ffma`` designs at D = 128 with the window, in a model);
+    * the served path: ``phase_serve`` with 4 prompts of 8192 tokens and
+      64 greedy tokens — 16 ``wgmma`` flash launches a prefill and 16
+      ``mma`` decode launches a step asserted (``with_profile``: one more
+      decode step under the profiler) — then ``mixtral_step_and_drops``;
+    * ``serve_check`` at capacity 4.0 in bf16 at the served 16 layers, on
+      the served run's parameters.
+
+    Returns the launch counts and timings of the served run, the kernels'
+    entries at its shapes, and the checks' results."""
+    t0 = time.perf_counter()
+    layer = moe_layer_check(seed)
+    emit("moe_layer_check", **layer)
+    kernels = mixtral_attention_kernels(seed)
+    check_cfg, b, s = MIXTRAL_CHECK
+    checks = {"float32": phase_serve_check(
+        seed, dataclasses.replace(check_cfg,
+                                  num_layers=MIXTRAL_CHECK_FP32_LAYERS),
+        b, s, forms=("float32",))}
+    params = serve_params(MIXTRAL_CFG, seed)
+    run = phase_serve(seed, with_profile, cfg=MIXTRAL_CFG,
+                      b=MIXTRAL_SERVE_BATCH, phase="serve_mixtral",
+                      params=params)
+    step = mixtral_step_and_drops(
+        params, seed, run["decode_step_ms_mean_after_first"])
+    checks["bfloat16"] = phase_serve_check(seed, check_cfg, b, s,
+                                           forms=("bfloat16",), params=params)
+    del params
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit("serve_mixtral_total", seconds=seconds)
+    return {**run, **step, "kernels": kernels, "moe_layer": layer,
+            "serve_checks": checks, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -2404,6 +2746,61 @@ def head_mod_decode_plain(q, k, v, length, softcap=None):
     return ref.decode_attention_ref(q, k.index_select(1, heads),
                                     v.index_select(1, heads), length,
                                     softcap=softcap)
+
+
+def hold_decode_step(name: str, q, k, v, length: int, tile: int):
+    """A bf16 decode step at a main path's shape: the kernel against its
+    plain version at the data-scaled limit, ``length - 1`` and a plain
+    version without one ``tile`` of the cache refused, then its time and
+    SDPA's (flash backend, ``enable_gqa``) replayed from a CUDA graph and
+    eager, its plain version's time and its byte bound. Returns (the
+    check's result, the refusals, the shape's entry)."""
+    b, h = q.shape[:2]
+    kv, d = k.shape[1], k.shape[3]
+    n = torch.tensor(length, dtype=torch.int32, device="cuda")
+    what = f"decode {name} q={list(q.shape)} k={list(k.shape)} bf16"
+    res, got = check_decode(f"{what} length={length}", q, k, v, n,
+                            scaled=True)
+    start = length // 2 // tile * tile
+    refused = [
+        refuse(f"a decode plain version with length - 1 ({name})", got,
+               ref.decode_attention_ref(q, k, v, n - 1), scaled=True),
+        refuse(f"a decode plain version without cache slots {start} .. "
+               f"{start + tile - 1} ({name})", got,
+               tile_dropped_plain(q, k, v, n, start, tile), scaled=True),
+    ]
+    del got
+    torch.cuda.empty_cache()
+
+    def kernel():
+        return ops.decode_attention(q, k, v, n)
+
+    def library():
+        return library_attention(q, k, v, False)
+
+    ms = time_graph(kernel, reps=TIMING_REPS)
+    lib_ms = time_graph(library, reps=TIMING_REPS)
+    bound, by = decode_bound(q, k, length)
+    entry = {
+        "case": name, "q": list(q.shape), "k": list(k.shape),
+        "length": length, "design": res["design"],
+        "splits": decode_mod.split_plan(
+            b, kv, length,
+            torch.cuda.get_device_properties(0).multi_processor_count,
+            decode_mod.resident_blocks(q.dtype, d, h // kv, q.device),
+            tile)[1],
+        "max_abs_err": res["max_abs_err"],
+        "largest_err_over_limit": res["largest_err_over_limit"], "ms": ms,
+        "plain_ms": time_cuda(lambda: ref.decode_attention_ref(q, k, v, n),
+                              reps=TIMING_REPS),
+        "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+        "share_of_bound": bound / ms,
+        "achieved_bytes_per_s": bound * PEAK_BYTES_PER_S / ms,
+        "eager_ms": time_cuda(kernel, reps=TIMING_REPS),
+        "library_eager_ms": time_cuda(library, reps=TIMING_REPS),
+        "ms_over_library_ms": ms / lib_ms,
+    }
+    return res, refused, entry
 
 
 def graph_replays(fn, want, replays: int = 3) -> int:
@@ -2656,9 +3053,10 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
     del q, k, v
     torch.cuda.empty_cache()
 
-    # head_dim 128: Mixtral-8x7B's attention layer (32 heads, 8 KV heads),
-    # batch cut to 4 (the other wgmma instantiation; no model of the port
-    # serves it yet), with the same controls and its library time.
+    # head_dim 128: Mixtral-8x7B's attention layer (32 heads, 8 KV heads)
+    # at batch 4, causal without its window (kept for comparison with the
+    # earlier records; phase_serve_mixtral holds and times the served,
+    # windowed layer), with the same controls and its library time.
     b128 = 4
     q, k, v = attn_inputs(gen, b128, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128,
                           bf16)
@@ -2721,52 +3119,16 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
         ("DECODE_32K layer", DECODE_32K.global_batch, DECODE_32K.seq_len),
     ):
         q, k, v = attn_inputs(gen, b, h, kv, 1, s, d, bf16)
-        n = torch.tensor(s, dtype=torch.int32, device="cuda")
-        what = f"decode {name} q={list(q.shape)} k={list(k.shape)} bf16"
-        res, got = check_decode(f"{what} length={s}", q, k, v, n, scaled=True)
+        res, refusals, entry = hold_decode_step(name, q, k, v, s, DECODE_TILE)
         cases.append(res)
-        start = s // 2 // DECODE_TILE * DECODE_TILE
-        refused.append(refuse(
-            f"a decode plain version with length - 1 ({name})", got,
-            ref.decode_attention_ref(q, k, v, n - 1), scaled=True))
-        refused.append(refuse(
-            f"a decode plain version without cache slots {start} .. "
-            f"{start + DECODE_TILE - 1} ({name})", got,
-            tile_dropped_plain(q, k, v, n, start), scaled=True))
-        del got
+        refused += refusals
+        shapes.append(entry)
         if b == DECODE_32K.global_batch:
             ragged = torch.randint(1, s + 1, (b,), generator=gen,
                                    device="cuda", dtype=torch.int32)
-            cases.append(check_decode(f"{what} ragged [B] lengths", q, k, v,
-                                      ragged, scaled=True)[0])
-        torch.cuda.empty_cache()
-        def kernel():
-            return ops.decode_attention(q, k, v, n)
-
-        def library():
-            return library_attention(q, k, v, False)
-
-        ms = time_graph(kernel, reps=TIMING_REPS)
-        lib_ms = time_graph(library, reps=TIMING_REPS)
-        eager_ms = time_cuda(kernel, reps=TIMING_REPS)
-        lib_eager_ms = time_cuda(library, reps=TIMING_REPS)
-        plain_ms = time_cuda(
-            lambda: ref.decode_attention_ref(q, k, v, n), reps=TIMING_REPS)
-        bound, by = decode_bound(q, k, s)
-        shapes.append({
-            "case": name, "q": list(q.shape), "k": list(k.shape),
-            "length": s, "design": res["design"],
-            "splits": decode_mod.split_plan(
-                b, kv, s, torch.cuda.get_device_properties(0).multi_processor_count,
-                decode_mod.resident_blocks(bf16, d, h // kv, q.device),
-                DECODE_TILE)[1],
-            "max_abs_err": res["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": by,
-            "achieved_bytes_per_s": bound * PEAK_BYTES_PER_S / ms,
-            "eager_ms": eager_ms, "library_eager_ms": lib_eager_ms,
-            "ms_over_library_ms": ms / lib_ms,
-        })
+            cases.append(check_decode(
+                f"decode {name} q={list(q.shape)} k={list(k.shape)} bf16 "
+                "ragged [B] lengths", q, k, v, ragged, scaled=True)[0])
         del q, k, v
         torch.cuda.empty_cache()
     top = shapes[0]
@@ -2823,6 +3185,24 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
         decode["launches_serve_gemma2_per_step"] = gemma2_run["decode_per_step"]
         decode["launches_serve_gemma2_by_design"] = gemma2_run["decode_by_design"]
     return [flash, decode]
+
+
+def add_mixtral(flash: dict, decode: dict, run: dict) -> None:
+    """``phase_serve_mixtral``'s results into the attention kernels'
+    entries of the kernels line: its shapes, its served run's launches
+    (by prefill, step and design) and its two ``serve_check`` runs'
+    launches by design."""
+    for kernel in (flash, decode):
+        name = kernel["name"]
+        kernel["shapes"].append(run["kernels"][name])
+        kernel["launches_serve_mixtral"] = run["launches"][name]
+        kernel["launches_serve_mixtral_serve_checks"] = {
+            form: by_dtype[form][name]
+            for form, by_dtype in run["serve_checks"].items()}
+    flash["launches_serve_mixtral_per_prefill"] = run["flash_per_prefill"]
+    flash["launches_serve_mixtral_by_design"] = run["flash_by_design"]
+    decode["launches_serve_mixtral_per_step"] = run["decode_per_step"]
+    decode["launches_serve_mixtral_by_design"] = run["decode_by_design"]
 
 
 def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
@@ -2945,8 +3325,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=512, help="tokens per agent")
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra rollout batch, one extra "
-                         "training step and one extra decode step with "
-                         "torch.profiler")
+                         "training step and one extra decode step of "
+                         "Qwen2-0.5B and of Mixtral-8x7B with torch.profiler")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3001,7 +3381,9 @@ def main(argv=None) -> int:
               for cfg, b, s in SERVE_CHECKS}
     serve_run = phase_serve(args.seed, args.profile)
     gemma2_run = phase_serve_gemma2(args.seed)
+    mixtral_run = phase_serve_mixtral(args.seed, args.profile)
     kernels += phase_attention_kernels(args.seed, serve_run, gemma2_run)
+    add_mixtral(kernels[1], kernels[2], mixtral_run)
     ffma = phase_ffma_times(args.seed, checks)
     kernels[1]["ffma"] = ffma["flash_attention"]
     kernels[2]["ffma"] = ffma["decode_attention"]

@@ -1,7 +1,8 @@
 """Per-kind residual blocks with one (init / train / serve) API.
 
 Counterpart of the JAX package's ``models/blocks.py`` for the attention
-kinds with a dense FFN (``attn``, ``swa``, ``local``, ``global``):
+kinds, with a dense FFN (``attn``, ``swa``, ``local``, ``global``) or the
+MoE FFN of ``models/moe.py`` (``attn_moe``, ``swa_moe``):
 
   init(generator, cfg, kind, device)            -> params
   apply_train(params, x, cfg, kind)             -> (x, aux_losses)
@@ -9,9 +10,9 @@ kinds with a dense FFN (``attn``, ``swa``, ``local``, ``global``):
   apply_decode(params, x, cache, cfg, kind)     -> (x, cache)   (in place)
   prefill(params, x, cfg, kind, max_len, cache) -> (x, cache)
 
-The MoE kinds and the recurrent kinds (Mamba, xLSTM) raise
-``NotImplementedError`` until their modules are ported (ROADMAP queue A,
-"MoE/SSM blocks").
+The recurrent kinds (Mamba, ``mamba_moe``, xLSTM) raise
+``NotImplementedError`` until ``models/ssm.py`` is ported (ROADMAP queue
+A, "SSM blocks").
 """
 
 from __future__ import annotations
@@ -19,17 +20,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch import compat
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.configs.base import MOE_KINDS, ModelConfig
+from repro_torch.models import attention, layers, moe
 
-PORTED_KINDS = ("attn", "swa", "local", "global")
+PORTED_KINDS = ("attn", "attn_moe", "swa", "swa_moe", "local", "global")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP queue A, "
-            f"'MoE/SSM blocks'); ported kinds: {PORTED_KINDS}"
+            f"'SSM blocks'); ported kinds: {PORTED_KINDS}"
         )
 
 
@@ -46,6 +47,16 @@ def _attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
         rope_theta=cfg.rope_theta,
         softcap=cfg.attn_logit_softcap,
         qkv_bias=cfg.qkv_bias,
+    )
+
+
+def _moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    return moe.MoESpec(
+        d_model=cfg.d_model,
+        d_ff=cfg.d_ff,
+        num_experts=cfg.num_experts,
+        top_k=cfg.num_experts_per_token,
+        capacity_factor=cfg.capacity_factor,
     )
 
 
@@ -69,8 +80,12 @@ def init(generator, cfg: ModelConfig, kind: str, device, lead=()) -> dict:
             generator, _attn_spec(cfg, kind), pdt, device, lead
         ),
         "norm2": layers.rmsnorm_init(cfg.d_model, pdt, device, lead),
-        "ffn": layers.mlp_init(
-            generator, cfg.d_model, cfg.d_ff, pdt, device, lead
+        "ffn": (
+            moe.init(generator, _moe_spec(cfg), pdt, device, lead)
+            if kind in MOE_KINDS
+            else layers.mlp_init(
+                generator, cfg.d_model, cfg.d_ff, pdt, device, lead
+            )
         ),
     }
 
@@ -82,12 +97,19 @@ def apply_train(params, x, cfg: ModelConfig, kind: str):
     x = x + attention.apply_train(
         params["mixer"], h, _attn_spec(cfg, kind), cdt
     )
-    return _ffn(params, x, cfg, cdt), no_aux(x.device)
+    x, aux = _ffn(params, x, cfg, kind, cdt, with_aux=True)
+    return x, no_aux(x.device) if aux is None else aux
 
 
-def _ffn(params, x, cfg: ModelConfig, cdt):
+def _ffn(params, x, cfg: ModelConfig, kind: str, cdt, with_aux=False):
+    """The residual FFN → (x, the router's aux losses for a MoE kind when
+    ``with_aux``, else None). The serving forms drop the aux, as the
+    reference's do."""
     h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps, cdt)
-    return x + layers.mlp_apply(params["ffn"], h, cdt)
+    if kind in MOE_KINDS:
+        y, aux = moe.apply(params["ffn"], h, _moe_spec(cfg), cdt, with_aux)
+        return x + y, aux
+    return x + layers.mlp_apply(params["ffn"], h, cdt), None
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, kind: str, device):
@@ -106,7 +128,7 @@ def apply_decode(params, x, cache, cfg: ModelConfig, kind: str):
     y, cache = attention.apply_decode(
         params["mixer"], h, cache, _attn_spec(cfg, kind), cdt
     )
-    return _ffn(params, x + y, cfg, cdt), cache
+    return _ffn(params, x + y, cfg, kind, cdt)[0], cache
 
 
 def prefill(params, x, cfg: ModelConfig, kind: str, max_len: int, cache=None):
@@ -118,4 +140,4 @@ def prefill(params, x, cfg: ModelConfig, kind: str, max_len: int, cache=None):
     y, cache = attention.prefill_cache(
         params["mixer"], h, _attn_spec(cfg, kind), cdt, max_len, cache
     )
-    return _ffn(params, x + y, cfg, cdt), cache
+    return _ffn(params, x + y, cfg, kind, cdt)[0], cache

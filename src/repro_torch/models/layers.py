@@ -21,19 +21,47 @@ _CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
 _CDF_HI = 0.5 * (1.0 + math.erf(2.0 / _SQRT2))
 
 
+# Largest float32 draw made in one piece: 4 GiB. A larger leaf (Mixtral's
+# stacked expert weights, [G, 8, 4096, 14336]) is drawn slice by slice
+# along its leading axis into its output, so its float32 temporaries stay
+# within this size.
+SINGLE_DRAW_MAX_BYTES = 4 * 2**30
+
+
+def _truncated_normal_(u: torch.Tensor, scale) -> torch.Tensor:
+    """Uniform(Φ(−2), Φ(2)) draws in ``u`` → ``scale`` × the truncated
+    normal, in place (inverse CDF)."""
+    u.mul_(2.0).sub_(1.0).erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
+    # 1/sqrt(fan_in)-style scaling is applied by callers via `scale`.
+    return u.mul_(scale)
+
+
 def truncated_normal_init(generator, shape, scale, dtype, device):
     """``scale`` × a standard normal truncated to (−2, 2), drawn in
     float32 from ``generator`` and cast to ``dtype``. On the ``meta``
-    device only the shape is made (for counting parameters)."""
+    device only the shape is made (for counting parameters). A leaf of
+    more than SINGLE_DRAW_MAX_BYTES in float32 is drawn in slices of its
+    leading axis, in order, each cast into the preallocated output."""
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    u = torch.empty(shape, dtype=torch.float32, device=device).uniform_(
-        _CDF_LO, _CDF_HI, generator=generator
-    )
-    # 1/sqrt(fan_in)-style scaling is applied by callers via `scale`.
-    x = torch.erfinv(u.mul_(2.0).sub_(1.0)).mul_(_SQRT2).clamp_(-2.0, 2.0)
-    return x.mul_(scale).to(dtype)
+    shape = tuple(shape)
+    numel = math.prod(shape)
+    if numel * 4 <= SINGLE_DRAW_MAX_BYTES:
+        u = torch.empty(shape, dtype=torch.float32, device=device).uniform_(
+            _CDF_LO, _CDF_HI, generator=generator
+        )
+        return _truncated_normal_(u, scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    per_row = numel // shape[0]
+    rows = max(1, SINGLE_DRAW_MAX_BYTES // (4 * per_row))
+    for i in range(0, shape[0], rows):
+        part = out[i:i + rows]
+        u = torch.empty(part.shape, dtype=torch.float32, device=device)
+        u.uniform_(_CDF_LO, _CDF_HI, generator=generator)
+        part.copy_(_truncated_normal_(u, scale))
+        del u  # freed before the next slice is drawn, not after
+    return out
 
 
 def dense_init(generator, d_in, d_out, dtype, device, lead=()) -> dict:

@@ -60,6 +60,9 @@ def test_package_has_the_slices_modules():
         "repro_torch.launch.fabric", "repro_torch.launch.train",
         "repro_torch.data", "repro_torch.data.pipeline",
         "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+        "repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
+        "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.qwen1_5_0_5b",
+        "repro_torch.configs.mistral_large_123b",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention_wgmma",

@@ -2,6 +2,8 @@
 parameters cross through `convert.params_from_jax`, the same tokens go
 through both, logits and loss agree."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,12 +11,20 @@ import pytest
 import torch
 
 from repro.configs import gemma2_2b as jax_gemma
+from repro.configs import mistral_large_123b as jax_mistral_large
+from repro.configs import mixtral_8x7b as jax_mixtral
+from repro.configs import mixtral_8x22b as jax_mixtral_22b
+from repro.configs import qwen1_5_0_5b as jax_qwen15
 from repro.configs import qwen2_0_5b as jax_cfg
 from repro.models import attention as jax_attention
 from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro_torch.configs import base as torch_base
 from repro_torch.configs import gemma2_2b as torch_gemma
+from repro_torch.configs import mistral_large_123b as torch_mistral_large
+from repro_torch.configs import mixtral_8x7b as torch_mixtral
+from repro_torch.configs import mixtral_8x22b as torch_mixtral_22b
+from repro_torch.configs import qwen1_5_0_5b as torch_qwen15
 from repro_torch.configs import qwen2_0_5b as torch_cfg
 from repro_torch.models import attention, blocks, convert, layers, model
 from repro_torch.tree import tree_leaves, tree_paths
@@ -116,6 +126,16 @@ def test_parameter_count_equal(which):
     assert shapes == jshapes
 
 
+# (JAX config module, the port's own copy) of the configurations whose block
+# kinds the MoE slice completes.
+NEW_CONFIG_COPIES = (
+    (jax_mixtral, torch_mixtral),
+    (jax_mixtral_22b, torch_mixtral_22b),
+    (jax_qwen15, torch_qwen15),
+    (jax_mistral_large, torch_mistral_large),
+)
+
+
 def test_configs_are_own_equal_copies():
     import dataclasses
 
@@ -134,8 +154,16 @@ def test_configs_are_own_equal_copies():
     assert dataclasses.asdict(torch_base.get_train_config("gemma2-2b")) == (
         dataclasses.asdict(jax_gemma.TRAIN_CONFIG)
     )
+    for jmod, tmod in NEW_CONFIG_COPIES:
+        for name in ("CONFIG", "SMOKE_CONFIG", "TRAIN_CONFIG"):
+            assert dataclasses.asdict(getattr(tmod, name)) == (
+                dataclasses.asdict(getattr(jmod, name))), (tmod.__name__, name)
+    assert torch_base.get_config("mixtral-8x7b") is torch_mixtral.CONFIG
+    assert torch_base.get_config("qwen1.5-0.5b", smoke=True) is (
+        torch_qwen15.SMOKE_CONFIG
+    )
     with pytest.raises(NotImplementedError):
-        torch_base.get_config("mixtral-8x7b")
+        torch_base.get_config("xlstm-125m")
 
 
 def test_init_is_seeded_and_scaled():
@@ -202,7 +230,7 @@ def test_layers_match_jax(fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["attn_moe", "mamba", "mlstm"])
+@pytest.mark.parametrize("kind", ["mamba_moe", "mamba", "mlstm"])
 def test_unported_block_kinds_name_the_roadmap(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         blocks.init(0, TCFG, kind, "cpu")
@@ -223,3 +251,211 @@ def test_long_sequence_takes_the_chunked_path_as_jax():
     exp = jax_attention.apply_train(jp, jnp.asarray(x), jspec, jnp.float32)
     got = attention.apply_train(tp, torch.from_numpy(x), tspec, torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# The MoE kinds (Mixtral's `swa_moe`) at the smoke size
+# ---------------------------------------------------------------------------
+
+MOE_TOL = 2e-5  # the JAX package's fp32 tolerance
+
+
+def _mixtral(cf=None, seed=0):
+    """Mixtral's smoke configs (capacity factor ``cf`` in place of the
+    droppless 8.0 when given) and one set of parameters in both packages."""
+    import dataclasses
+
+    jcfg, tcfg = jax_mixtral.SMOKE_CONFIG, torch_mixtral.SMOKE_CONFIG
+    if cf is not None:
+        jcfg = dataclasses.replace(jcfg, capacity_factor=cf)
+        tcfg = dataclasses.replace(tcfg, capacity_factor=cf)
+    jp = jax_model.init(jcfg, jax.random.key(seed))
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("cf", [None, 1.0])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moe_logits_match_jax(seed, cf):
+    """Mixtral's smoke model (window 16, 4 experts top-2): logits and both
+    aux losses, droppless and at a capacity that drops."""
+    jcfg, tcfg, jp, tp = _mixtral(cf, seed)
+    tok = _tokens(seed, s=25)[:, :-1]
+    exp, jaux = jax_model.forward(jcfg, jp, {"tokens": jnp.asarray(tok)})
+    got, aux = model.forward(tcfg, tp, {"tokens": torch.from_numpy(tok)})
+    assert got.shape == (2, 24, jcfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=MOE_TOL,
+                               atol=MOE_TOL)
+    for name in jaux:
+        assert float(aux[name]) > 0, name
+        np.testing.assert_allclose(float(aux[name]), float(jaux[name]),
+                                   rtol=MOE_TOL, atol=MOE_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_loss_and_grads_match_jax(remat):
+    """The loss with both aux terms and its gradient w.r.t. every leaf,
+    router and stacked experts included."""
+    jcfg, tcfg, jp, tp = _mixtral(1.25)
+    tok = _tokens(4, s=25)
+    jl, jg = jax.value_and_grad(
+        lambda p: jax_model.loss(jcfg, p, {"tokens": jnp.asarray(tok)},
+                                 remat=remat)[0]
+    )(jp)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(tp)]
+    tl, metrics = model.loss(
+        tcfg, tp, {"tokens": torch.from_numpy(tok)}, remat=remat
+    )
+    grads = torch.autograd.grad(tl, leaves)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=MOE_TOL,
+                               atol=MOE_TOL)
+    assert float(metrics["load_balance_loss"].detach()) > 0
+    jgrads = dict(tree_paths(jax.tree.map(np.asarray, jg)))
+    assert any("ffn/router" in path for path in jgrads)
+    for (path, _), g in zip(tree_paths(tp), grads):
+        np.testing.assert_allclose(
+            g.numpy(), jgrads[path], rtol=MOE_TOL, atol=MOE_TOL, err_msg=path
+        )
+
+
+@pytest.mark.parametrize("which", ["smoke", "full"])
+@pytest.mark.parametrize(
+    "pair", NEW_CONFIG_COPIES, ids=lambda p: p[1].__name__.split(".")[-1]
+)
+def test_new_configs_count_and_shape_as_jax(pair, which):
+    """`parameter_count` and every leaf's shape from the meta device
+    against `jax.eval_shape`, for the four new config copies."""
+    jmod, tmod = pair
+    jc = jmod.CONFIG if which == "full" else jmod.SMOKE_CONFIG
+    tc = tmod.CONFIG if which == "full" else tmod.SMOKE_CONFIG
+    jshapes = {
+        k: tuple(v.shape) for k, v in tree_paths(
+            jax.eval_shape(lambda k: jax_model.init(jc, k), jax.random.key(0))
+        )
+    }
+    shapes = {k: tuple(v.shape) for k, v in
+              tree_paths(model.init(tc, 0, device="meta"))}
+    assert shapes == jshapes
+    assert model.parameter_count(tc) == sum(
+        int(np.prod(s)) for s in jshapes.values())
+
+
+def test_mixtral_full_parameter_count():
+    """Mixtral-8x7B at full depth: 46.70 B parameters, as the JAX package
+    counts them; 16 of its 32 layers (the served depth) 23.48 B."""
+    import dataclasses
+
+    n = model.parameter_count(torch_mixtral.CONFIG)
+    assert n == jax_model.parameter_count(jax_mixtral.CONFIG)
+    assert round(n / 1e9, 2) == 46.70
+    half = dataclasses.replace(torch_mixtral.CONFIG, num_layers=16)
+    assert round(model.parameter_count(half) / 1e9, 2) == 23.48
+
+
+@pytest.mark.parametrize("as_bits", [False, True])
+def test_convert_round_trip_moe(as_bits):
+    """The MoE tree (`ffn/router/kernel`, `ffn/gate`, `ffn/up`, `ffn/down`
+    with their leading G axis) crosses both ways, fp32 exactly and bf16 bit
+    for bit."""
+    import dataclasses
+
+    jcfg, tcfg, jp, tp = _mixtral()
+    paths = dict(tree_paths(tp))
+    g, e = tcfg.num_groups, tcfg.num_experts
+    assert paths["blocks/b0_swa_moe/ffn/gate"].shape == (
+        g, e, tcfg.d_model, tcfg.d_ff)
+    assert paths["blocks/b0_swa_moe/ffn/router/kernel"].shape == (
+        g, tcfg.d_model, e)
+    back = convert.params_to_jax(tp)
+    for (path, a), (_, b) in zip(
+        tree_paths(jax.tree.map(np.asarray, jp)), tree_paths(back)
+    ):
+        assert np.array_equal(a, b), path
+    cfg16 = dataclasses.replace(tcfg, param_dtype="bfloat16")
+    tree16 = jax.tree.map(lambda p: np.asarray(p.astype(jnp.bfloat16)), jp)
+    tree16 = jax.tree.map(
+        lambda a: a.view(np.uint16) if as_bits else a.astype(np.float32),
+        tree16)
+    tp16 = convert.params_from_jax(tree16, cfg16, "cpu")
+    back16 = convert.params_to_jax(tp16, bf16_as_bits=as_bits)
+    for (path, a), (_, b) in zip(tree_paths(tree16), tree_paths(back16)):
+        assert a.dtype == b.dtype and np.array_equal(a, b), path
+
+
+# ---------------------------------------------------------------------------
+# truncated_normal_init: one draw up to SINGLE_DRAW_MAX_BYTES, slices above
+# ---------------------------------------------------------------------------
+
+
+def _single_draw_before_slicing(generator, shape, scale, dtype, device):
+    """`truncated_normal_init` as it was before large leaves were drawn in
+    slices: the whole leaf in one float32 draw."""
+    u = torch.empty(shape, dtype=torch.float32, device=device).uniform_(
+        layers._CDF_LO, layers._CDF_HI, generator=generator
+    )
+    x = torch.erfinv(u.mul_(2.0).sub_(1.0)).mul_(2.0**0.5).clamp_(-2.0, 2.0)
+    return x.mul_(scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_truncated_normal_single_draw_keeps_its_bits(dtype):
+    for shape in ((3, 64, 48), (17,), (2, 8, 16, 32)):
+        got = layers.truncated_normal_init(
+            torch.Generator().manual_seed(5), shape, 0.1, dtype, "cpu")
+        want = _single_draw_before_slicing(
+            torch.Generator().manual_seed(5), shape, 0.1, dtype, "cpu")
+        assert got.dtype == dtype and torch.equal(got, want), shape
+
+
+@pytest.mark.parametrize("name", ["qwen2", "gemma2"])
+def test_todays_models_draw_the_same_weights(monkeypatch, name):
+    """Qwen2-0.5B's and Gemma2-2B's largest float32 leaf (Gemma2's
+    embedding, 2.36 GB) is under the one-draw size, so their full configs
+    draw every leaf in one piece; at the smoke size `model.init` gives the
+    bits of the one-draw function leaf for leaf."""
+    cfg = {"qwen2": torch_cfg, "gemma2": torch_gemma}[name]
+    largest = max(math.prod(l.shape) for l in
+                  tree_leaves(model.init(cfg.CONFIG, 0, device="meta")))
+    assert largest * 4 <= layers.SINGLE_DRAW_MAX_BYTES
+    new = model.init(cfg.SMOKE_CONFIG, 11, device="cpu")
+    monkeypatch.setattr(layers, "truncated_normal_init",
+                        _single_draw_before_slicing)
+    old = model.init(cfg.SMOKE_CONFIG, 11, device="cpu")
+    for (path, a), b in zip(tree_paths(new), tree_leaves(old)):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("rows_per_slice", [1, 3])
+def test_truncated_normal_large_leaf_is_drawn_in_slices(monkeypatch,
+                                                        rows_per_slice):
+    """Over the one-draw size (made small here) the leaf is drawn slice by
+    slice along its leading axis: each float32 draw is at most that size,
+    values stay within ±2·scale, mean ≈ 0 and variance ≈ the truncated
+    normal's (0.7737·scale²)."""
+    shape, scale = (7, 40, 50), 0.3
+    per_row = 40 * 50 * 4
+    monkeypatch.setattr(layers, "SINGLE_DRAW_MAX_BYTES",
+                        per_row * rows_per_slice + 4)
+    drawn = []
+    real_empty = torch.empty
+
+    def empty(*size, **kw):
+        t = real_empty(*size, **kw)
+        if kw.get("dtype") == torch.float32:
+            drawn.append(t.numel())
+        return t
+
+    monkeypatch.setattr(layers.torch, "empty", empty)
+    x = layers.truncated_normal_init(
+        torch.Generator().manual_seed(3), shape, scale, torch.bfloat16, "cpu")
+    monkeypatch.undo()
+    assert x.shape == shape and x.dtype == torch.bfloat16
+    assert drawn == [40 * 50 * min(rows_per_slice, 7 - i)
+                     for i in range(0, 7, rows_per_slice)]
+    x32 = x.to(torch.float32)
+    assert float(x32.abs().max()) <= 2.0 * scale
+    var = 0.7737413 * scale**2  # Var of N(0, 1) truncated to (-2, 2)
+    assert abs(float(x32.mean())) < 0.02 * scale
+    assert abs(float(x32.var()) / var - 1.0) < 0.03
+    # each slice is its own draw: not a copy of the first
+    assert not torch.equal(x[0], x[1])

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs import gemma2_2b as jax_gemma
+from repro.configs import mixtral_8x7b as jax_mixtral
 from repro.configs import qwen2_0_5b as jax_qwen
 from repro.configs.base import DECODE_32K as JAX_DECODE_32K
 from repro.configs.base import PREFILL_32K as JAX_PREFILL_32K
@@ -21,6 +22,7 @@ from repro.models import attention as jax_attention
 from repro.models import model as jax_model
 from repro_torch import compat
 from repro_torch.configs import gemma2_2b as torch_gemma
+from repro_torch.configs import mixtral_8x7b as torch_mixtral
 from repro_torch.configs import qwen2_0_5b as torch_qwen
 from repro_torch.configs.base import DECODE_32K, PREFILL_32K, ShapeConfig
 from repro_torch.launch import serve
@@ -36,7 +38,12 @@ CONFIGS = {
     # prefill the card serves through the wgmma design's 64-key tiles
     "gemma2_d256": (dataclasses.replace(jax_gemma.SMOKE_CONFIG, head_dim=256),
                     dataclasses.replace(torch_gemma.SMOKE_CONFIG, head_dim=256)),
+    # Mixtral-8x7B's smoke model: window-16 attention and 4 experts top-2
+    # (droppless capacity 8.0) on every layer
+    "mixtral": (jax_mixtral.SMOKE_CONFIG, torch_mixtral.SMOKE_CONFIG),
 }
+FULL = {"qwen2": (jax_qwen, torch_qwen), "gemma2": (jax_gemma, torch_gemma),
+        "mixtral": (jax_mixtral, torch_mixtral)}
 
 
 def _params(name, seed=0):
@@ -66,7 +73,9 @@ def _assert_caches_equal(jax_caches, torch_caches):
     [("qwen2", 9, 12),     # global layers only
      ("gemma2", 10, 12),   # the ring buffer wraps during decode (window 16)
      ("gemma2", 20, 6),    # the prompt already fills the window: reordering
-     ("gemma2_d256", 20, 6)],  # the same at head_dim 256
+     ("gemma2_d256", 20, 6),   # the same at head_dim 256
+     ("mixtral", 10, 12),  # MoE; the window-16 ring wraps during decode
+     ("mixtral", 20, 6)],  # MoE; the prompt already fills the ring
 )
 def test_prefill_and_decode_match_jax(name, prompt, steps):
     jcfg, tcfg = CONFIGS[name]
@@ -90,7 +99,7 @@ def test_prefill_and_decode_match_jax(name, prompt, steps):
     _assert_caches_equal(jc, tc)
 
 
-@pytest.mark.parametrize("name", ["qwen2", "gemma2"])
+@pytest.mark.parametrize("name", ["qwen2", "gemma2", "mixtral"])
 def test_decode_equals_teacher_forced_forward(name):
     """In the port alone: prefill + decode steps give the full forward's
     logits at the same positions."""
@@ -189,14 +198,13 @@ def test_chunked_path_is_taken_and_prefill_matches_jax_chunked(monkeypatch):
 
 
 @pytest.mark.parametrize("which", ["smoke", "full"])
-@pytest.mark.parametrize("name", ["qwen2", "gemma2"])
+@pytest.mark.parametrize("name", ["qwen2", "gemma2", "mixtral"])
 def test_serve_artifact_shapes_match_jax(name, which):
     """Parameter, cache and input shapes from the meta device, key for key
     against `jax.eval_shape` of the reference — nothing is allocated."""
     jcfg, tcfg = CONFIGS[name]
     if which == "full":
-        jcfg = {"qwen2": jax_qwen, "gemma2": jax_gemma}[name].CONFIG
-        tcfg = {"qwen2": torch_qwen, "gemma2": torch_gemma}[name].CONFIG
+        jcfg, tcfg = (mod.CONFIG for mod in FULL[name])
     for jshape, tshape in ((JAX_DECODE_32K, DECODE_32K),
                            (JAX_PREFILL_32K, PREFILL_32K)):
         art = serve.build_serve_artifacts(tcfg, tshape, device="cpu")
@@ -239,11 +247,11 @@ def test_serve_artifacts_run_the_loop_on_the_cpu():
     assert torch.is_inference(caches["b1_global"]["k"])
 
 
-def test_decode_step_reads_nothing_back_to_the_host(monkeypatch):
-    """No `.item()`, `int()`, `bool()`, `.tolist()` or `.cpu()` of a tensor
-    inside `decode_step`: on the card each would wait for the device."""
-    _, tcfg = CONFIGS["gemma2"]
-    _, tp = _params("gemma2")
+def _host_reads_in_decode(monkeypatch, name, key):
+    """Tensor reads back to the host during two decode steps of ``name``'s
+    smoke model after an 18-token prompt; asserts ``key``'s cache moved."""
+    _, tcfg = CONFIGS[name]
+    _, tp = _params(name)
     tok = torch.from_numpy(_tokens(tcfg, 6, 2, 20))
     _, caches = model.prefill(tcfg, tp, {"tokens": tok[:, :18]}, max_len=24)
     reads = []
@@ -261,8 +269,20 @@ def test_decode_step_reads_nothing_back_to_the_host(monkeypatch):
         for t in (18, 19):
             model.decode_step(tcfg, tp, caches, tok[:, t:t + 1])
     monkeypatch.undo()
-    assert reads == []
-    assert caches["b0_local"]["pos"].tolist() == [20]
+    assert caches[key]["pos"].tolist() == [20] * tcfg.num_groups
+    return reads
+
+
+def test_decode_step_reads_nothing_back_to_the_host(monkeypatch):
+    """No `.item()`, `int()`, `bool()`, `.tolist()` or `.cpu()` of a tensor
+    inside `decode_step`: on the card each would wait for the device."""
+    assert _host_reads_in_decode(monkeypatch, "gemma2", "b0_local") == []
+
+
+def test_moe_decode_step_reads_nothing_back_to_the_host(monkeypatch):
+    """The same for Mixtral's smoke model: routing, dispatch and combine
+    of the MoE FFN stay on the device (shapes give the capacity)."""
+    assert _host_reads_in_decode(monkeypatch, "mixtral", "b0_swa_moe") == []
 
 
 def test_caches_cross_packages_and_are_checked():
