@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed N] [--steps N] [--seq N] [--profile]
 
 Drives the port's paths at the full width and depth of Qwen2-0.5B (and,
-for serving, of Gemma2-2B, and of Mixtral-8x7B at full width and half its
-depth) on one card, through the entry points a user calls:
+for serving, of Gemma2-2B, xLSTM-125M and MusicGen-large, and at full
+width of Mixtral-8x7B at half its depth, Jamba-1.5-Large at 5 of its 72
+layers and LLaVA-NeXT-34B at 8 of its 60) on one card, through the entry
+points a user calls:
 
 * network pricing — the port's ``net/`` and its float64 torch rollout
   engine price 256 Monte-Carlo rollouts of a 220-agent star in one pass
@@ -38,7 +40,13 @@ depth) on one card, through the entry points a user calls:
   Mixtral-8x7B at full width and 16 of its 32 layers (MoE FFN of 8
   experts top-2 on every layer, head_dim 128, window 4096) with 4 prompts
   of 8192 tokens and 64 greedy tokens, its MoE layer, attention shapes and
-  ``serve_check`` held on the card.
+  ``serve_check`` held on the card; then the recurrent blocks and the
+  frontends: Jamba-1.5-Large's first 5 layers (Mamba, Mamba + MoE of 16
+  experts, NoPE attention at 64 / 8 heads) with 2 prompts of 8192 tokens,
+  xLSTM-125M (mLSTM and sLSTM, no attention) with 8 of 2048, LLaVA-NeXT-34B
+  (576 patch positions and 3520 tokens, 4 requests) and MusicGen-large
+  (multi-head attention at head_dim 64, 8 requests of 1500 codec tokens),
+  each with its attention shapes and ``serve_check``.
 
 First it builds the hand-written kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
@@ -59,7 +67,10 @@ Output: one JSON object per phase (``device``, ``build``,
 ``serve_gemma2``, ``moe_layer_check``, ``mixtral_attention``,
 ``serve_check`` (Mixtral float32 at 2 layers), ``serve_mixtral``,
 ``serve_mixtral_step``, ``serve_check`` (Mixtral bf16 at 16 layers),
-``serve_mixtral_total``,
+``serve_mixtral_total``, then for each of Jamba, xLSTM, LLaVA and
+MusicGen ``served_attention`` (not xLSTM), ``serve_check`` (Jamba float32
+at 2 layers), ``serve_<model>``, ``serve_<model>_step``, ``serve_check``
+and ``serve_<model>_total``,
 ``attention_main_shapes``, ``ffma_times``), then the
 line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
@@ -91,9 +102,18 @@ import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.configs import gemma2_2b, mixtral_8x7b, qwen2_0_5b
+from repro_torch.configs import (
+    gemma2_2b,
+    jamba_1_5_large_398b,
+    llava_next_34b,
+    mixtral_8x7b,
+    musicgen_large,
+    qwen2_0_5b,
+    xlstm_125m,
+)
 from repro_torch.checkpoint import AsyncCheckpointer, restore
 from repro_torch.configs.base import (
+    ATTN_KINDS,
     DECODE_32K,
     MOE_KINDS,
     ShapeConfig,
@@ -121,7 +141,8 @@ from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import fabric, serve, train
 from repro_torch.launch import mesh as launch_mesh
-from repro_torch.models import attention, model, moe
+from repro_torch.models import attention, blocks, model, moe, ssm
+from repro_torch.models.layers import mlp_apply
 from repro_torch.net import (
     MarkovLinkModel,
     StochasticScenario,
@@ -315,6 +336,37 @@ MIXTRAL_SERVE_BATCH = 4
 MIXTRAL_CHECK = (dataclasses.replace(MIXTRAL_CFG, capacity_factor=4.0), 1,
                  4608)
 MIXTRAL_CHECK_FP32_LAYERS = 2
+# Jamba-1.5-Large served at full width: its first 5 of 72 layers (mamba,
+# mamba_moe, mamba, mamba_moe, attn: layers 0-4 of the published stack,
+# attention offset 4, expert offset 1), 48.0 GB in bf16; one period of 8
+# layers holds four MoE layers, about 90 GB. Widths, 16 experts top-2 at
+# capacity 1.25, d_state 16, d_conv 4 and expand 2 as published; the
+# attention layer is NoPE, 64 heads / 8 KV heads, head_dim 128, causal.
+# (batch, prompt, cache depth, greedy tokens).
+JAMBA_CFG = dataclasses.replace(
+    jamba_1_5_large_398b.CONFIG, num_layers=5,
+    block_pattern=jamba_1_5_large_398b.CONFIG.block_pattern[:5])
+JAMBA_SERVE = (2, 8192, 8224, 32)
+# Its serve_check (capacity E / k = 8.0 drops nothing): bf16 at the served 5
+# layers; float32 at layers 3-4 (mamba_moe, attn), about 48 GB of float32
+# weights, the depth that fits beside the check's activations.
+JAMBA_CHECK = (dataclasses.replace(JAMBA_CFG, capacity_factor=8.0), 1, 1024)
+JAMBA_CHECK_FP32 = dataclasses.replace(
+    JAMBA_CHECK[0], num_layers=2, block_pattern=JAMBA_CFG.block_pattern[3:5],
+    param_dtype="float32", compute_dtype="float32")
+# xLSTM-125M whole (12 layers, mLSTM:sLSTM 3:1): 8 prompts of 2048 tokens,
+# 64 greedy tokens; serve_check at 2 x 512 in float32 and bf16.
+XLSTM_SERVE = (8, 2048, 2048 + 64, 64)
+XLSTM_CHECK = (xlstm_125m.CONFIG, 2, 512)
+# LLaVA-NeXT-34B at full width, 8 of its 60 layers: 4 requests of 576 patch
+# positions (drawn from the seed) and 3520 tokens, 32 greedy tokens.
+LLAVA_CFG = dataclasses.replace(llava_next_34b.CONFIG, num_layers=8)
+LLAVA_SERVE = (4, 3520, 576 + 3520 + 32, 32)
+LLAVA_CHECK = (LLAVA_CFG, 1, 1024)
+# MusicGen-large whole (48 layers): 8 requests of 1500 codec tokens (30 s
+# of 50 Hz codes), 64 greedy tokens.
+MUSICGEN_SERVE = (8, 1500, 1500 + 64, 64)
+MUSICGEN_CHECK = (musicgen_large.CONFIG, 2, 512)
 # One MoE layer at full width held on the card: tokens of one request.
 MOE_CHECK_TOKENS = 512
 MOE_ROW_RTOL = 2e-2   # bf16, rtol + MOE_ROW_ATOL x each token row's RMS
@@ -1847,11 +1899,14 @@ def hold(what: str, got, want, scaled: bool) -> dict:
 
 
 def check_flash(what, q, k, v, window=None, softcap=None, requests=None,
-                causal=True):
+                causal=True, row_block=None):
     """Kernel on the whole batch. Plain version on the whole batch at the
     tables' tolerance, or (``requests``, the main path's shapes) request by
-    request on those listed, at the data-scaled limit. Returns (result,
-    kernel output); the result names the design that ran."""
+    request on those listed, at the data-scaled limit; with ``row_block``
+    (causal) each request's plain version is made ``row_block`` query rows
+    at a time, whose float32 logits fit where a whole request's would not.
+    Returns (result, kernel output); the result names the design that
+    ran."""
     before = flash_mod.launch_count_by_design()
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
@@ -1861,10 +1916,18 @@ def check_flash(what, q, k, v, window=None, softcap=None, requests=None,
         slice(i, i + 1) for i in requests]
     held = []
     for r in picked:
-        want = ref.flash_attention_ref(q[r], k[r], v[r], causal=causal,
-                                       window=window, softcap=softcap)
-        held.append(hold(what, got[r], want, scaled=requests is not None))
-        del want
+        if row_block is None:
+            want = ref.flash_attention_ref(q[r], k[r], v[r], causal=causal,
+                                           window=window, softcap=softcap)
+            held.append(hold(what, got[r], want, scaled=requests is not None))
+            del want
+            continue
+        for r0 in range(0, q.shape[2], row_block):
+            rows = slice(r0, r0 + row_block)
+            want = faulty_flash_plain(q[r, :, rows], k[r], v[r], None, r0,
+                                      window, softcap)
+            held.append(hold(what, got[r, :, rows], want, scaled=True))
+            del want
     res = max(held, key=lambda h: h["largest_err_over_limit"])
     res["max_abs_err"] = max(h["max_abs_err"] for h in held)
     res["design"] = ran[0] if len(ran) == 1 else ran
@@ -1904,7 +1967,8 @@ def faulty_flash_plain(q, k, v, fault, row0: int = 0, window=None,
                        softcap=None):
     """The plain flash version (causal, the layer's window and softcap)
     with one fault, for the query rows ``row0 .. row0 + Sq - 1`` that
-    ``q`` holds: ``"head_mod"`` puts query head h on KV head h % KV;
+    ``q`` holds (``fault=None``: the plain version itself on those rows):
+    ``"head_mod"`` puts query head h on KV head h % KV;
     ``"strict_causal"`` excludes the causal diagonal (key j valid for
     query i only when j < i); ``("drop", start, width)`` leaves keys
     ``start`` .. ``start + width - 1`` out (a kernel that skips one tile)."""
@@ -2080,13 +2144,40 @@ def phase_attention_check(seed: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def serve_prompts(cfg, b: int, seed: int) -> torch.Tensor:
-    """``b`` prompts of SERVE_PROMPT tokens of ``cfg``'s vocabulary drawn
-    from ``seed``, on the card."""
+def serve_prompts(cfg, b: int, seed: int,
+                  prompt: int = SERVE_PROMPT) -> torch.Tensor:
+    """``b`` prompts of ``prompt`` tokens of ``cfg``'s vocabulary drawn from
+    ``seed``, on the card."""
     rng = np.random.default_rng(seed)
     return torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (b, SERVE_PROMPT), dtype=np.int32)
+        rng.integers(0, cfg.vocab_size, (b, prompt), dtype=np.int32)
     ).to("cuda")
+
+
+def frontend_inputs(cfg, b: int, seed: int) -> dict:
+    """What a prompt carries besides its tokens: for the VLM, ``b`` x
+    ``num_patches`` patch embeddings N(0, 1) in bf16 (the vision tower's
+    output, which the repo stubs) drawn from ``seed`` on the card;
+    nothing for the others."""
+    if cfg.frontend != "vision_patches":
+        return {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    return {"patch_embeds": torch.randn(
+        (b, cfg.num_patches, cfg.d_model), generator=gen,
+        device="cuda").to(torch.bfloat16)}
+
+
+def attention_layers(cfg) -> int:
+    """Layers of ``cfg`` with an attention mixer: one flash launch each a
+    prefill, one decode launch each a step."""
+    return cfg.num_groups * sum(kind in ATTN_KINDS
+                                for kind in cfg.block_pattern)
+
+
+def launches_by_design(designs, design: str, n: int) -> dict:
+    """The launch counts by design when ``n`` launches all went to
+    ``design``."""
+    return {**dict.fromkeys(designs, 0), **({design: n} if n else {})}
 
 
 def serve_params(cfg, seed: int):
@@ -2099,9 +2190,9 @@ def serve_params(cfg, seed: int):
 def phase_serve_check(seed: int, cfg, b: int, s: int,
                       forms=("float32", "bfloat16"), params=None) -> dict:
     """The serving path end to end on the card: prefill of ``b`` prompts of
-    ``s`` tokens and CHECK_STEPS teacher-forced decode steps of ``cfg``,
-    against ``model.forward`` (torch ops, no kernel) at the same positions,
-    in each of ``forms``:
+    ``s`` tokens (after the VLM's patch positions) and CHECK_STEPS
+    teacher-forced decode steps of ``cfg``, against ``model.forward``
+    (torch ops, no kernel) at the same positions, in each of ``forms``:
 
     * float32 (the config with float32 parameters and compute, so the
       kernels' float32 paths): within the JAX package's own model
@@ -2117,12 +2208,14 @@ def phase_serve_check(seed: int, cfg, b: int, s: int,
       either path's bf16 rounding, and the flipped positions, a few of
       the nine, set the largest error of either path by chance.
 
-    The float32 prefill must run the ``ffma`` flash design once a layer,
-    and each float32 step the ``ffma`` decode design once a layer. Without
-    the float32 form, the float32 forward runs on ``params`` as they are
-    (each weight cast to float32 where it is used: the same values).
-    ``params``: ``cfg``'s parameters (``serve_params`` when None).
-    Returns the attention kernels' launches by design in each run."""
+    The float32 prefill must run the ``ffma`` flash design once an
+    attention layer, and each float32 step the ``ffma`` decode design once
+    an attention layer. Without the float32 form, the float32 forward runs
+    on ``params`` as they are (each weight cast to float32 where it is
+    used: the same values). ``params``: ``cfg``'s parameters
+    (``serve_params`` when None; a float32 ``cfg`` draws them in float32
+    and converts nothing). Returns the attention kernels' launches by
+    design in each run."""
     cfg32 = dataclasses.replace(
         cfg, param_dtype="float32", compute_dtype="float32"
     )
@@ -2132,21 +2225,26 @@ def phase_serve_check(seed: int, cfg, b: int, s: int,
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (b, s + steps), dtype=np.int32)
     ).to("cuda")
+    extra = frontend_inputs(cfg, b, seed + 6)
+    off = cfg.num_patches if extra else 0
+    n_attn = attention_layers(cfg)
     launches = {}
 
     def forward(c, p):
         with torch.inference_mode():
-            want, _ = model.forward(c, p, {"tokens": toks}, remat=False)
-        return want[:, s - 1:s + steps].to(torch.float32, copy=True)
+            want, _ = model.forward(c, p, {"tokens": toks, **extra},
+                                    remat=False)
+        return want[:, off + s - 1:off + s + steps].to(torch.float32,
+                                                       copy=True)
 
     def run(c, p):
         """(serving path's logits, forward's) at positions s-1 .. s+steps-1."""
         art = serve.build_serve_artifacts(
-            c, ShapeConfig("serve_check", s + steps, b, "prefill")
+            c, ShapeConfig("serve_check", off + s + steps, b, "prefill")
         )
         want = forward(c, p)
         ops.reset_launch_count()
-        logits, caches = art.prefill_fn(p, {"tokens": toks[:, :s]})
+        logits, caches = art.prefill_fn(p, {"tokens": toks[:, :s], **extra})
         got = [logits[:, 0]]
         for t in range(steps):
             logits, caches = art.step_fn(p, caches, toks[:, s + t:s + t + 1])
@@ -2155,8 +2253,9 @@ def phase_serve_check(seed: int, cfg, b: int, s: int,
             "flash_attention": flash_mod.launch_count_by_design(),
             "decode_attention": decode_mod.launch_count_by_design(),
         }
-        pos = {key: c_["pos"].tolist() for key, c_ in caches.items()}
-        if any(v != [s + steps] * c.num_groups for v in pos.values()):
+        pos = {key: c_["pos"].tolist() for key, c_ in caches.items()
+               if "pos" in c_}
+        if any(v != [off + s + steps] * c.num_groups for v in pos.values()):
             raise AssertionError(f"serve_check: cache positions {pos}")
         return torch.stack(got, dim=1), want
 
@@ -2165,13 +2264,12 @@ def phase_serve_check(seed: int, cfg, b: int, s: int,
         got32, truth = run(cfg32, tree_map(lambda p: p.to(torch.float32),
                                            params))
         flash32 = launches["float32"]["flash_attention"]
-        if flash32 != {**dict.fromkeys(flash_mod.DESIGNS, 0),
-                       "ffma": cfg.num_layers}:
+        if flash32 != launches_by_design(flash_mod.DESIGNS, "ffma", n_attn):
             raise AssertionError(f"serve_check {cfg.name} float32 prefill: "
                                  f"flash launches {flash32}")
         decode32 = launches["float32"]["decode_attention"]
-        if decode32 != {**dict.fromkeys(decode_mod.DESIGNS, 0),
-                        "ffma": cfg.num_layers * steps}:
+        if decode32 != launches_by_design(decode_mod.DESIGNS, "ffma",
+                                          n_attn * steps):
             raise AssertionError(f"serve_check {cfg.name} float32 decode: "
                                  f"decode launches {decode32}")
         err32 = {
@@ -2217,9 +2315,10 @@ def phase_serve_check(seed: int, cfg, b: int, s: int,
         del got16, want16
     emit(
         "serve_check", config=cfg.name, layers=cfg.num_layers,
+        block_pattern=list(cfg.block_pattern),
         capacity_factor=cfg.capacity_factor if cfg.num_experts else None,
-        batch=b, prompt=s, decode_steps=steps, forms=list(forms),
-        float32_max_abs_err=err32,
+        batch=b, prompt=s, patch_positions=off, decode_steps=steps,
+        forms=list(forms), float32_max_abs_err=err32,
         float32_tolerance={"prefill": 2e-2, "decode": 3e-2},
         bfloat16=bf16, logit_scale=float(truth.abs().mean()),
         launches_by_design=launches,
@@ -2231,32 +2330,37 @@ def phase_serve_check(seed: int, cfg, b: int, s: int,
 
 def phase_serve(seed: int, with_profile: bool = False,
                 cfg=qwen2_0_5b.CONFIG, b: int = SERVE_BATCH,
-                phase: str = "serve", params=None) -> dict:
-    """A serving main path: ``b`` prompts of SERVE_PROMPT tokens of ``cfg``
-    through ``prefill_fn``, then greedy decoding (the first token from
-    prefill's logits, then one ``step_fn`` call per token), as
-    examples/serve_decode.py does. Launch counters are set to 0 just
-    before and read just after; every layer's attention must go through
-    the bf16 designs (``wgmma`` flash, ``mma`` decode). ``with_profile``:
-    one more decode step (into the cache's last slot) under the profiler.
-    ``params``: ``cfg``'s parameters (``serve_params`` when None).
-    Returns the counts: every kernel's launches in the run, flash launches
-    in the prefill (and by design) and decode launches in the first step
-    (and by design), and the host clock's mean decode step after the
-    first."""
-    prompt, max_len = SERVE_PROMPT, SERVE_MAX_LEN
-    steps = SERVE_NEW_TOKENS - 1
+                phase: str = "serve", params=None, prompt: int = SERVE_PROMPT,
+                max_len: int = SERVE_MAX_LEN,
+                new_tokens: int = SERVE_NEW_TOKENS) -> dict:
+    """A serving main path: ``b`` prompts of ``prompt`` tokens of ``cfg``
+    (after the VLM's patch positions, ``frontend_inputs``) through
+    ``prefill_fn`` with caches ``max_len`` deep, then greedy decoding of
+    ``new_tokens`` (the first from prefill's logits, then one ``step_fn``
+    call per token), as examples/serve_decode.py does. Launch counters are
+    set to 0 just before and read just after; every attention layer must go
+    through the bf16 designs (``wgmma`` flash, ``mma`` decode), once a
+    prefill and once a step. ``with_profile``: one more decode step (into
+    the cache's last slot) under the profiler. ``params``: ``cfg``'s
+    parameters (``serve_params`` when None). Returns the counts: every
+    kernel's launches in the run, flash launches in the prefill (and by
+    design) and decode launches in the first step (and by design), the host
+    clock's mean decode step after the first, its profile and the prefill's
+    seconds."""
+    steps = new_tokens - 1
     art = serve.build_serve_artifacts(
         cfg, ShapeConfig(f"{phase}_8k", max_len, b, "prefill")
     )
     params = serve_params(cfg, seed) if params is None else params
-    tokens = serve_prompts(cfg, b, seed)
+    inputs = {"tokens": serve_prompts(cfg, b, seed, prompt),
+              **frontend_inputs(cfg, b, seed)}
+    positions = prompt + (cfg.num_patches if "patch_embeds" in inputs else 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     ops.reset_launch_count()
     t0 = time.perf_counter()
-    logits, caches = art.prefill_fn(params, {"tokens": tokens})
+    logits, caches = art.prefill_fn(params, inputs)
     token = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -2277,24 +2381,28 @@ def phase_serve(seed: int, with_profile: bool = False,
     decode_designs = decode_mod.launch_count_by_design()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    layers = cfg.num_layers
+    layers = attention_layers(cfg)
     if flash_per_prefill != layers:
         raise AssertionError(
             f"prefill launched flash_attention {flash_per_prefill} times, "
-            f"not once per layer ({layers})")
-    want_design = flash_mod.design(torch.bfloat16, cfg.resolved_head_dim)
-    if want_design != "wgmma" or flash_designs != {
-            **dict.fromkeys(flash_mod.DESIGNS, 0), "wgmma": layers}:
+            f"not once per attention layer ({layers})")
+    if layers and flash_mod.design(
+            torch.bfloat16, cfg.resolved_head_dim) != "wgmma":
+        raise AssertionError(f"{cfg.name}'s prefill is not served by wgmma")
+    if flash_designs != launches_by_design(flash_mod.DESIGNS, "wgmma",
+                                           layers):
         raise AssertionError(
             f"prefill's flash_attention launches by design {flash_designs}: "
             f"not all {layers} through wgmma")
     if any(n != layers for n in decode_per_step):
         raise AssertionError(
             f"decode steps launched decode_attention {decode_per_step} "
-            f"times, not once per layer ({layers})")
-    want_design = decode_mod.design(torch.bfloat16, cfg.resolved_head_dim)
-    if want_design != "mma" or decode_designs != {
-            **dict.fromkeys(decode_mod.DESIGNS, 0), "mma": layers * steps}:
+            f"times, not once per attention layer ({layers})")
+    if layers and decode_mod.design(
+            torch.bfloat16, cfg.resolved_head_dim) != "mma":
+        raise AssertionError(f"{cfg.name}'s decode is not served by mma")
+    if decode_designs != launches_by_design(decode_mod.DESIGNS, "mma",
+                                            layers * steps):
         raise AssertionError(
             f"decode's launches by design {decode_designs}: not all "
             f"{layers * steps} through mma")
@@ -2303,12 +2411,12 @@ def phase_serve(seed: int, with_profile: bool = False,
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite decode logits")
     out = torch.cat(generated, dim=1)
-    if out.shape != (b, SERVE_NEW_TOKENS) or not bool(
+    if out.shape != (b, new_tokens) or not bool(
         ((out >= 0) & (out < cfg.vocab_size)).all()
     ):
         raise AssertionError(f"bad generated tokens {tuple(out.shape)}")
-    pos = {key: c["pos"].tolist() for key, c in caches.items()}
-    if any(p != [prompt + steps] * cfg.num_groups for p in pos.values()):
+    pos = {key: c["pos"].tolist() for key, c in caches.items() if "pos" in c}
+    if any(p != [positions + steps] * cfg.num_groups for p in pos.values()):
         raise AssertionError(f"cache positions after decoding: {pos}")
     cache_gb = sum(t.numel() * t.element_size()
                    for c in caches.values() for t in c.values()) / 1e9
@@ -2318,9 +2426,10 @@ def phase_serve(seed: int, with_profile: bool = False,
         if with_profile else None
     )
     emit(
-        phase, config=cfg.name, batch=b, prompt=prompt, max_len=max_len,
-        new_tokens=SERVE_NEW_TOKENS, prefill_seconds=prefill_s,
-        prefill_tokens_per_s=b * prompt / prefill_s,
+        phase, config=cfg.name, layers=cfg.num_layers, batch=b,
+        prompt=prompt, prompt_positions=positions, max_len=max_len,
+        new_tokens=new_tokens, prefill_seconds=prefill_s,
+        prefill_tokens_per_s=b * positions / prefill_s,
         decode_step_ms=step_ms,
         decode_step_ms_mean_after_first=float(np.mean(step_ms[1:])),
         decode_tokens_per_s=b * steps / decode_s,
@@ -2337,7 +2446,9 @@ def phase_serve(seed: int, with_profile: bool = False,
             "flash_by_design": flash_designs,
             "decode_per_step": decode_per_step[0],
             "decode_by_design": decode_designs,
-            "decode_step_ms_mean_after_first": float(np.mean(step_ms[1:]))}
+            "decode_step_ms_mean_after_first": float(np.mean(step_ms[1:])),
+            "prefill_seconds": prefill_s, "peak_memory_gb": peak_gb,
+            "profile": profiled}
 
 
 def phase_serve_gemma2(seed: int) -> dict:
@@ -2500,8 +2611,8 @@ def decode_step_bytes(cfg, params, caches, b: int) -> dict:
     """Bytes one decode step must move at least: every block weight once
     (the vectorized dispatch multiplies every expert's weights each step,
     whatever the routing), the final norm and the LM head's table, ``b``
-    rows of the embedding, the caches' K/V (full rings here), read once;
-    and the expert weights alone."""
+    rows of the embedding, every cache tensor (K/V at their full depth,
+    the recurrent states) read once; and the expert weights alone."""
     leaf_bytes = {path: t.numel() * t.element_size()
                   for path, t in tree_paths(params)}
     table = "embed/table" if cfg.tie_embeddings else "unembed/table"
@@ -2509,8 +2620,8 @@ def decode_step_bytes(cfg, params, caches, b: int) -> dict:
     total = (sum(v for p, v in leaf_bytes.items() if p.startswith("blocks/"))
              + leaf_bytes["final_norm/scale"] + leaf_bytes[table]
              + b * embed_row.numel() * embed_row.element_size()
-             + sum(c[kv].numel() * c[kv].element_size()
-                   for c in caches.values() for kv in ("k", "v")))
+             + sum(t.numel() * t.element_size()
+                   for c in caches.values() for t in c.values()))
     experts = sum(v for p, v in leaf_bytes.items()
                   if p.rsplit("/", 1)[-1] in ("gate", "up", "down")
                   and "/ffn/" in p)
@@ -2602,24 +2713,251 @@ def phase_serve_mixtral(seed: int, with_profile: bool = False) -> dict:
     emit("moe_layer_check", **layer)
     kernels = mixtral_attention_kernels(seed)
     check_cfg, b, s = MIXTRAL_CHECK
-    checks = {"float32": phase_serve_check(
+    checks = phase_serve_check(
         seed, dataclasses.replace(check_cfg,
                                   num_layers=MIXTRAL_CHECK_FP32_LAYERS),
-        b, s, forms=("float32",))}
+        b, s, forms=("float32",))
     params = serve_params(MIXTRAL_CFG, seed)
     run = phase_serve(seed, with_profile, cfg=MIXTRAL_CFG,
                       b=MIXTRAL_SERVE_BATCH, phase="serve_mixtral",
                       params=params)
     step = mixtral_step_and_drops(
         params, seed, run["decode_step_ms_mean_after_first"])
-    checks["bfloat16"] = phase_serve_check(seed, check_cfg, b, s,
-                                           forms=("bfloat16",), params=params)
+    checks.update(phase_serve_check(seed, check_cfg, b, s,
+                                    forms=("bfloat16",), params=params))
     del params
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
     emit("serve_mixtral_total", seconds=seconds)
     return {**run, **step, "kernels": kernels, "moe_layer": layer,
             "serve_checks": checks, "seconds": seconds}
+
+
+def served_attention_kernels(seed: int, name: str, cfg, b: int, s: int,
+                             depth: int) -> dict:
+    """Both attention kernels at a served model's shapes (bf16, causal, no
+    window): flash at its prefill layer, q ``[b, H, s, D]``, held against
+    its plain version on the first and the last request at the data-scaled
+    limit (``hold_flash_layer``, the plain version 4096 query rows at a
+    time, its controls refused, a key tile left out among them), timed
+    beside its bound, the plain version (request by request) and SDPA
+    (flash backend, ``enable_gqa``), itself held to the kernel's output;
+    decode at its served step against the cache ``[b, KV, depth, D]`` full
+    (``hold_decode_step``: ``length - 1`` and a dropped tile refused; kernel
+    and SDPA replayed from a CUDA graph)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    bf16 = torch.bfloat16
+    q, k, v = attn_inputs(gen, b, h, kv, s, s, d, bf16)
+    bn = flash_mod.wgmma_tile(d).bn
+    res, refused = hold_flash_layer(
+        f"flash {name} prefill layer q={list(q.shape)} k={list(k.shape)} "
+        "bf16", q, k, v, requests=(0, b - 1), drop_tile=s * 3 // 4 // bn * bn,
+        tile=bn, row_block=4096)
+    if res["design"] != "wgmma":
+        raise AssertionError(f"{res['case']} ran {res['design']}")
+    timed = time_flash_layer(q, k, v)
+
+    def plain_by_request():
+        for i in range(b):
+            for r0 in range(0, s, 4096):
+                faulty_flash_plain(q[i:i + 1, :, r0:r0 + 4096], k[i:i + 1],
+                                   v[i:i + 1], None, r0)
+
+    plain_ms = time_cuda(plain_by_request, reps=1, warmup=0)
+    lib_held = hold("SDPA (flash, enable_gqa) vs the flash kernel",
+                    library_attention(q, k, v, True), ops.flash_attention(
+                        q, k, v), scaled=True)
+    lib_ms = time_cuda(lambda: library_attention(q, k, v, True),
+                       reps=TIMING_REPS)
+    flash = {
+        "case": f"{name} prefill layer (causal)", "q": list(q.shape),
+        "k": list(k.shape), "design": res["design"],
+        "max_abs_err": res["max_abs_err"],
+        "largest_err_over_limit": res["largest_err_over_limit"],
+        **timed, "plain_ms": plain_ms,
+        "plain_note": f"plain version run request by request, 4096 query "
+                      f"rows at a time, {b} requests",
+        "library_ms": lib_ms, "ms_over_library_ms": timed["ms"] / lib_ms,
+        "library_call": "scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), flash backend",
+        "library_vs_kernel_max_abs_err": lib_held["max_abs_err"],
+    }
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = attn_inputs(gen, b, h, kv, 1, depth, d, bf16)
+    _, refusals, decode = hold_decode_step(
+        f"{name} served step (cache {depth} deep, full)", q, k, v, depth,
+        decode_mod.tile_slots(bf16, d))
+    refused += refusals
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit("served_attention", config=name, flash=flash, decode=decode,
+         refused=refused)
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def decode_step_bound(cfg, params, caches, b: int, step_ms: float) -> dict:
+    """A decode step's byte bound (``decode_step_bytes`` at 3.35 TB/s) and
+    the share of it that ``step_ms`` (the host clock's) reaches."""
+    moved = decode_step_bytes(cfg, params, caches, b)
+    bound = moved["bytes"] / PEAK_BYTES_PER_S * 1e3
+    return {"decode_step_bytes": moved["bytes"],
+            "decode_step_expert_bytes": moved["expert_bytes"],
+            "decode_step_bound_ms": bound, "decode_step_bound_by": "bytes",
+            "decode_step_share_of_bound_host": bound / step_ms}
+
+
+def serve_model(seed: int, phase: str, cfg, served, check, kernels=None,
+                check_fp32=None, with_profile: bool = False,
+                forms=("bfloat16",), layer_times=None) -> dict:
+    """One model of the zoo on the card: its attention kernels at the
+    served shapes (``kernels``: (flash's sequence, decode's depth)) and a
+    float32 ``serve_check`` (``check_fp32``: (cfg, b, s), float32
+    parameters drawn as such) before its parameters are drawn; then the
+    served run (``served``: batch, prompt, cache depth, new tokens) with a
+    decode step's byte bound (its caches' shapes at full depth), and
+    ``serve_check`` (``check``: (cfg, b, s) in ``forms``) on the served
+    run's parameters; ``layer_times(params)``, when given, between the
+    two."""
+    t0 = time.perf_counter()
+    b, prompt, max_len, new_tokens = served
+    out = {"kernels": None, "serve_checks": {}}
+    if kernels is not None:
+        out["kernels"] = served_attention_kernels(seed, cfg.name, cfg, b,
+                                                  *kernels)
+    if check_fp32 is not None:
+        out["serve_checks"].update(phase_serve_check(
+            seed, *check_fp32, forms=("float32",)))
+    params = serve_params(cfg, seed)
+    run = phase_serve(seed, with_profile, cfg=cfg, b=b, phase=phase,
+                      params=params, prompt=prompt, max_len=max_len,
+                      new_tokens=new_tokens)
+    art = serve.build_serve_artifacts(
+        cfg, ShapeConfig(phase, max_len, b, "prefill"), device="cuda")
+    bound = decode_step_bound(cfg, params, art.cache_shapes, b,
+                              run["decode_step_ms_mean_after_first"])
+    if run["profile"] is not None:
+        bound["decode_step_share_of_bound_device_busy"] = (
+            bound["decode_step_bound_ms"] / run["profile"]["device_busy_ms"])
+    emit(f"{phase}_step", **bound)
+    if layer_times is not None:
+        out["layer_times"] = layer_times(params)
+        emit(f"{phase}_layer_times", **out["layer_times"])
+    check_cfg, cb, cs = check
+    out["serve_checks"].update(phase_serve_check(
+        seed, check_cfg, cb, cs, forms=forms, params=params))
+    del params
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit(f"{phase}_total", seconds=seconds)
+    return {**run, **bound, **out, "seconds": seconds}
+
+
+def phase_serve_jamba(seed: int) -> dict:
+    """Jamba-1.5-Large (JAMBA_CFG: its first 5 layers at full width) on
+    one card: both attention kernels at its shapes (q ``[2, 64, 8192, 128]``
+    causal NoPE; decode at group 8 over the 8224-deep cache); the float32
+    ``serve_check`` at layers 3-4 (the ``ffma`` designs at group 8, D =
+    128); the served run, 2 prompts of 8192 tokens and 32 greedy tokens,
+    1 ``wgmma`` flash launch a prefill and 1 ``mma`` decode launch a step
+    asserted, one more step under the profiler (the device's time: a
+    graph replay would write past the cache); the bf16 ``serve_check`` at
+    the served 5 layers at capacity 8.0."""
+    _, prompt, max_len, _ = JAMBA_SERVE
+    return serve_model(
+        seed, "serve_jamba", JAMBA_CFG, JAMBA_SERVE, JAMBA_CHECK,
+        kernels=(prompt, max_len),
+        check_fp32=(JAMBA_CHECK_FP32, JAMBA_CHECK[1], JAMBA_CHECK[2]),
+        with_profile=True,
+        layer_times=lambda params: jamba_layer_times(params, seed))
+
+
+def jamba_layer_times(params, seed: int) -> dict:
+    """Where Jamba's prefill goes, by block part, at the served prompt (2 x
+    8192 tokens of N(0, 1) activations in bf16) on the served weights: the
+    Mamba mixer of layer 0 (``ssm.mamba_prefill``: projections, conv,
+    gates and the chunked scan's loop of 8192 steps), the MoE FFN of layer
+    1 (``moe.apply``, capacity 1.25) and the dense FFN of layer 0; each by
+    CUDA events over 2 calls after a warm-up, and the Mamba mixer also on
+    the host clock (its loop issues one launch a step)."""
+    cfg, bf16 = JAMBA_CFG, torch.bfloat16
+    b, s = JAMBA_SERVE[:2]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(bf16)
+    layer0 = tree_map(lambda t: t[0], params["blocks"]["b0_mamba"])
+    moe1 = tree_map(lambda t: t[0], params["blocks"]["b1_mamba_moe"]["ffn"])
+    spec = blocks._mamba_spec(cfg)
+    with torch.inference_mode():
+        mixer = lambda: ssm.mamba_prefill(layer0["mixer"], x, spec, bf16)
+        mixer_ms = time_cuda(mixer, reps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mixer()
+        torch.cuda.synchronize()
+        mixer_host_ms = (time.perf_counter() - t0) * 1e3
+        out = {
+            "tokens": b * s,
+            "mamba_mixer_ms": mixer_ms,
+            "mamba_mixer_host_ms": mixer_host_ms,
+            "mamba_scan_steps": s,
+            "moe_ffn_ms": time_cuda(lambda: moe.apply(
+                moe1, x, blocks._moe_spec(cfg), bf16, False), reps=2),
+            "dense_ffn_ms": time_cuda(lambda: mlp_apply(
+                layer0["ffn"], x, bf16), reps=2),
+        }
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_xlstm(seed: int) -> dict:
+    """xLSTM-125M whole on one card: 8 prompts of 2048 tokens and 64 greedy
+    tokens through mLSTM's parallel form and sLSTM's loop, no attention and
+    so no kernel launch asserted; ``serve_check`` in float32 and bf16."""
+    return serve_model(seed, "serve_xlstm", xlstm_125m.CONFIG, XLSTM_SERVE,
+                       XLSTM_CHECK, forms=("float32", "bfloat16"))
+
+
+def phase_serve_llava(seed: int) -> dict:
+    """LLaVA-NeXT-34B at full width and 8 of its 60 layers: both kernels at
+    its shapes (q ``[4, 56, 4096, 128]``, group 7, decode rounded to 8),
+    then 4 requests of 576 patch positions and 3520 tokens, 32 greedy
+    tokens, 8 + 8 launches asserted; bf16 ``serve_check`` with patches."""
+    _, prompt, max_len, _ = LLAVA_SERVE
+    positions = LLAVA_CFG.num_patches + prompt
+    return serve_model(seed, "serve_llava", LLAVA_CFG, LLAVA_SERVE,
+                       LLAVA_CHECK, kernels=(positions, max_len))
+
+
+def phase_serve_musicgen(seed: int) -> dict:
+    """MusicGen-large whole (48 layers, multi-head attention at D = 64):
+    both kernels at its shapes (q ``[8, 32, 1500, 64]``, group 1, decode
+    rounded to 2), then 8 requests of 1500 codec tokens and 64 greedy
+    tokens, 48 + 48 launches asserted; bf16 ``serve_check``."""
+    _, prompt, max_len, _ = MUSICGEN_SERVE
+    return serve_model(seed, "serve_musicgen", musicgen_large.CONFIG,
+                       MUSICGEN_SERVE, MUSICGEN_CHECK,
+                       kernels=(prompt, max_len))
+
+
+def add_served(flash: dict, decode: dict, key: str, run: dict) -> None:
+    """A served model's run (``phase_serve_mixtral``, ``serve_model``) into
+    the attention kernels' entries of the kernels line, under ``key``: its
+    shapes, its served run's launches (by prefill, step and design) and its
+    ``serve_check`` runs' launches by design."""
+    for kernel in (flash, decode):
+        name = kernel["name"]
+        if run["kernels"] is not None:
+            kernel["shapes"].append(run["kernels"][name])
+        kernel[f"launches_{key}"] = run["launches"][name]
+        kernel[f"launches_{key}_serve_checks"] = {
+            form: by_kernel[name]
+            for form, by_kernel in run["serve_checks"].items()}
+    flash[f"launches_{key}_per_prefill"] = run["flash_per_prefill"]
+    flash[f"launches_{key}_by_design"] = run["flash_by_design"]
+    decode[f"launches_{key}_per_step"] = run["decode_per_step"]
+    decode[f"launches_{key}_by_design"] = run["decode_by_design"]
 
 
 # ---------------------------------------------------------------------------
@@ -2916,18 +3254,22 @@ def decode_ffma_times(seed: int) -> list[dict]:
 
 def hold_flash_layer(what, q, k, v, requests, window=None, softcap=None,
                      drop_tile: int | None = None,
-                     tile: int = WGMMA_D256_TILE):
+                     tile: int = WGMMA_D256_TILE, row_block=None):
     """A main-path flash layer against its plain version (``check_flash``:
     on ``requests`` at the data-scaled limit, or with ``requests=None`` on
     the whole batch at the tables' tolerance), and the faulty plain
     versions that limit must refuse on request 0's later half of query
     rows (each keeps the layer's window and softcap): ``kv = h % KV``, the
     causal diagonal excluded and, with ``drop_tile``, keys ``drop_tile`` ..
-    ``drop_tile + tile - 1`` left out. Returns (result, refusals)."""
-    res, got = check_flash(what, q, k, v, window, softcap, requests=requests)
+    ``drop_tile + tile - 1`` left out; without GQA (H = KV, where ``kv =
+    h % KV`` is no fault) only the other two. ``row_block``: as
+    ``check_flash``. Returns (result, refusals)."""
+    res, got = check_flash(what, q, k, v, window, softcap, requests=requests,
+                           row_block=row_block)
     row0 = q.shape[2] // 2
-    faults = [("kv = h % KV", "head_mod"),
-              ("the causal diagonal excluded", "strict_causal")]
+    faults = [("the causal diagonal excluded", "strict_causal")]
+    if q.shape[1] != k.shape[1]:
+        faults.insert(0, ("kv = h % KV", "head_mod"))
     if drop_tile is not None:
         faults.append((f"keys {drop_tile} .. {drop_tile + tile - 1}"
                        " left out (one key tile)", ("drop", drop_tile, tile)))
@@ -3187,24 +3529,6 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
     return [flash, decode]
 
 
-def add_mixtral(flash: dict, decode: dict, run: dict) -> None:
-    """``phase_serve_mixtral``'s results into the attention kernels'
-    entries of the kernels line: its shapes, its served run's launches
-    (by prefill, step and design) and its two ``serve_check`` runs'
-    launches by design."""
-    for kernel in (flash, decode):
-        name = kernel["name"]
-        kernel["shapes"].append(run["kernels"][name])
-        kernel["launches_serve_mixtral"] = run["launches"][name]
-        kernel["launches_serve_mixtral_serve_checks"] = {
-            form: by_dtype[form][name]
-            for form, by_dtype in run["serve_checks"].items()}
-    flash["launches_serve_mixtral_per_prefill"] = run["flash_per_prefill"]
-    flash["launches_serve_mixtral_by_design"] = run["flash_by_design"]
-    decode["launches_serve_mixtral_per_step"] = run["decode_per_step"]
-    decode["launches_serve_mixtral_by_design"] = run["decode_by_design"]
-
-
 def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
     """The float32 ``ffma`` designs of both attention kernels at the float32
     ``serve_check`` shapes (SERVE_CHECKS): each config's prefill layers
@@ -3382,8 +3706,13 @@ def main(argv=None) -> int:
     serve_run = phase_serve(args.seed, args.profile)
     gemma2_run = phase_serve_gemma2(args.seed)
     mixtral_run = phase_serve_mixtral(args.seed, args.profile)
+    served = {"serve_jamba": phase_serve_jamba(args.seed),
+              "serve_xlstm": phase_serve_xlstm(args.seed),
+              "serve_llava": phase_serve_llava(args.seed),
+              "serve_musicgen": phase_serve_musicgen(args.seed)}
     kernels += phase_attention_kernels(args.seed, serve_run, gemma2_run)
-    add_mixtral(kernels[1], kernels[2], mixtral_run)
+    for key, run in {"serve_mixtral": mixtral_run, **served}.items():
+        add_served(kernels[1], kernels[2], key, run)
     ffma = phase_ffma_times(args.seed, checks)
     kernels[1]["ffma"] = ffma["flash_attention"]
     kernels[2]["ffma"] = ffma["decode_attention"]

@@ -10,11 +10,15 @@ one card's serving loop and the shapes of what they take, read from the
   step_fn(params, caches, token)   -> (logits [B, 1, V], caches)
 
 ``shape.global_batch`` is the batch and ``shape.seq_len`` the depth of the
-caches (``max_len``); a prompt may be shorter than that. Both functions
-run under ``torch.inference_mode()``; ``step_fn`` writes the caches in
-place and returns the same dict. Attention goes through the hand-written
+caches (``max_len``); a prompt may be shorter than that. The frontends are
+the reference's: ``audio_codec`` takes codec token ids as ``tokens``;
+``vision_patches`` takes ``tokens [B, seq_len - num_patches]`` and
+``patch_embeds [B, num_patches, d_model]``, which fill the first
+``num_patches`` positions. Both functions run under
+``torch.inference_mode()``; ``step_fn`` writes the caches in place and
+returns the same dict. Attention goes through the hand-written
 ``flash_attention`` (prefill) and ``decode_attention`` (decode) kernels on
-the card.
+the card; the recurrent blocks' state is torch ops.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ class ServeArtifacts:
     step_fn: Callable      # (params, caches, token) -> (logits, caches)
     param_shapes: Any      # tree of meta tensors
     cache_shapes: Any      # tree of meta tensors
-    input_shapes: Any      # {"tokens": meta [B, S]} or meta token [B, 1]
+    input_shapes: Any      # {"tokens": meta [B, S], ...} or meta token [B, 1]
 
 
 def build_serve_artifacts(
@@ -48,25 +52,30 @@ def build_serve_artifacts(
     the prompt for a ``prefill`` shape and one token per sequence for a
     ``decode`` shape."""
     dev = compat.resolve_device(device)
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"the {cfg.frontend!r} frontend is not ported yet (ROADMAP queue A)"
-        )
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device("meta")
     param_shapes = model.init(cfg, 0, device=meta)
     cache_shapes = model.init_caches(cfg, b, s, device=meta)
+    vision = cfg.frontend == "vision_patches"
     if shape.kind == "decode":
         input_shapes = torch.empty((b, 1), dtype=torch.int32, device=meta)
+    elif vision:
+        input_shapes = {
+            "tokens": torch.empty((b, s - cfg.num_patches), dtype=torch.int32,
+                                  device=meta),
+            "patch_embeds": torch.empty((b, cfg.num_patches, cfg.d_model),
+                                        dtype=torch.bfloat16, device=meta),
+        }
     else:
         input_shapes = {
             "tokens": torch.empty((b, s), dtype=torch.int32, device=meta)
         }
+    input_keys = ("tokens", "patch_embeds") if vision else ("tokens",)
 
     def prefill_fn(params, inputs):
         with torch.inference_mode():
-            tokens = inputs["tokens"].to(dev)
-            return model.prefill(cfg, params, {"tokens": tokens}, max_len=s)
+            moved = {key: inputs[key].to(dev) for key in input_keys}
+            return model.prefill(cfg, params, moved, max_len=s)
 
     def step_fn(params, caches, token):
         with torch.inference_mode():

@@ -43,24 +43,34 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 class TrainArtifacts:
     step_fn: Callable          # (state, batch) -> (state, metrics)
     state_shapes: Any          # meta tensors (stacked agents); "step": 0
-    batch_shapes: Any          # {"tokens": meta int32 [A, k, mb, S+1]}
+    batch_shapes: Any          # {"tokens": meta int32 [A, k, mb, S+1], ...}
     num_agents: int
     mixing_matrix: np.ndarray | None
     gossip: str                # resolved mode: none/allreduce/dense/sparse
     init_state: Callable[[int], Any]  # seed -> concrete state on device
 
 
-def _batch_shapes(shape: ShapeConfig, num_agents: int, microbatch: int) -> dict:
+def _batch_shapes(
+    cfg: ModelConfig, shape: ShapeConfig, num_agents: int, microbatch: int
+) -> dict:
+    """The reference's batch: ``tokens [A, k, mb, S + 1]``; for the VLM
+    ``tokens [A, k, mb, S - num_patches + 1]`` and ``patch_embeds [A, k, mb,
+    num_patches, d_model]`` (the patches fill the first positions)."""
     per_agent = shape.global_batch // max(num_agents, 1)
     k = max(microbatch, 1)
     if per_agent % k != 0:
         k = 1
     mb = per_agent // k
+    lead = (num_agents, k, mb)
+    if cfg.frontend != "vision_patches":
+        return {"tokens": torch.empty((*lead, shape.seq_len + 1),
+                                      dtype=torch.int32, device="meta")}
+    text = shape.seq_len - cfg.num_patches
     return {
-        "tokens": torch.empty(
-            (num_agents, k, mb, shape.seq_len + 1), dtype=torch.int32,
-            device="meta",
-        )
+        "tokens": torch.empty((*lead, text + 1), dtype=torch.int32,
+                              device="meta"),
+        "patch_embeds": torch.empty((*lead, cfg.num_patches, cfg.d_model),
+                                    dtype=torch.bfloat16, device="meta"),
     }
 
 
@@ -114,10 +124,6 @@ def build_train_artifacts(
     ``learning_rate(step)`` is a host function (``optim.schedule``).
     """
     dev = compat.resolve_device(device)
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"the {cfg.frontend!r} frontend is not ported yet (ROADMAP queue A)"
-        )
     m = mesh_lib.num_agents(mesh, tcfg.agent_layout)
     if mixing_matrix is not None and mixing_matrix.shape[0] != m:
         raise ValueError(
@@ -138,8 +144,7 @@ def build_train_artifacts(
         """Per-agent mean losses ``[A]`` and gradients accumulated over the
         k microbatches (``a + g.f32 / k``), stacked like ``params``."""
         leaves = tree_leaves(params)
-        tokens = batch["tokens"]
-        n_agents, k = tokens.shape[0], tokens.shape[1]
+        n_agents, k = batch["tokens"].shape[:2]
         grads = [
             torch.empty(p.shape, dtype=grad_dtype, device=p.device)
             for p in leaves
@@ -152,7 +157,7 @@ def build_train_artifacts(
             loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(k):
                 loss, _ = model.loss(
-                    cfg, tree_a, {"tokens": tokens[a, i]},
+                    cfg, tree_a, {key: v[a, i] for key, v in batch.items()},
                     moe_aux_weight=tcfg.moe_aux_weight,
                     router_z_weight=tcfg.router_z_weight, remat=remat,
                 )
@@ -203,7 +208,7 @@ def build_train_artifacts(
     return TrainArtifacts(
         step_fn=step_fn,
         state_shapes=_stacked_state_shapes(cfg, m),
-        batch_shapes=_batch_shapes(shape, m, tcfg.microbatch),
+        batch_shapes=_batch_shapes(cfg, shape, m, tcfg.microbatch),
         num_agents=m,
         mixing_matrix=w_arr,
         gossip=mode,

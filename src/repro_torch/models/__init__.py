@@ -1,1 +1,2 @@
-"""The decoder model the agents train: layers → attention → blocks → model."""
+"""The decoder model the agents train: layers → attention / moe / ssm →
+blocks → model."""

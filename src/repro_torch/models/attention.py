@@ -175,13 +175,14 @@ def apply_train(
     )
 
 
-def init_cache(batch: int, max_len: int, spec: AttnSpec, dtype, device) -> dict:
+def init_cache(batch: int, max_len: int, spec: AttnSpec, dtype, device,
+               lead=()) -> dict:
     s_cache = min(max_len, spec.window) if spec.window else max_len
-    shape = (batch, s_cache, spec.num_kv_heads, spec.head_dim)
+    shape = (*lead, batch, s_cache, spec.num_kv_heads, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "pos": torch.zeros(lead, dtype=torch.int32, device=device),
     }
 
 

@@ -1,8 +1,11 @@
 """Per-kind residual blocks with one (init / train / serve) API.
 
-Counterpart of the JAX package's ``models/blocks.py`` for the attention
-kinds, with a dense FFN (``attn``, ``swa``, ``local``, ``global``) or the
-MoE FFN of ``models/moe.py`` (``attn_moe``, ``swa_moe``):
+Counterpart of the JAX package's ``models/blocks.py``, every kind: the
+attention kinds with a dense FFN (``attn``, ``swa``, ``local``,
+``global``) or the MoE FFN of ``models/moe.py`` (``attn_moe``,
+``swa_moe``); the Mamba mixer of ``models/ssm.py`` with a dense FFN
+(``mamba``) or the MoE FFN (``mamba_moe``); and xLSTM's ``mlstm`` and
+``slstm``, which have no FFN and no ``norm2``:
 
   init(generator, cfg, kind, device)            -> params
   apply_train(params, x, cfg, kind)             -> (x, aux_losses)
@@ -10,9 +13,9 @@ MoE FFN of ``models/moe.py`` (``attn_moe``, ``swa_moe``):
   apply_decode(params, x, cache, cfg, kind)     -> (x, cache)   (in place)
   prefill(params, x, cfg, kind, max_len, cache) -> (x, cache)
 
-The recurrent kinds (Mamba, ``mamba_moe``, xLSTM) raise
-``NotImplementedError`` until ``models/ssm.py`` is ported (ROADMAP queue
-A, "SSM blocks").
+A recurrent kind's cache is its mixer's state (``conv``, ``ssm``; ``c``,
+``n``, ``m``; ``c``, ``n``, ``h``, ``m``), written in place by
+``apply_decode`` and ``prefill`` as the attention caches are.
 """
 
 from __future__ import annotations
@@ -20,18 +23,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import compat
-from repro_torch.configs.base import MOE_KINDS, ModelConfig
-from repro_torch.models import attention, layers, moe
-
-PORTED_KINDS = ("attn", "attn_moe", "swa", "swa_moe", "local", "global")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP queue A, "
-            f"'SSM blocks'); ported kinds: {PORTED_KINDS}"
-        )
+from repro_torch.configs.base import ATTN_KINDS, MOE_KINDS, ModelConfig
+from repro_torch.models import attention, layers, moe, ssm
 
 
 def _attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
@@ -50,6 +43,15 @@ def _attn_spec(cfg: ModelConfig, kind: str) -> attention.AttnSpec:
     )
 
 
+def _mamba_spec(cfg: ModelConfig) -> ssm.MambaSpec:
+    return ssm.MambaSpec(
+        d_model=cfg.d_model,
+        d_state=cfg.ssm_state_dim,
+        d_conv=cfg.ssm_conv_dim,
+        expand=cfg.ssm_expand,
+    )
+
+
 def _moe_spec(cfg: ModelConfig) -> moe.MoESpec:
     return moe.MoESpec(
         d_model=cfg.d_model,
@@ -64,6 +66,27 @@ def _dtype(cfg: ModelConfig):
     return compat.dtype_of(cfg.param_dtype), compat.dtype_of(cfg.compute_dtype)
 
 
+def _has_ffn(kind: str) -> bool:
+    return kind not in ("mlstm", "slstm")
+
+
+def _recurrent(cfg: ModelConfig, kind: str):
+    """(the ``ssm`` mixer's name, its spec) of a recurrent kind."""
+    if kind in ("mamba", "mamba_moe"):
+        return "mamba", _mamba_spec(cfg)
+    if kind == "mlstm":
+        return "mlstm", ssm.MLSTMSpec(cfg.d_model, cfg.mlstm_heads)
+    if kind == "slstm":
+        return "slstm", ssm.SLSTMSpec(cfg.d_model, cfg.mlstm_heads)
+    raise ValueError(kind)
+
+
+def _mixer_fn(cfg: ModelConfig, kind: str, form: str):
+    """``ssm.<mixer>_<form>`` of a recurrent kind, and its spec."""
+    name, spec = _recurrent(cfg, kind)
+    return getattr(ssm, f"{name}_{form}"), spec
+
+
 def no_aux(device) -> dict:
     return {
         "load_balance_loss": torch.zeros((), dtype=torch.float32, device=device),
@@ -72,39 +95,45 @@ def no_aux(device) -> dict:
 
 
 def init(generator, cfg: ModelConfig, kind: str, device, lead=()) -> dict:
-    _check_kind(kind)
     pdt, _ = _dtype(cfg)
-    return {
-        "norm1": layers.rmsnorm_init(cfg.d_model, pdt, device, lead),
-        "mixer": attention.init(
-            generator, _attn_spec(cfg, kind), pdt, device, lead
-        ),
-        "norm2": layers.rmsnorm_init(cfg.d_model, pdt, device, lead),
-        "ffn": (
+    p: dict = {"norm1": layers.rmsnorm_init(cfg.d_model, pdt, device, lead)}
+    if kind in ATTN_KINDS:
+        p["mixer"] = attention.init(
+            generator, _attn_spec(cfg, kind), pdt, device, lead)
+    else:
+        fn, spec = _mixer_fn(cfg, kind, "init")
+        p["mixer"] = fn(generator, spec, pdt, device, lead)
+    if _has_ffn(kind):
+        p["norm2"] = layers.rmsnorm_init(cfg.d_model, pdt, device, lead)
+        p["ffn"] = (
             moe.init(generator, _moe_spec(cfg), pdt, device, lead)
             if kind in MOE_KINDS
             else layers.mlp_init(
                 generator, cfg.d_model, cfg.d_ff, pdt, device, lead
             )
-        ),
-    }
+        )
+    return p
 
 
 def apply_train(params, x, cfg: ModelConfig, kind: str):
-    _check_kind(kind)
     _, cdt = _dtype(cfg)
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps, cdt)
-    x = x + attention.apply_train(
-        params["mixer"], h, _attn_spec(cfg, kind), cdt
-    )
-    x, aux = _ffn(params, x, cfg, kind, cdt, with_aux=True)
+    if kind in ATTN_KINDS:
+        y = attention.apply_train(
+            params["mixer"], h, _attn_spec(cfg, kind), cdt)
+    else:
+        fn, spec = _mixer_fn(cfg, kind, "apply_train")
+        y = fn(params["mixer"], h, spec, cdt)
+    x, aux = _ffn(params, x + y, cfg, kind, cdt, with_aux=True)
     return x, no_aux(x.device) if aux is None else aux
 
 
 def _ffn(params, x, cfg: ModelConfig, kind: str, cdt, with_aux=False):
     """The residual FFN → (x, the router's aux losses for a MoE kind when
     ``with_aux``, else None). The serving forms drop the aux, as the
-    reference's do."""
+    reference's do. xLSTM kinds have none: x passes through."""
+    if not _has_ffn(kind):
+        return x, None
     h = layers.rmsnorm_apply(params["norm2"], x, cfg.norm_eps, cdt)
     if kind in MOE_KINDS:
         y, aux = moe.apply(params["ffn"], h, _moe_spec(cfg), cdt, with_aux)
@@ -112,32 +141,56 @@ def _ffn(params, x, cfg: ModelConfig, kind: str, cdt, with_aux=False):
     return x + layers.mlp_apply(params["ffn"], h, cdt), None
 
 
-def init_cache(batch: int, max_len: int, cfg: ModelConfig, kind: str, device):
-    _check_kind(kind)
+def init_cache(batch: int, max_len: int, cfg: ModelConfig, kind: str, device,
+               lead=()):
     _, cdt = _dtype(cfg)
-    return attention.init_cache(
-        batch, max_len, _attn_spec(cfg, kind), cdt, device
-    )
+    if kind in ATTN_KINDS:
+        return attention.init_cache(
+            batch, max_len, _attn_spec(cfg, kind), cdt, device, lead)
+    name, spec = _recurrent(cfg, kind)
+    if name == "mamba":
+        return ssm.mamba_init_state(batch, spec, cdt, device, lead)
+    return getattr(ssm, f"{name}_init_state")(batch, spec, device, lead)
+
+
+def _write_state(cache: dict, state: dict) -> dict:
+    """A recurrent mixer's new state into its cache tensors, in place."""
+    for key, t in state.items():
+        cache[key].copy_(t)
+    return cache
 
 
 def apply_decode(params, x, cache, cfg: ModelConfig, kind: str):
     """One token through the block; ``cache`` is updated in place."""
-    _check_kind(kind)
     _, cdt = _dtype(cfg)
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps, cdt)
-    y, cache = attention.apply_decode(
-        params["mixer"], h, cache, _attn_spec(cfg, kind), cdt
-    )
+    if kind in ATTN_KINDS:
+        y, cache = attention.apply_decode(
+            params["mixer"], h, cache, _attn_spec(cfg, kind), cdt
+        )
+    else:
+        fn, spec = _mixer_fn(cfg, kind, "apply_decode")
+        y, state = fn(params["mixer"], h, cache, spec, cdt)
+        cache = _write_state(cache, state)
     return _ffn(params, x + y, cfg, kind, cdt)[0], cache
 
 
 def prefill(params, x, cfg: ModelConfig, kind: str, max_len: int, cache=None):
     """Full-sequence pass that also fills the decode cache (``cache`` when
-    given, written in place, else a new one)."""
-    _check_kind(kind)
+    given, written in place, else a new one). A recurrent kind's state is
+    the one its mixer's train form ends in (``ssm.*_prefill``), not S
+    decode steps over the prompt as in the reference; the two agree to
+    float32 rounding (tests/test_torch_ssm.py holds them)."""
     _, cdt = _dtype(cfg)
     h = layers.rmsnorm_apply(params["norm1"], x, cfg.norm_eps, cdt)
-    y, cache = attention.prefill_cache(
-        params["mixer"], h, _attn_spec(cfg, kind), cdt, max_len, cache
-    )
+    if kind in ATTN_KINDS:
+        y, cache = attention.prefill_cache(
+            params["mixer"], h, _attn_spec(cfg, kind), cdt, max_len, cache
+        )
+    else:
+        fn, spec = _mixer_fn(cfg, kind, "prefill")
+        y, state = fn(params["mixer"], h, spec, cdt)
+        if cache is None:
+            cache = init_cache(x.shape[0], max_len, cfg, kind, x.device)
+        cache = _write_state(cache, state)
     return _ffn(params, x + y, cfg, kind, cdt)[0], cache

@@ -12,9 +12,15 @@ its raw ``uint16`` bits; an ``ml_dtypes`` bfloat16 array is accepted too
 and read through its bits. ``params_to_jax`` emits float32 by default and
 ``uint16`` bits with ``bf16_as_bits=True``.
 
+Every leaf crosses in the dtype ``model.init`` gives it: the config's
+``param_dtype``, except Mamba's ``mixer/a_log``, float32 in any model.
+
 Caches (``model.init_caches`` / the reference's ``M.init_caches``) cross
-the same way: ``b{i}_{kind}/{k,v,pos}`` with a leading G axis, K/V in the
-compute dtype, ``pos`` int32.
+the same way, with a leading G axis: an attention block's
+``b{i}_{kind}/{k,v,pos}`` (K/V in the compute dtype, ``pos`` int32), a
+Mamba block's ``conv`` (compute dtype) and ``ssm``, an mLSTM block's ``c``,
+``n``, ``m`` and an sLSTM block's ``c``, ``n``, ``h``, ``m`` (float32;
+``m`` is −inf before the first token).
 """
 
 from __future__ import annotations
@@ -45,11 +51,10 @@ def params_from_jax(
 ) -> dict:
     """JAX parameter tree (numpy leaves) → the port's dict on ``device``.
 
-    Leaves become ``cfg.param_dtype``. The key set and every shape are
+    Leaves take ``model.init``'s dtypes. The key set and every shape are
     checked against ``model.init``'s; a mismatch raises ``ValueError``.
     """
     dev = compat.resolve_device(device)
-    pdt = compat.dtype_of(cfg.param_dtype)
     want = dict(tree_paths(model.init(cfg, 0, device="meta")))
     got = dict(tree_paths(tree))
     if want.keys() != got.keys():
@@ -65,12 +70,12 @@ def params_from_jax(
                 f"{tuple(ref.shape)}"
             )
 
-    def convert(node):
+    def convert(node, path):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _leaf_from_numpy(node, pdt, dev)
+            return {k: convert(v, f"{path}{k}/") for k, v in node.items()}
+        return _leaf_from_numpy(node, want[path[:-1]].dtype, dev)
 
-    return convert(tree)
+    return convert(tree, "")
 
 
 def params_to_jax(params: dict, bf16_as_bits: bool = False) -> dict:
@@ -87,40 +92,47 @@ def caches_from_jax(
 ) -> dict:
     """JAX cache tree (numpy leaves) → the port's caches on ``device``.
 
-    K/V become ``cfg.compute_dtype``, ``pos`` int32. The keys must be the
-    config's ``b{i}_{kind}`` with ``k``, ``v``, ``pos`` each, and the
-    shapes ``[G, B, S_cache, KV, Dh]`` / ``[G]``; else ``ValueError``.
+    Leaves take ``model.init_caches``' dtypes. The keys must be the
+    config's ``b{i}_{kind}``, each with its kind's leaves; K/V must be
+    ``[G, B, S_cache, KV, Dh]`` and every other leaf ``init_caches``' shape
+    for that batch; else ``ValueError``.
     """
     dev = compat.resolve_device(device)
-    cdt = compat.dtype_of(cfg.compute_dtype)
-    g = cfg.num_groups
     keys = [f"b{i}_{kind}" for i, kind in enumerate(cfg.block_pattern)]
     if sorted(tree) != sorted(keys):
         raise ValueError(f"cache trees differ: {sorted(tree)} vs {keys}")
+    batch = next(np.shape(leaf)[1] for _, leaf in tree_paths(tree)
+                 if np.ndim(leaf) >= 2)
+    want = model.init_caches(cfg, batch, 1, "meta")
+    g = cfg.num_groups
     out = {}
     for key in keys:
-        node = tree[key]
-        if sorted(node) != ["k", "pos", "v"]:
-            raise ValueError(f"{key}: leaves {sorted(node)}, want k, pos, v")
-        k_shape = tuple(np.shape(node["k"]))
-        want_tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
-        if (
-            len(k_shape) != 5 or k_shape[0] != g or k_shape[3:] != want_tail
-            or tuple(np.shape(node["v"])) != k_shape
-            or tuple(np.shape(node["pos"])) != (g,)
-        ):
+        node, ref = tree[key], want[key]
+        if sorted(node) != sorted(ref):
             raise ValueError(
-                f"{key}: k {k_shape}, v {tuple(np.shape(node['v']))}, pos "
-                f"{tuple(np.shape(node['pos']))}; want [{g}, B, S, "
-                f"{want_tail[0]}, {want_tail[1]}] and [{g}]"
-            )
-        out[key] = {
-            "k": _leaf_from_numpy(node["k"], cdt, dev),
-            "v": _leaf_from_numpy(node["v"], cdt, dev),
-            "pos": _leaf_from_numpy(
-                np.asarray(node["pos"]).astype(np.int32), torch.int32, dev
-            ),
-        }
+                f"{key}: leaves {sorted(node)}, want {', '.join(sorted(ref))}")
+        if "k" in ref:
+            k_shape = tuple(np.shape(node["k"]))
+            want_tail = (cfg.num_kv_heads, cfg.resolved_head_dim)
+            if (
+                len(k_shape) != 5 or k_shape[0] != g
+                or k_shape[3:] != want_tail
+                or tuple(np.shape(node["v"])) != k_shape
+                or tuple(np.shape(node["pos"])) != (g,)
+            ):
+                raise ValueError(
+                    f"{key}: k {k_shape}, v {tuple(np.shape(node['v']))}, "
+                    f"pos {tuple(np.shape(node['pos']))}; want [{g}, B, S, "
+                    f"{want_tail[0]}, {want_tail[1]}] and [{g}]"
+                )
+        else:
+            for leaf, t in ref.items():
+                if tuple(np.shape(node[leaf])) != tuple(t.shape):
+                    raise ValueError(
+                        f"{key}/{leaf}: shape {tuple(np.shape(node[leaf]))}"
+                        f" != {tuple(t.shape)}")
+        out[key] = {leaf: _leaf_from_numpy(node[leaf], t.dtype, dev)
+                    for leaf, t in ref.items()}
     return out
 
 

@@ -10,12 +10,16 @@ Counterpart of the JAX package's ``models/model.py``. Functional API:
   decode_step(cfg, params, caches, token) -> (logits [B, 1, V], caches)
   parameter_count(cfg, params=None)       -> int
 
-``inputs`` is a dict: {"tokens": [B, S]}. Parameters and caches keep the
-reference's stacked-group layout — ``params["blocks"]["b0_attn"]`` leaves
-and ``caches["b0_attn"]["k"|"v"|"pos"]`` carry a leading G axis — so the
-two packages' trees map key for key (``models/convert.py``); the groups
-are walked with a Python loop. ``decode_step`` writes the caches in place
-and returns the same dict (the reference returns new arrays).
+``inputs`` is a dict: {"tokens": [B, S]} for LMs; the VLM backbone
+(``frontend="vision_patches"``) adds {"patch_embeds": [B, P, D]}, which
+``patch_proj`` projects and puts before the tokens, and the audio backbone
+(``"audio_codec"``) takes codec token ids as tokens. Parameters and caches
+keep the reference's stacked-group layout — ``params["blocks"]["b0_attn"]``
+leaves and ``caches["b0_attn"]["k"|"v"|"pos"]`` (or a recurrent block's
+state, ``caches["b0_mamba"]["conv"|"ssm"]``) carry a leading G axis — so
+the two packages' trees map key for key (``models/convert.py``); the
+groups are walked with a Python loop. ``decode_step`` writes the caches in
+place and returns the same dict (the reference returns new arrays).
 """
 
 from __future__ import annotations
@@ -57,10 +61,6 @@ def init(
     """Random parameters drawn from ``generator`` on ``device`` (``None``
     means CUDA). The bits differ from the JAX package's ``init`` for any
     seed: parity goes through ``models.convert.params_from_jax``."""
-    if cfg.frontend == "vision_patches":
-        raise NotImplementedError(
-            "the vision-patch frontend is not ported yet (ROADMAP queue A)"
-        )
     dev = (
         torch.device("meta") if str(device) == "meta"
         else compat.resolve_device(device)
@@ -75,6 +75,10 @@ def init(
         params["unembed"] = layers.embed_init(
             gen, cfg.vocab_size, cfg.d_model, pdt, dev
         )
+    if cfg.frontend == "vision_patches":
+        params["patch_proj"] = layers.dense_init(
+            gen, cfg.d_model, cfg.d_model, pdt, dev
+        )
     # Stacked per-group block params: every leaf has a leading G axis.
     g = cfg.num_groups
     params["blocks"] = {
@@ -84,11 +88,23 @@ def init(
     return params
 
 
-def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
+def _embed_tokens(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     cdt = compat.dtype_of(cfg.compute_dtype)
-    x = layers.embed_apply(params["embed"], inputs["tokens"], cdt)
+    x = layers.embed_apply(params["embed"], tokens, cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
+    return x
+
+
+def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
+    """Token embeddings, after the projected patches for the VLM."""
+    x = _embed_tokens(cfg, params, inputs["tokens"])
+    if cfg.frontend == "vision_patches":
+        cdt = compat.dtype_of(cfg.compute_dtype)
+        patches = layers.dense_apply(
+            params["patch_proj"], inputs["patch_embeds"].to(cdt), cdt
+        )
+        x = torch.cat([patches, x], dim=1)
     return x
 
 
@@ -149,13 +165,19 @@ def loss(
     router_z_weight: float = 1e-3,
     remat: bool = True,
 ):
-    """Next-token cross-entropy. batch: {"tokens": [B, S+1]}."""
+    """Next-token cross-entropy. batch: {"tokens": [B, S+1], ...}.
+
+    For the VLM backbone, patch positions are prepended by the model and
+    excluded from the loss (labels cover text tokens only).
+    """
     tokens = batch["tokens"]
     inputs = dict(batch)
     inputs["tokens"] = tokens[:, :-1]
     labels = tokens[:, 1:].to(torch.int64)
 
     logits, aux = forward(cfg, params, inputs, remat=remat)
+    if cfg.frontend == "vision_patches":
+        logits = logits[:, inputs["patch_embeds"].shape[1]:, :]
 
     # lse − label_logit over the vocab dim, as the reference computes it
     # (the max is a constant of the differentiation there too).
@@ -180,18 +202,17 @@ def init_caches(
     max_len: int,
     device: str | torch.device | None = None,
 ) -> dict:
-    """Stacked decode caches, zeros: ``{"b{i}_{kind}": {"k", "v": [G, B,
-    S_cache, KV, Dh], "pos": int32 [G]}}`` on ``device`` (``None`` means
-    CUDA; ``"meta"`` gives shapes only)."""
+    """Stacked decode caches, empty: ``{"b{i}_{kind}": {"k", "v": [G, B,
+    S_cache, KV, Dh], "pos": int32 [G]}}`` for attention kinds, the mixer's
+    state with a leading G for recurrent ones (zeros, ``m`` at −inf), on
+    ``device`` (``None`` means CUDA; ``"meta"`` gives shapes only)."""
     dev = (
         torch.device("meta") if str(device) == "meta"
         else compat.resolve_device(device)
     )
-    g = cfg.num_groups
     return {
-        f"b{i}_{kind}": tree_map(
-            lambda t: torch.zeros((g, *t.shape), dtype=t.dtype, device=dev),
-            blocks.init_cache(batch, max_len, cfg, kind, "meta"),
+        f"b{i}_{kind}": blocks.init_cache(
+            batch, max_len, cfg, kind, dev, lead=(cfg.num_groups,)
         )
         for i, kind in enumerate(cfg.block_pattern)
     }
@@ -219,7 +240,7 @@ def decode_step(cfg: ModelConfig, params, caches, token):
     """One decode step. token: ``[B, 1]`` int → (logits ``[B, 1, V]``,
     caches). The caches are written in place and returned; nothing is
     read back to the host."""
-    x = _embed_inputs(cfg, params, {"tokens": token})
+    x = _embed_tokens(cfg, params, token)
     for gi, gp in enumerate(_group_params(cfg, params)):
         gc = _group_caches(caches, gi)
         for i, kind in enumerate(cfg.block_pattern):

@@ -139,19 +139,23 @@ def apply(
     xin = xin.reshape(b, e, cap, d)
 
     # ---- expert SwiGLU ---------------------------------------------------
-    wg, wu, wd = (params[name].to(compute_dtype)
-                  for name in ("gate", "up", "down"))
+    # Each weight is cast to the compute dtype where it is used, so at most
+    # one cast copy is alive (a float32 forward of bf16 weights: Jamba's
+    # stacked experts are 12.9 GB each in float32).
+    def w(name, *i):
+        return params[name][i].to(compute_dtype)
+
     if cap * spec.d_ff > LOOP_EXPERTS_ABOVE:
         yout = torch.stack([
-            (F.silu(xin[:, i] @ wg[i]) * (xin[:, i] @ wu[i])) @ wd[i]
+            (F.silu(xin[:, i] @ w("gate", i)) * (xin[:, i] @ w("up", i)))
+            @ w("down", i)
             for i in range(e)
         ], dim=1)                                             # [b, e, cap, d]
     else:
         # one expression: only the product stays alive for the last einsum
-        h = F.silu(torch.einsum("becd,edf->becf", xin, wg)) * torch.einsum(
-            "becd,edf->becf", xin, wu
-        )
-        yout = torch.einsum("becf,efd->becd", h, wd)
+        h = F.silu(torch.einsum("becd,edf->becf", xin, w("gate"))) * (
+            torch.einsum("becd,edf->becf", xin, w("up")))
+        yout = torch.einsum("becf,efd->becd", h, w("down"))
 
     # ---- combine gather ---------------------------------------------------
     per_choice = _pad_row(yout.reshape(b, e * cap, d))[

@@ -2,6 +2,7 @@
 parameters cross through `convert.params_from_jax`, the same tokens go
 through both, logits and loss agree."""
 
+import dataclasses
 import math
 
 import jax
@@ -11,21 +12,30 @@ import pytest
 import torch
 
 from repro.configs import gemma2_2b as jax_gemma
+from repro.configs import jamba_1_5_large_398b as jax_jamba
+from repro.configs import llava_next_34b as jax_llava
 from repro.configs import mistral_large_123b as jax_mistral_large
 from repro.configs import mixtral_8x7b as jax_mixtral
 from repro.configs import mixtral_8x22b as jax_mixtral_22b
+from repro.configs import musicgen_large as jax_musicgen
 from repro.configs import qwen1_5_0_5b as jax_qwen15
 from repro.configs import qwen2_0_5b as jax_cfg
+from repro.configs import xlstm_125m as jax_xlstm
+from repro.models import blocks as jax_blocks
 from repro.models import attention as jax_attention
 from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro_torch.configs import base as torch_base
 from repro_torch.configs import gemma2_2b as torch_gemma
+from repro_torch.configs import jamba_1_5_large_398b as torch_jamba
+from repro_torch.configs import llava_next_34b as torch_llava
 from repro_torch.configs import mistral_large_123b as torch_mistral_large
 from repro_torch.configs import mixtral_8x7b as torch_mixtral
 from repro_torch.configs import mixtral_8x22b as torch_mixtral_22b
+from repro_torch.configs import musicgen_large as torch_musicgen
 from repro_torch.configs import qwen1_5_0_5b as torch_qwen15
 from repro_torch.configs import qwen2_0_5b as torch_cfg
+from repro_torch.configs import xlstm_125m as torch_xlstm
 from repro_torch.models import attention, blocks, convert, layers, model
 from repro_torch.tree import tree_leaves, tree_paths
 
@@ -127,12 +137,16 @@ def test_parameter_count_equal(which):
 
 
 # (JAX config module, the port's own copy) of the configurations whose block
-# kinds the MoE slice completes.
+# kinds or frontends the MoE and the recurrent slices complete.
 NEW_CONFIG_COPIES = (
     (jax_mixtral, torch_mixtral),
     (jax_mixtral_22b, torch_mixtral_22b),
     (jax_qwen15, torch_qwen15),
     (jax_mistral_large, torch_mistral_large),
+    (jax_jamba, torch_jamba),
+    (jax_xlstm, torch_xlstm),
+    (jax_llava, torch_llava),
+    (jax_musicgen, torch_musicgen),
 )
 
 
@@ -162,8 +176,11 @@ def test_configs_are_own_equal_copies():
     assert torch_base.get_config("qwen1.5-0.5b", smoke=True) is (
         torch_qwen15.SMOKE_CONFIG
     )
-    with pytest.raises(NotImplementedError):
-        torch_base.get_config("xlstm-125m")
+    for arch in torch_base.ARCH_IDS:
+        for smoke in (False, True):
+            assert torch_base.get_config(arch, smoke).name == (
+                torch_base.get_config(arch).name + ("-smoke" if smoke else ""))
+    assert torch_base.get_config("xlstm-125m") is torch_xlstm.CONFIG
 
 
 def test_init_is_seeded_and_scaled():
@@ -230,10 +247,29 @@ def test_layers_match_jax(fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["mamba_moe", "mamba", "mlstm"])
-def test_unported_block_kinds_name_the_roadmap(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.init(0, TCFG, kind, "cpu")
+@pytest.mark.parametrize("kind", ["mamba_moe", "mamba", "mlstm", "slstm"])
+def test_recurrent_block_kinds_match_jax(kind):
+    """Each recurrent kind built alone (Jamba's smoke widths, capacity 8.0)
+    and run through the train form against the reference's block: the
+    same leaves, xLSTM kinds without FFN and norm2, outputs and aux."""
+    cfg_kw = dict(block_pattern=(kind,), num_layers=1)
+    jcfg = dataclasses.replace(jax_jamba.SMOKE_CONFIG, **cfg_kw)
+    tcfg = dataclasses.replace(torch_jamba.SMOKE_CONFIG, **cfg_kw)
+    jp = jax_blocks.init(jax.random.key(5), jcfg, kind)
+    paths = dict(tree_paths(blocks.init(0, tcfg, kind, "meta")))
+    jpaths = dict(tree_paths(jax.tree.map(np.asarray, jp)))
+    assert {k: tuple(v.shape) for k, v in paths.items()} == {
+        k: v.shape for k, v in jpaths.items()}
+    assert ("ffn" in jp) == (kind not in ("mlstm", "slstm"))
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.asarray(a).copy()), jp)
+    x = np.random.default_rng(6).standard_normal((2, 9, 64)).astype(np.float32)
+    exp, jaux = jax_blocks.apply_train(jp, jnp.asarray(x), jcfg, kind)
+    got, aux = blocks.apply_train(tp, torch.from_numpy(x), tcfg, kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=TOL,
+                               atol=TOL)
+    for name in jaux:
+        np.testing.assert_allclose(float(aux[name]), float(jaux[name]),
+                                   rtol=TOL, atol=TOL, err_msg=name)
 
 
 def test_long_sequence_takes_the_chunked_path_as_jax():

@@ -339,7 +339,7 @@ def test_shapes_match_jax(agents, batch, microbatch):
     stacked state's shapes and dtypes leaf for leaf."""
     jshape = jbase.ShapeConfig("s", 32, batch, "train")
     want = jtrain._batch_shapes(JCFG, jshape, agents, microbatch)["tokens"]
-    got = train._batch_shapes(base.ShapeConfig("s", 32, batch, "train"),
+    got = train._batch_shapes(TCFG, base.ShapeConfig("s", 32, batch, "train"),
                               agents, microbatch)["tokens"]
     assert tuple(got.shape) == want.shape and got.dtype == torch.int32
     jstate = jtrain._stacked_state_shapes(JCFG, agents)
