@@ -24,6 +24,14 @@ points a user calls:
   gradient, one launch per leaf), batches through ``data.Prefetcher``;
   the smoke model in every gossip mode against the CPU, and a checkpoint
   round trip (``AsyncCheckpointer``, restore onto 7 agents);
+* the runtime — ``examples/elastic_failover.py`` at full width:
+  Qwen2-0.5B x 8 agents trained by D-PSGD while
+  ``runtime.design_service`` (pricing on the card's torch engine)
+  re-designs W through a link sag, a departure during a pricing outage, a
+  second departure, a join and the recovery, the stacked parameters
+  re-mapped on the card by ``shrink_state``/``grow_state``; the trail held
+  to the JAX service's, int8 and top-k compression of one agent held to
+  the CPU's, the kernel held at every membership;
 * design — the paper instance designed by the port's designer on the
   card (clique, ring, prim, FMMD-WP, SCA; every weight optimization in
   float64 on the card), held to the JAX designer's supports and τ; the
@@ -62,7 +70,7 @@ exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
-``train``, ``train_launch``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
+``train``, ``train_launch``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
 ``serve_gemma2``, ``moe_layer_check``, ``mixtral_attention``,
 ``serve_check`` (Mixtral float32 at 2 layers), ``serve_mixtral``,
@@ -163,6 +171,10 @@ from repro_torch.net.topology import Graph
 from repro_torch.paper import fig5_training
 from repro_torch.paper import priced_training as paper_gate
 from repro_torch.paper import scenario as paper
+from repro_torch.runtime import compression, design_service
+from repro_torch.runtime.events import AgentJoin, AgentLeave, LinkStateChange
+from repro_torch.runtime.fault_tolerance import grow_state, shrink_state
+from repro_torch.runtime.faultinject import FaultInjector, FaultPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): the roofline the
@@ -446,6 +458,61 @@ TRAIN_LAUNCH_STEPS = 3    # timed, after 1 warm-up step
 FABRIC_LINK_BW = 450e9
 FABRIC_CROSS_POD_BW = 50e9
 EIGH_M = 1000
+# The elastic phase (phase_elastic): examples/elastic_failover.py at full
+# width. Qwen2-0.5B x 8 agents on roofnet_like(seed=0)'s 8 lowest-degree
+# nodes, 1 x 512 tokens an agent, lr 0.05; the design service (FMMD-P, 12
+# iterations, the torch pricing engine on the card) re-designs W through
+# the example's five events, the second during a pricing outage; 1 warm-up
+# and 2 timed steps at each membership (the example trains 40).
+ELASTIC_AGENTS = 8
+ELASTIC_STEPS = 2
+ELASTIC_SEQ = 512
+ELASTIC_LR = 0.05
+ELASTIC_OUTAGE_AT = 2.0
+ELASTIC_TOPK = 0.01
+# The same stream through the JAX package's service on the CPU (engine
+# "batched") at the same kappa (one agent's int8 bytes): the start's (m,
+# tau), then per event (kind, decision, tier, m, retries, faults, tau, the
+# makespans of its pricing calls in order):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import jax
+#   from repro.configs import qwen2_0_5b as q; from repro.models import model
+#   from repro.net import build_overlay, lowest_degree_nodes, roofnet_like
+#   from repro.runtime import design_service as ds
+#   from repro.runtime.compression import compressed_kappa
+#   from repro.runtime.events import AgentJoin, AgentLeave, LinkStateChange
+#   from repro.runtime.faultinject import FaultInjector, FaultPlan
+#   kappa = compressed_kappa(jax.eval_shape(
+#       lambda: model.init(q.CONFIG, jax.random.key(0))), 'int8')
+#   u = roofnet_like(seed=0); ov = build_overlay(u, lowest_degree_nodes(u, 8))
+#   svc = ds.DesignService(ov, kappa, ds.ServiceConfig(design_iterations=12))
+#   worst = sorted(svc._binc.edges)[:3]
+#   free = next(n for n in sorted(u.graph.nodes) if n not in set(ov.agents))
+#   priced, sim = [], ds.simulate
+#   def rec(*a, **k): r = sim(*a, **k); priced.append(r.makespan); return r
+#   ds.simulate = rec; print(kappa, svc.num_agents, repr(svc.tau))
+#   for ev in [LinkStateChange(1.0, {e: 0.3 for e in worst}),
+#              AgentLeave(2.0, 1), AgentLeave(3.0, 5), AgentJoin(4.0, free),
+#              LinkStateChange(5.0, {e: 1.0 for e in worst})]:
+#       plan = FaultPlan(0, 1.0, ('raise',))
+#       svc.injector = FaultInjector(plan) if ev.time == 2.0 else None
+#       priced.clear(); r = svc.process(ev)
+#       print((r.event, r.decision, r.tier, svc.num_agents, r.retries,
+#              len(r.faults), r.tau, tuple(priced)))"
+JAX_ELASTIC_KAPPA = 494032824
+JAX_ELASTIC_START = (8, 7904.525184)
+JAX_ELASTIC_RECORDS = (
+    ("LinkStateChange", "adopt", "normal", 8, 0, 0, 7904.525184,
+     (26348.417279999994,)),
+    ("AgentLeave", "incumbent-keep", "incumbent-keep", 7, 2, 3, 7904.525184,
+     (7904.525184,)),
+    ("AgentLeave", "redesign", "normal", 6, 0, 0, 15809.050368,
+     (7904.525184, 7904.525184)),
+    ("AgentJoin", "redesign", "normal", 7, 0, 0, 13174.20864,
+     (15809.050368, 15809.050368)),
+    ("LinkStateChange", "adopt", "normal", 7, 0, 0, 7904.525184,
+     (11856.787776000001,)),
+)
+ELASTIC_RTOL = 1e-9
 
 
 def emit(phase: str, **fields) -> None:
@@ -1450,6 +1517,39 @@ def hold_combine(x, g, plan, lr: float, scale: float, what: str) -> float:
     return err
 
 
+def combine_times(x: torch.Tensor, g: torch.Tensor, plan, lr: float) -> dict:
+    """``mixing_sgd_combine`` on ``x``, ``g`` ``[A, N]`` over ``plan``: its
+    time beside its bound (each input read once, the output written once),
+    its plain version's and one dense PyTorch call's."""
+    ms = time_cuda(
+        lambda: ops.mixing_sgd_combine_stacked(
+            x, plan.idx, plan.weights, g, lr=lr), reps=TIMING_REPS)
+    plain_ms = time_cuda(
+        lambda: ref.mixing_sgd_combine_stacked_ref(
+            x, plan.idx, plan.weights, g, lr=lr), reps=TIMING_REPS)
+    w_dense = plan.w.to(x.dtype)
+    # One PyTorch call for the same function with a dense W: a yardstick
+    # only, the port never calls it.
+    library_ms = time_cuda(
+        lambda: torch.addmm(g, w_dense, x, beta=-lr), reps=TIMING_REPS)
+    r = plan.idx.shape[1]
+    moved = (x.numel() * x.element_size() + g.numel() * g.element_size()
+             + x.numel() * x.element_size()
+             + plan.idx.numel() * 4 + plan.weights.numel() * 4)
+    flops = x.numel() * (2 * (r + 1) + 1)
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return {
+        "shape": list(x.shape), "dtype": str(x.dtype), "neighbours": r,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "share_of_bound": max(t_bytes, t_ops) / ms,
+        "library_ms": library_ms,
+        "library_call": "torch.addmm(g, W, x, beta=-lr)",
+        "bytes_moved_once": moved, "flops": flops,
+    }
+
+
 def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
     """The kernel at the two largest leaves the main path gives it."""
     dev = torch.device("cuda")
@@ -1457,7 +1557,6 @@ def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
     lr = 0.05
     by_size = sorted(tree_paths(params), key=lambda pl: -pl[1].numel())[:2]
     a_dim = plan.num_agents
-    r = plan.idx.shape[1]
 
     # Copy bandwidth of this card in this run (read + write of 2 GiB).
     src = torch.empty(1 << 30, dtype=torch.int16, device=dev)
@@ -1471,52 +1570,20 @@ def phase_kernels(params, plan, launches, leaves, seed: int) -> dict:
         scale = leaf_scale(leaf)
         x, g = combine_inputs(gen, a_dim, leaf.numel() // a_dim, leaf.dtype,
                               scale, lr)
-        n = x.shape[1]
         w_dense = plan.w.to(x.dtype)
         rtol, atol = combine_tolerance(x.dtype, scale)
         err = hold_combine(x, g, plan, lr, scale, f"main-path shape {path}")
-
-        ms = time_cuda(
-            lambda: ops.mixing_sgd_combine_stacked(
-                x, plan.idx, plan.weights, g, lr=lr
-            ),
-            reps=TIMING_REPS,
-        )
-        plain_ms = time_cuda(
-            lambda: ref.mixing_sgd_combine_stacked_ref(
-                x, plan.idx, plan.weights, g, lr=lr
-            ),
-            reps=TIMING_REPS,
-        )
+        timed = combine_times(x, g, plan, lr)
         unfused_ms = time_cuda(
             lambda: torch.einsum("ab,bn->an", w_dense, x) - lr * g,
             reps=TIMING_REPS,
         )
-        # One PyTorch call for the same function with a dense W: a
-        # yardstick only, the port never calls it.
-        library_ms = time_cuda(
-            lambda: torch.addmm(g, w_dense, x, beta=-lr), reps=TIMING_REPS
-        )
-        moved = (
-            x.numel() * x.element_size()        # x read once
-            + g.numel() * g.element_size()      # g read once
-            + x.numel() * x.element_size()      # out written once
-            + plan.idx.numel() * 4 + plan.weights.numel() * 4
-        )
-        flops = x.numel() * (2 * (r + 1) + 1)
-        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FP32_FLOPS * 1e3
+        moved = timed["bytes_moved_once"]
         shapes.append({
-            "leaf": path, "shape": [a_dim, n], "dtype": str(x.dtype),
-            "neighbours": r, "data_scale": scale, "rtol": rtol,
-            "atol": atol, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-            "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_moved_once": moved, "flops": flops,
+            "leaf": path, **timed, "data_scale": scale, "rtol": rtol,
+            "atol": atol, "max_abs_err": err, "unfused_ms": unfused_ms,
             "copy_bound_ms": moved / copy_bytes_per_s * 1e3,
-            "achieved_bytes_per_s": moved / (ms * 1e-3),
+            "achieved_bytes_per_s": moved / (timed["ms"] * 1e-3),
         })
         del g
         torch.cuda.empty_cache()
@@ -1853,6 +1920,411 @@ def phase_train_launch(seed: int) -> dict:
         "smoke_modes": smoke, "checkpoint": ckpt,
     }
     emit("train_launch", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The runtime: elastic training over the design service (runtime/)
+# ---------------------------------------------------------------------------
+
+
+def int8_quantization_error(x: torch.Tensor, q: torch.Tensor,
+                            scale: torch.Tensor) -> float:
+    """Largest ``|q·scale − x| / scale`` in float32, before the decode's
+    cast back to the leaf's dtype (that cast adds up to half an ulp of the
+    leaf's dtype at the value)."""
+    s32 = scale.to(torch.float32)
+    err = (q.to(torch.float32) * s32 - x.to(torch.float32)).abs_().max()
+    return float(err / s32)
+
+
+def hold_compressed(card: list, cpu: list, what: str) -> None:
+    """One leaf's compressed payload on the card against the port's CPU
+    result, bitwise: top-k ``(idx, vals)``, int8 ``(q, scale)`` and both
+    decodes."""
+    for kind, (c, h) in zip(("topk", "int8"), zip(card, cpu)):
+        for i, (a, b) in enumerate(zip(c, h)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(
+                    f"compression {what}: {kind} part {i} on the card is "
+                    "not the CPU's")
+
+
+def compression_check(one: dict, seed: int) -> dict:
+    """int8 and top-k (1 %) of one agent's parameters on the card: the
+    bytes against ``compressed_kappa``, the quantization error, and the
+    embedding leaf and layer 0's leaves held bitwise against the port's
+    CPU result."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    q8 = compression.int8_compress(one)
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t
+    t = time.perf_counter()
+    top = compression.topk_compress(one, ELASTIC_TOPK)
+    torch.cuda.synchronize()
+    topk_s = time.perf_counter() - t
+    if q8.nbytes != compression.compressed_kappa(one, "int8"):
+        raise AssertionError(f"int8 bytes {q8.nbytes}")
+    if top.nbytes != compression.compressed_kappa(
+            one, "topk", fraction=ELASTIC_TOPK):
+        raise AssertionError(f"top-k bytes {top.nbytes}")
+    worst = 0.0
+    for leaf, (q, scale, dtype) in zip(tree_leaves(one), q8.payload):
+        if scale.dtype != leaf.dtype or dtype != leaf.dtype:
+            raise AssertionError("int8 scale not in the leaf's dtype")
+        worst = max(worst, int8_quantization_error(leaf, q, scale))
+    if not worst <= 0.5 + 1e-5:
+        raise AssertionError(
+            f"int8: |q*scale - x| reaches {worst} x scale, not <= 1/2")
+    decoded = q8.decode()
+    decode_err = max(
+        float(((d.to(torch.float32) - x.to(torch.float32)).abs().max())
+              / s.to(torch.float32))
+        for d, x, (_, s, _) in zip(tree_leaves(decoded), tree_leaves(one),
+                                   q8.payload))
+    del decoded
+
+    def parts(tree):
+        """[(top-k idx, vals, decode), (q, scale, decode)] of one leaf."""
+        tk = compression.topk_compress(tree, ELASTIC_TOPK)
+        i8 = compression.int8_compress(tree)
+        out = []
+        for k in range(len(tk.payload)):
+            out.append((
+                [tk.payload[k][0], tk.payload[k][1],
+                 tree_leaves(tk.decode())[k]],
+                [i8.payload[k][0], i8.payload[k][1],
+                 tree_leaves(i8.decode())[k]]))
+        return out
+
+    embed = one["embed"]["table"]
+    pos = next(i for i, (p, _) in enumerate(tree_paths(one))
+               if p == "embed/table")
+    card_embed = [
+        [top.payload[pos][0], top.payload[pos][1],
+         tree_leaves(top.decode())[pos]],
+        [q8.payload[pos][0], q8.payload[pos][1],
+         tree_leaves(q8.decode())[pos]]]
+    t = time.perf_counter()
+    cpu_embed = parts({"t": embed.cpu()})[0]
+    cpu_embed_s = time.perf_counter() - t
+    hold_compressed(card_embed, list(cpu_embed), "embed/table")
+    del card_embed, cpu_embed
+    layer0 = {p: x[0] for p, x in tree_paths(one)
+              if p.startswith("blocks/")}
+    card_layer = parts(layer0)
+    cpu_layer = parts({p: x.cpu() for p, x in layer0.items()})
+    for path, c, h in zip(layer0, card_layer, cpu_layer):
+        hold_compressed(list(c), list(h), f"layer 0 {path}")
+    return {
+        "int8_bytes": q8.nbytes, "topk_bytes": top.nbytes,
+        "topk_fraction": ELASTIC_TOPK, "int8_seconds_on_card": int8_s,
+        "topk_seconds_on_card": topk_s,
+        "embed_cpu_seconds": cpu_embed_s,
+        "int8_max_quantization_err_over_scale": worst,
+        "int8_max_decode_err_over_scale": decode_err,
+        "held_bitwise": ["embed/table"] + [f"layer 0 {p}" for p in layer0],
+    }
+
+
+def error_feedback_check(grads_one: dict) -> dict:
+    """One ``ErrorFeedback`` step of top-k (1 %) over one agent's
+    gradients: the residual is the gradient off the kept coordinates and
+    zero on them, so residual + decode is the gradient bitwise."""
+    ef = compression.ErrorFeedback()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    comp = ef.step(grads_one, lambda tr: compression.topk_compress(
+        tr, ELASTIC_TOPK))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    for g, r, d in zip(tree_leaves(grads_one), tree_leaves(ef.residual),
+                       tree_leaves(comp.decode())):
+        if not torch.equal(r + d, g) or bool(((r != 0) & (d != 0)).any()):
+            raise AssertionError("error feedback: residual + decode != g")
+    return {"seconds_on_card": seconds, "nbytes": comp.nbytes,
+            "residual_l1": float(sum(r.to(torch.float32).abs().sum()
+                                     for r in tree_leaves(ef.residual)))}
+
+
+def elastic_update_check(old, rows, wrong_rows, params, grads, plan,
+                         w_new, w_prev, lr: float, seed: int) -> dict:
+    """The first step's ``fused_update`` at a new membership against its
+    plain version on every leaf, to one bf16 ulp, with the agents pushed
+    apart first: noise of each leaf's scale is added to the stacked
+    parameters ``old`` the membership came from, and the new stack is its
+    rows ``rows`` (which must be what the service's re-map gave,
+    ``params``); ``plan`` is the new design ``w_new``'s. Faulty controls,
+    each refused on every leaf: the previous
+    membership's W re-indexed by ``rows`` (a stale plan), the rows of a
+    shrink or grow that keeps the wrong agent (``wrong_rows``), and each
+    agent's neighbour rows taken from another agent."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    dev = torch.device("cuda")
+    rows_t = torch.as_tensor(rows, device=dev)
+    controls = [("wrong_neighbour_rows", None, plan.idx.roll(1, dims=0),
+                 plan.weights)]
+    if w_prev is not None:
+        w_stale = w_prev[np.ix_(rows, rows)]
+        if np.array_equal(w_stale, w_new):
+            raise AssertionError("the stale-W control is the new W")
+        stale = dpsgd.mixing_plan(w_stale, dev)
+        controls.append(("previous_w", None, stale.idx, stale.weights))
+    if wrong_rows is not None:
+        controls.append(("wrong_agent_rows",
+                         torch.as_tensor(wrong_rows, device=dev),
+                         plan.idx, plan.weights))
+    refused = {name: math.inf for name, *_ in controls}
+    worst = max_err = 0.0
+    for (path, p_old), p_new, g in zip(tree_paths(old), tree_leaves(params),
+                                       tree_leaves(grads)):
+        if not torch.equal(p_old[rows_t], p_new):
+            raise AssertionError(f"re-map of {path} is not rows {rows}")
+        scale = leaf_scale(p_new)
+        x_old = torch.empty_like(p_old).normal_(generator=gen).mul_(scale)
+        x_old.add_(p_old)
+        x = x_old[rows_t]
+        a = x.shape[0]
+        g2 = g.reshape(a, -1)
+        fused = dpsgd.fused_update({"l": x}, {"l": g}, plan, lr)["l"]
+        fused = fused.reshape(a, -1)
+        want = ref.mixing_sgd_combine_stacked_ref(
+            x.reshape(a, -1), plan.idx, plan.weights, g2, lr=lr)
+        rtol, atol = combine_tolerance(x.dtype, scale)
+        err = assert_close(fused, want, rtol, f"elastic first step {path}",
+                           atol=atol)
+        max_err = max(max_err, err)
+        worst = max(worst, err / scale)
+        del want
+        for name, bad_rows, idx, weights in controls:
+            xc = x if bad_rows is None else x_old[bad_rows]
+            faulty = ref.mixing_sgd_combine_stacked_ref(
+                xc.reshape(a, -1), idx, weights, g2, lr=lr)
+            agree, _, over = compare(fused, faulty, rtol, atol)
+            if agree:
+                raise AssertionError(
+                    f"elastic {path}: the check cannot tell the kernel's "
+                    f"output from an update with the fault {name}")
+            refused[name] = min(refused[name], over)
+            del faulty, xc
+        del x_old, x, fused
+        torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "max_err_over_scale": worst,
+            "fewest_refused_err_over_limit": refused,
+            "rtol": BF16_ULP_RTOL, "atol_over_scale": BF16_ULP_ATOL}
+
+
+def check_elastic_record(k: int, rec, svc, priced: list) -> None:
+    """Event ``k``'s record and pricing calls against the JAX package's
+    service (``JAX_ELASTIC_RECORDS``): the trail exactly, τ and every
+    pricing call's makespan at ``ELASTIC_RTOL``."""
+    kind, decision, tier, m, retries, faults, tau, spans = \
+        JAX_ELASTIC_RECORDS[k]
+    got = (rec.event, rec.decision, rec.tier, svc.num_agents, rec.retries,
+           len(rec.faults))
+    if got != (kind, decision, tier, m, retries, faults):
+        raise AssertionError(
+            f"elastic event {k}: {got}, the reference gives "
+            f"{(kind, decision, tier, m, retries, faults)}")
+    if not math.isclose(rec.tau, tau, rel_tol=ELASTIC_RTOL, abs_tol=0.0):
+        raise AssertionError(f"elastic event {k}: tau {rec.tau!r}, not {tau}")
+    makespans = [c["makespan"] for c in priced]
+    if len(makespans) != len(spans) or not all(
+            math.isclose(a, b, rel_tol=ELASTIC_RTOL, abs_tol=0.0)
+            for a, b in zip(makespans, spans)):
+        raise AssertionError(
+            f"elastic event {k}: pricing calls {makespans}, not {spans}")
+
+
+def phase_elastic(seed: int) -> dict:
+    """``examples/elastic_failover.py`` at full width on the card:
+    Qwen2-0.5B (24 layers, d 896, bf16) trained by D-PSGD by 8 agents while
+    ``runtime.design_service`` re-designs W through the example's stream —
+    a link sag, ``AgentLeave(1)`` during a pricing outage (every attempt
+    raises: the incumbent is renormalized), ``AgentLeave(5)``, a join, the
+    recovery — with the torch pricing engine on the card, and
+    ``shrink_state``/``grow_state`` re-mapping the stacked parameters on
+    the card after each membership change. kappa is one agent's int8 bytes
+    (``compressed_kappa``). The records, τ and pricing calls are held to
+    the JAX package's service (``JAX_ELASTIC_*``); at each membership the
+    first step's kernel is held to its plain version on every leaf with
+    the faulty controls refused, then 1 warm-up + 2 timed steps run
+    through ``make_dpsgd_step``, exactly 14 launches each."""
+    cfg = qwen2_0_5b.CONFIG
+    dev = torch.device("cuda")
+    lr = ELASTIC_LR
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = dpsgd.replicate_for_agents(
+        model.init(cfg, seed, device=dev), ELASTIC_AGENTS)
+    leaves = len(tree_leaves(params))
+    one = tree_map(lambda p: p[0], params)
+    kappa = compression.compressed_kappa(one, "int8")
+    if kappa != JAX_ELASTIC_KAPPA:
+        raise AssertionError(f"kappa {kappa}, not {JAX_ELASTIC_KAPPA}")
+    compressed = compression_check(one, seed)
+    del one
+    torch.cuda.empty_cache()
+
+    priced: list = []
+    real_simulate = design_service.simulate
+
+    def timed_simulate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_simulate(*args, **kwargs)
+        torch.cuda.synchronize()
+        priced.append({"engine": kwargs.get("engine", "batched"),
+                       "makespan": float(res.makespan),
+                       "seconds": time.perf_counter() - t})
+        return res
+
+    design_service.simulate = timed_simulate
+    und = roofnet_like(seed=0)
+    ov = build_overlay(und, lowest_degree_nodes(und, ELASTIC_AGENTS))
+    t = time.perf_counter()
+    svc = design_service.DesignService(
+        ov, kappa, design_service.ServiceConfig(
+            design_iterations=12, engine="torch"), device=None)
+    start_seconds = time.perf_counter() - t
+    if (svc.num_agents, svc.tau) != JAX_ELASTIC_START:
+        raise AssertionError(
+            f"elastic start {(svc.num_agents, svc.tau)}, not "
+            f"{JAX_ELASTIC_START}")
+    worst_edges = sorted(svc._binc.edges)[:3]
+    free = next(n for n in sorted(und.graph.nodes) if n not in set(ov.agents))
+    events = [
+        LinkStateChange(time=1.0, scales={e: 0.3 for e in worst_edges}),
+        AgentLeave(time=2.0, agent=1),
+        AgentLeave(time=3.0, agent=5),
+        AgentJoin(time=4.0, node=free),
+        LinkStateChange(time=5.0, scales={e: 1.0 for e in worst_edges}),
+    ]
+    stream = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=ELASTIC_SEQ,
+        num_agents=ELASTIC_AGENTS, dirichlet_alpha=0.3, seed=1))
+
+    def loss_fn(p, b):
+        return model.loss(cfg, p, {"tokens": b}, remat=False)[0]
+
+    step_fn = dpsgd.make_dpsgd_step(loss_fn, learning_rate=lr)
+    segments, records = [], []
+    old, rows, wrong_rows, w_prev = params, list(range(ELASTIC_AGENTS)), \
+        None, None
+    ef = None
+    launches = 0
+    k = 0
+    for seg in range(len(events) + 1):
+        m = svc.num_agents
+        plan = dpsgd.mixing_plan(svc.design, dev)
+        batch0 = torch.from_numpy(
+            stream.stacked_batch(k, 1, ELASTIC_SEQ)[:m]).to(dev)
+        _, grads = dpsgd.agent_grads(loss_fn, params, batch0)
+        del batch0
+        if seg == 0:
+            ef = error_feedback_check(tree_map(lambda g: g[0], grads))
+        held = elastic_update_check(old, rows, wrong_rows, params, grads,
+                                    plan, svc.design, w_prev, lr, seed + seg)
+        del grads, old
+        torch.cuda.empty_cache()
+        ops.reset_launch_count()
+        step_ms, losses = [], []
+        for _ in range(1 + ELASTIC_STEPS):
+            batch = stream.stacked_batch(k, 1, ELASTIC_SEQ)[:m]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, loss = step_fn(params, batch, plan, k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            k += 1
+        seg_launches = ops.launch_count("mixing_sgd_combine")
+        if seg_launches != (1 + ELASTIC_STEPS) * leaves:
+            raise AssertionError(
+                f"elastic m={m}: {seg_launches} mixing_sgd_combine "
+                f"launches, not {1 + ELASTIC_STEPS} steps x {leaves} leaves")
+        launches += seg_launches
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"elastic m={m}: non-finite loss {losses}")
+        for path, p in tree_paths(params):
+            if p.shape[0] != m:
+                raise AssertionError(f"elastic: {path} has {p.shape[0]} rows")
+        segment = {
+            "agents": m, "neighbours": int(plan.idx.shape[1]),
+            "rho": mixing.rho(svc.design), "tau": svc.tau,
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_mean_timed": float(np.mean(step_ms[1:])),
+            "launches": seg_launches, "first_step_check": held,
+        }
+        if m == 7:
+            x = params["embed"]["table"]
+            x = x.reshape(m, -1)
+            g = torch.empty_like(x).normal_(
+                generator=torch.Generator(device=dev).manual_seed(seed + 9))
+            segment["embedding_leaf_combine"] = combine_times(x, g, plan, lr)
+            del x, g
+        segments.append(segment)
+        if seg == len(events):
+            break
+        ev = events[seg]
+        if ev.time == ELASTIC_OUTAGE_AT:
+            svc.injector = FaultInjector(
+                FaultPlan(seed=0, rate=1.0, modes=("raise",)),
+                clock=svc.clock)
+        before, w_prev = svc.members, svc.design
+        priced.clear()
+        t = time.perf_counter()
+        rec = svc.process(ev)
+        process_seconds = time.perf_counter() - t
+        svc.injector = None
+        check_elastic_record(seg, rec, svc, priced)
+        old = params
+        n = len(before)
+        if isinstance(ev, AgentLeave):
+            rows = [p for p, h in enumerate(before) if h in set(svc.members)]
+            gone = next(p for p, h in enumerate(before)
+                        if h not in set(svc.members))
+            # the departed agent's row kept in place of the last survivor's
+            wrong_rows = sorted(rows[:-1] + [gone])
+            params = shrink_state(params, tuple(rows), n)
+        elif isinstance(ev, AgentJoin):
+            rows = list(range(n)) + [0] * (svc.num_agents - n)
+            wrong_rows = list(range(n)) + [1] * (svc.num_agents - n)
+            params = grow_state(params, svc.num_agents)
+        else:
+            rows, wrong_rows = list(range(n)), None
+        records.append({
+            "event": rec.event, "decision": rec.decision, "tier": rec.tier,
+            "agents": svc.num_agents, "retries": rec.retries,
+            "faults": len(rec.faults), "tau": rec.tau,
+            "process_seconds": process_seconds,
+            "pricing_calls": list(priced), "detail": rec.detail,
+        })
+    design_service.simulate = real_simulate
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if [s["agents"] for s in segments] != [8, 8, 7, 6, 7, 7]:
+        raise AssertionError(
+            f"elastic memberships {[s['agents'] for s in segments]}")
+    out = {
+        "config": cfg.name, "parameters_per_agent": model.parameter_count(cfg),
+        "param_dtype": cfg.param_dtype, "leaves": leaves,
+        "kappa_int8_bytes": kappa, "seq_len": ELASTIC_SEQ,
+        "per_agent_batch": 1, "lr": lr, "warmup_steps": 1,
+        "timed_steps": ELASTIC_STEPS, "engine": "torch",
+        "service_start_seconds": start_seconds,
+        "compression": compressed, "error_feedback": ef,
+        "segments": segments, "events": records,
+        "kernel_launches": launches,
+        "max_abs_err": max(s["first_step_check"]["max_abs_err"]
+                           for s in segments),
+        "peak_memory_gb": peak_gb,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    del params, svc
+    torch.cuda.empty_cache()
+    emit("elastic", **out)
     return out
 
 
@@ -3691,6 +4163,12 @@ def main(argv=None) -> int:
             no_g_held["fewest_refused_err_over_limit"],
         "launches_train_launch": launched["kernel_launches"],
     }
+    elastic = phase_elastic(args.seed)
+    kernels[0]["launches_elastic"] = elastic["kernel_launches"]
+    kernels[0]["max_abs_err_elastic"] = elastic["max_abs_err"]
+    kernels[0]["elastic_embedding_leaf_m7"] = [
+        s["embedding_leaf_combine"] for s in elastic["segments"]
+        if "embedding_leaf_combine" in s]
     designed = phase_design(args.seed, args.seq)
     kernels[0]["launches_gate"] = designed["gate"]
     kernels[0]["launches_gate_per_step"] = designed["gate_per_step"]
@@ -3700,7 +4178,8 @@ def main(argv=None) -> int:
     kernels[0]["max_abs_err_full_width"] = designed["full_width_max_abs_err"]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"], designed["gate_max_abs_err"],
-        designed["full_width_max_abs_err"], kernels[0]["no_g"]["max_abs_err"])
+        designed["full_width_max_abs_err"], kernels[0]["no_g"]["max_abs_err"],
+        elastic["max_abs_err"])
     checks = {cfg.name: phase_serve_check(args.seed, cfg, b, s)
               for cfg, b, s in SERVE_CHECKS}
     serve_run = phase_serve(args.seed, args.profile)

@@ -182,6 +182,9 @@ class Graph:
                 (u, v), dd = e, {}
             self.add_edge(u, v, **dd)
 
+    def has_edge(self, u, v) -> bool:
+        return u in self._adj and v in self._adj[u]
+
     def remove_edge(self, u, v) -> None:
         del self._adj[u][v]
         if u != v:

@@ -62,7 +62,14 @@ def test_package_has_the_slices_modules():
         "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
         "repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
         "repro_torch.configs.mixtral_8x22b", "repro_torch.configs.qwen1_5_0_5b",
-        "repro_torch.configs.mistral_large_123b",
+        "repro_torch.configs.mistral_large_123b", "repro_torch.models.ssm",
+        "repro_torch.configs.jamba_1_5_large_398b",
+        "repro_torch.configs.xlstm_125m", "repro_torch.configs.llava_next_34b",
+        "repro_torch.configs.musicgen_large", "repro_torch.runtime",
+        "repro_torch.runtime.events", "repro_torch.runtime.faultinject",
+        "repro_torch.runtime.stragglers", "repro_torch.runtime.compression",
+        "repro_torch.runtime.fault_tolerance",
+        "repro_torch.runtime.design_service",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention_wgmma",
@@ -224,7 +231,8 @@ def _no_gpu():
               "build_serve_artifacts", "caches_from_jax",
               "optimize_weights", "design", "gate_main",
               "build_train_artifacts", "prefetcher", "combine_without_g",
-              "design_mixing_matrix", "checkpoint_restore"],
+              "design_mixing_matrix", "checkpoint_restore",
+              "design_service"],
 )
 def test_device_none_raises_without_a_gpu(entry, tmp_path):
     from repro_torch import checkpoint, compat
@@ -279,6 +287,13 @@ def test_device_none_raises_without_a_gpu(entry, tmp_path):
                 torch.zeros(2, 4), plan.idx, plan.weights)
         elif entry == "design_mixing_matrix":
             fabric.design_mixing_matrix(4, link_bw=1.0, cross_pod_bw=1.0)
+        elif entry == "design_service":
+            from repro_torch.net import (build_overlay, lowest_degree_nodes,
+                                         roofnet_like)
+            from repro_torch.runtime.design_service import DesignService
+
+            u = roofnet_like(seed=0)
+            DesignService(build_overlay(u, lowest_degree_nodes(u, 4)), 1e6)
         elif entry == "checkpoint_restore":
             checkpoint.save(str(tmp_path), 1, {"w": torch.zeros(2)})
             checkpoint.restore(str(tmp_path), {"w": torch.zeros(2)})
