@@ -24,6 +24,16 @@ points a user calls:
   gradient, one launch per leaf), batches through ``data.Prefetcher``;
   the smoke model in every gossip mode against the CPU, and a checkpoint
   round trip (``AsyncCheckpointer``, restore onto 7 agents);
+* D-PSGD across ranks — the kernel's per-agent form without momentum
+  (what ``gossip.mix_sparse_p2p`` launches on each rank) at the flat
+  gossip buffer of all of Qwen2-0.5B against its plain version and
+  ``torch.addmm``; then a (1, 1) ``DeviceMesh`` over NCCL at world size 1
+  (``launch.mesh.init_mesh``): the launcher's mesh path
+  (``build_train_artifacts`` on the mesh, ``data_dp``, 1 agent x 2 x 512
+  tokens, the gradients summed over the ``model`` group by NCCL) bitwise
+  the one-card step, ``gossip.mix_sparse_flat`` launching the combine
+  once, and the serve mesh path (4 prompts of 8192 tokens, 16 greedy
+  steps) bitwise the one-card serving path;
 * the runtime — ``examples/elastic_failover.py`` at full width:
   Qwen2-0.5B x 8 agents trained by D-PSGD while
   ``runtime.design_service`` (pricing on the card's torch engine)
@@ -70,7 +80,8 @@ exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
-``train``, ``train_launch``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
+``train``, ``train_launch``, ``per_agent_flat_combine``, ``mesh_init``,
+``train_mesh``, ``serve_mesh``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
 ``serve_gemma2``, ``moe_layer_check``, ``mixtral_attention``,
 ``serve_check`` (Mixtral float32 at 2 layers), ``serve_mixtral``,
@@ -93,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -147,7 +159,7 @@ from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
-from repro_torch.launch import fabric, serve, train
+from repro_torch.launch import fabric, serve, sharding, train
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import attention, blocks, model, moe, ssm
 from repro_torch.models.layers import mlp_apply
@@ -455,6 +467,14 @@ TRAIN_LAUNCH_STEPS = 3    # timed, after 1 warm-up step
 # carry 450e9 B/s each way (an H100's NVLink, NVIDIA's data sheet); a
 # uniform ring's W does not depend on the figure (every tau scales with
 # it). The cross-pod figure is unused with one pod.
+# The launcher's mesh paths at world size 1 over NCCL (train_mesh,
+# serve_mesh): Qwen2-0.5B, data_dp, 1 agent x 2 x 512 tokens, 1 warm-up +
+# 2 timed steps; 4 prompts of 8192 tokens, caches 8256 deep, 16 greedy
+# decode steps.
+TRAIN_MESH_SHAPE = ShapeConfig("train_mesh_512", 512, 2, "train")
+TRAIN_MESH_STEPS = 2
+SERVE_MESH = (4, 8192, 8256, 16)
+MESH_INIT_TIMEOUT_S = 120
 FABRIC_LINK_BW = 450e9
 FABRIC_CROSS_POD_BW = 50e9
 EIGH_M = 1000
@@ -1920,6 +1940,304 @@ def phase_train_launch(seed: int) -> dict:
         "smoke_modes": smoke, "checkpoint": ckpt,
     }
     emit("train_launch", **out)
+    return {**out, "mixing_matrix": art.mixing_matrix}
+
+
+# ---------------------------------------------------------------------------
+# D-PSGD across ranks (launch/mesh.py, launch/sharding.py, core/gossip.py):
+# the mesh paths at world size 1 over NCCL, the per-agent combine
+# ---------------------------------------------------------------------------
+
+
+def per_agent_flat_combine(seed: int, w: np.ndarray) -> dict:
+    """The kernel's per-agent form without momentum (what
+    ``gossip.mix_sparse_p2p`` launches on each rank) at the flat gossip
+    buffer of ``mix_sparse_flat``: all of Qwen2-0.5B raveled, bf16, x[N]
+    with the received shards recv[R, N], R the largest in-degree of
+    ``train_launch``'s W and that agent's row of W. Held against its plain
+    version at one bf16 ulp and the data-scaled limit, with a control that
+    drops one received row refused; timed over 20 launches beside its
+    byte bound, the plain version and one ``torch.addmm``."""
+    n = model.parameter_count(qwen2_0_5b.CONFIG)
+    idx, table = gossip.neighbor_table(w)
+    degree = (np.abs(table[:, 1:]) > 0).sum(axis=1)
+    agent = int(degree.argmax())
+    r = int(degree[agent])
+    nbrs = [int(j) for j in idx[agent, :r]]
+    weights = torch.tensor([w[agent, agent]] + [w[agent, j] for j in nbrs],
+                           dtype=torch.float32, device="cuda")
+    scale = 0.02
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    x = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    x.normal_(generator=gen).mul_(scale)
+    recv = torch.empty(r, n, dtype=torch.bfloat16, device="cuda")
+    recv.normal_(generator=gen).mul_(scale)
+    rtol, atol = combine_tolerance(torch.bfloat16, scale)
+    got = ops.mixing_sgd_combine(x, recv, weights)
+    want = ref.mixing_sgd_combine_ref(x, recv, weights)
+    err = assert_close(got, want, rtol, "per-agent flat combine", atol=atol)
+    del want
+    dropped = weights.clone()
+    dropped[1] = 0.0
+    faulty = ref.mixing_sgd_combine_ref(x, recv, dropped)
+    agree, _, refused = compare(got, faulty, rtol, atol)
+    if agree:
+        raise AssertionError(
+            "per-agent flat combine: the check cannot tell the kernel's "
+            "output from a mix with a received row dropped")
+    del faulty, got
+    torch.cuda.empty_cache()
+    ms = time_cuda(lambda: ops.mixing_sgd_combine(x, recv, weights),
+                   reps=TIMING_REPS)
+    plain_ms = time_cuda(
+        lambda: ref.mixing_sgd_combine_ref(x, recv, weights), reps=3)
+    w_bf = weights.to(torch.bfloat16)
+    x_row = x[None]
+    w0 = float(weights[0])
+    library_ms = time_cuda(
+        lambda: torch.addmm(x_row, w_bf[None, 1:], recv, beta=w0),
+        reps=TIMING_REPS)
+    moved = (r + 2) * n * x.element_size() + weights.numel() * 4
+    flops = 2 * (r + 1) * n
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    out = {
+        "form": "per-agent, momentum=None", "n": n, "neighbours": r,
+        "agent": agent, "dtype": "torch.bfloat16", "data_scale": scale,
+        "rtol": rtol, "atol": atol, "max_abs_err": err,
+        "dropped_row_refused_err_over_limit": refused,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "library_call": "torch.addmm(x, W_row, recv, beta=W_ii)",
+        "bytes_moved_once": moved, "flops": flops,
+        "achieved_bytes_per_s": moved / (ms * 1e-3),
+    }
+    emit("per_agent_flat_combine", **out)
+    del x, recv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_init():
+    """A (1, 1) ``DeviceMesh`` ("data", "model") over NCCL at world size 1,
+    from a ``file://`` rendezvous in a fresh temporary directory."""
+    rendezvous = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    mesh = launch_mesh.init_mesh(
+        (1, 1), ("data", "model"),
+        init_method=f"file://{os.path.join(rendezvous, 'store')}", rank=0,
+        world_size=1,
+        timeout=datetime.timedelta(seconds=MESH_INIT_TIMEOUT_S))
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"the mesh's process group is {backend}")
+    emit("mesh_init", seconds=time.perf_counter() - t0, backend=backend,
+         world_size=torch.distributed.get_world_size(),
+         axes=list(mesh.mesh_dim_names), shape=list(mesh.mesh.shape))
+    return mesh
+
+
+def phase_train_mesh(seed: int, mesh) -> dict:
+    """The launcher's mesh path (``build_train_artifacts`` on the
+    ``DeviceMesh``) for Qwen2-0.5B, unreduced, ``data_dp`` at microbatch 2,
+    1 agent x 2 x 512 tokens: 1 warm-up + 2 timed steps, the batch cut to
+    the rank's part by ``sharding.shard_tree``, the gradients summed over
+    the ``model`` group (a real NCCL all-reduce, counted by a spy). The
+    parameters, momentum and losses must equal bitwise the one-card
+    launcher's steps on a ``Mesh((1, 1))`` description from the same state
+    and batches. Then the flat gossip (``gossip.mix_sparse_flat``, one
+    agent, R = 0) on the run's parameters: exactly one launch of the
+    per-agent combine, its output bitwise the parameters (W = [1])."""
+    cfg = qwen2_0_5b.CONFIG
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(get_train_config("qwen2-0.5b"), microbatch=2)
+    arts = {
+        "mesh": train.build_train_artifacts(cfg, tcfg, TRAIN_MESH_SHAPE,
+                                            mesh),
+        "one_card": train.build_train_artifacts(
+            cfg, tcfg, TRAIN_MESH_SHAPE, launch_mesh.make_test_mesh((1, 1))),
+    }
+    stream = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_MESH_SHAPE.seq_len,
+        num_agents=1, dirichlet_alpha=0.3, seed=1))
+    batch_fn = make_batch_fn(stream, arts["mesh"].batch_shapes,
+                             cfg.vocab_size)
+    batches = [batch_fn(k) for k in range(1 + TRAIN_MESH_STEPS)]
+    reduced = []
+    real_reduce = train._reduce_gradients
+
+    def spy(grads, group):
+        reduced.append(torch.distributed.get_backend(group))
+        real_reduce(grads, group)
+
+    train._reduce_gradients = spy
+    runs = {}
+    for name, art in arts.items():
+        state = art.init_state(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_count()
+        steps = []
+        for batch in batches:
+            if name == "mesh":
+                batch = sharding.shard_tree(batch, art.batch_specs, mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = art.step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss,
+                          "step_ms": (time.perf_counter() - t) * 1e3})
+        runs[name] = {"state": state, "steps": steps,
+                      "launches": ops.launch_count("mixing_sgd_combine"),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    train._reduce_gradients = real_reduce
+    if reduced != ["nccl"] * len(batches):
+        raise AssertionError(
+            f"train_mesh: model-group gradient reductions {reduced}, not "
+            f"{len(batches)} over NCCL")
+    mine, one = runs["mesh"], runs["one_card"]
+    if [s["loss"] for s in mine["steps"]] != [s["loss"] for s in
+                                                 one["steps"]]:
+        raise AssertionError(
+            f"train_mesh: losses {mine['steps']} vs one card {one['steps']}")
+    for part in ("params", "opt"):
+        for (path, a), b in zip(tree_paths(mine["state"][part]),
+                                tree_leaves(one["state"][part])):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(
+                    f"train_mesh: {part}/{path} is not bitwise the one-card "
+                    "launcher's")
+    if mine["state"]["step"] != 1 + TRAIN_MESH_STEPS:
+        raise AssertionError(f"train_mesh: step {mine['state']['step']}")
+    if mine["launches"] or one["launches"]:
+        raise AssertionError("train_mesh: one agent launched a gossip")
+    params, one_steps = mine["state"]["params"], one["steps"]
+    del runs, one
+    torch.cuda.empty_cache()
+    ops.reset_launch_count()
+    schedule = gossip.build_schedule(np.eye(1))
+    mixed = gossip.mix_sparse_flat(params, schedule, mesh, ("data",))
+    flat_launches = ops.launch_count("mixing_sgd_combine")
+    if flat_launches != 1:
+        raise AssertionError(
+            f"mix_sparse_flat launched the combine {flat_launches} times")
+    for (path, a), b in zip(tree_paths(mixed), tree_leaves(params)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"mix_sparse_flat at W = [1] changed {path}")
+    timed = [s["step_ms"] for s in mine["steps"][1:]]
+    k, mb, s1 = arts["mesh"].batch_shapes["tokens"].shape[1:]
+    out = {
+        "config": cfg.name, "layout": tcfg.agent_layout, "mesh": [1, 1],
+        "backend": "nccl", "gossip": arts["mesh"].gossip,
+        "microbatches": k, "microbatch_size": mb, "seq_len": s1 - 1,
+        "steps": mine["steps"], "one_card_steps": one_steps,
+        "step_ms_mean_timed": float(np.mean(timed)),
+        "tokens_per_s": k * mb * (s1 - 1) / (np.mean(timed) * 1e-3),
+        "peak_memory_gb": mine["peak_gb"], "model_reductions": reduced,
+        "bitwise_one_card": True,
+        "flat_gossip_launches": flat_launches,
+        "flat_gossip_bitwise": True,
+    }
+    emit("train_mesh", **out)
+    del params, mixed
+    torch.cuda.empty_cache()
+    return out
+def greedy(prefill_fn, step_fn, params, inputs, steps: int):
+    """Prefill, then ``steps`` greedy decode steps: ``(logits of every
+    call, tokens fed, prefill seconds, decode step ms)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, inputs)
+    token = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    outs, tokens, step_ms = [logits], [token], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        logits, caches = step_fn(params, caches, token)
+        token = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(logits)
+        tokens.append(token)
+    del caches
+    return outs, torch.cat(tokens, dim=1), prefill_s, step_ms
+
+
+def phase_serve_mesh(seed: int, mesh) -> dict:
+    """The serve mesh path (``build_serve_artifacts(..., mesh=mesh)``, the
+    batch over "data", ``model`` = 1) at world size 1: Qwen2-0.5B at full
+    width, 4 prompts of 8192 tokens cut to the rank's rows by
+    ``sharding.shard_tree``, caches 8256 deep, 16 greedy decode steps.
+    Counters set to 0 just before and read just after: 24 ``wgmma`` flash
+    launches in the prefill and 24 x 16 ``mma`` decode launches. Every
+    logit and token must equal bitwise those of the one-card path
+    (``build_serve_artifacts(cfg, shape)``) on the same weights."""
+    cfg = qwen2_0_5b.CONFIG
+    b, prompt, max_len, steps = SERVE_MESH
+    arts = {
+        key: serve.build_serve_artifacts(
+            cfg, ShapeConfig("serve_mesh", max_len, b, kind), mesh=m)
+        for key, kind, m in (("prefill", "prefill", mesh),
+                             ("decode", "decode", mesh),
+                             ("one_card", "prefill", None))
+    }
+    params = serve_params(cfg, seed)
+    inputs = {"tokens": serve_prompts(cfg, b, seed, prompt)}
+    mine_inputs = sharding.shard_tree(inputs, arts["prefill"].input_specs,
+                                      mesh)
+    layers = attention_layers(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    logits, tokens, prefill_s, step_ms = greedy(
+        arts["prefill"].prefill_fn, arts["decode"].step_fn, params,
+        mine_inputs, steps)
+    launches = {name: ops.launch_count(name) for name in KERNELS}
+    flash_designs = flash_mod.launch_count_by_design()
+    decode_designs = decode_mod.launch_count_by_design()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": layers, "decode_attention": layers * steps,
+            "mixing_sgd_combine": 0}
+    if launches != want:
+        raise AssertionError(f"serve_mesh launches {launches}, not {want}")
+    if flash_designs != launches_by_design(flash_mod.DESIGNS, "wgmma",
+                                           layers) or \
+            decode_designs != launches_by_design(decode_mod.DESIGNS, "mma",
+                                                 layers * steps):
+        raise AssertionError(
+            f"serve_mesh designs {flash_designs} / {decode_designs}")
+    one_logits, one_tokens, one_prefill_s, one_step_ms = greedy(
+        arts["one_card"].prefill_fn, arts["one_card"].step_fn, params,
+        inputs, steps)
+    if not torch.equal(tokens, one_tokens):
+        raise AssertionError("serve_mesh: tokens differ from the one card's")
+    for i, (a, c) in enumerate(zip(logits, one_logits)):
+        if not torch.equal(a, c):
+            raise AssertionError(
+                f"serve_mesh: call {i}'s logits differ from the one card's")
+    if not bool(torch.isfinite(logits[-1]).all()) or tokens.shape != (
+            b, steps + 1):
+        raise AssertionError("serve_mesh: bad output")
+    out = {
+        "config": cfg.name, "mesh": [1, 1], "backend": "nccl", "batch": b,
+        "rows_here": int(mine_inputs["tokens"].shape[0]), "prompt": prompt,
+        "max_len": max_len, "decode_steps": steps,
+        "prefill_seconds": prefill_s,
+        "prefill_tokens_per_s": b * prompt / prefill_s,
+        "decode_step_ms": step_ms,
+        "decode_step_ms_mean_after_first": float(np.mean(step_ms[1:])),
+        "one_card_prefill_seconds": one_prefill_s,
+        "one_card_decode_step_ms_mean_after_first":
+            float(np.mean(one_step_ms[1:])),
+        "launches": launches, "flash_by_design": flash_designs,
+        "decode_by_design": decode_designs, "peak_memory_gb": peak_gb,
+        "bitwise_one_card": True, "sample": tokens[0].tolist(),
+    }
+    emit("serve_mesh", **out)
+    del params, logits, one_logits
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4163,6 +4481,20 @@ def main(argv=None) -> int:
             no_g_held["fewest_refused_err_over_limit"],
         "launches_train_launch": launched["kernel_launches"],
     }
+    flat = per_agent_flat_combine(args.seed, launched["mixing_matrix"])
+    mesh = phase_mesh_init()
+    trained_mesh = phase_train_mesh(args.seed, mesh)
+    served_mesh = phase_serve_mesh(args.seed, mesh)
+    torch.distributed.destroy_process_group()
+    kernels[0]["per_agent_flat"] = {
+        **{k: flat[k] for k in ("form", "n", "neighbours", "dtype", "ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_call", "max_abs_err",
+                                "dropped_row_refused_err_over_limit")},
+        "launches_train_mesh": trained_mesh["flat_gossip_launches"],
+    }
+    kernels[0]["launches_train_mesh"] = trained_mesh["flat_gossip_launches"]
+    kernels[0]["max_abs_err_per_agent_flat"] = flat["max_abs_err"]
     elastic = phase_elastic(args.seed)
     kernels[0]["launches_elastic"] = elastic["kernel_launches"]
     kernels[0]["max_abs_err_elastic"] = elastic["max_abs_err"]
@@ -4179,7 +4511,7 @@ def main(argv=None) -> int:
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"], designed["gate_max_abs_err"],
         designed["full_width_max_abs_err"], kernels[0]["no_g"]["max_abs_err"],
-        elastic["max_abs_err"])
+        elastic["max_abs_err"], flat["max_abs_err"])
     checks = {cfg.name: phase_serve_check(args.seed, cfg, b, s)
               for cfg, b, s in SERVE_CHECKS}
     serve_run = phase_serve(args.seed, args.profile)
@@ -4190,6 +4522,10 @@ def main(argv=None) -> int:
               "serve_llava": phase_serve_llava(args.seed),
               "serve_musicgen": phase_serve_musicgen(args.seed)}
     kernels += phase_attention_kernels(args.seed, serve_run, gemma2_run)
+    for kernel, designs in ((kernels[1], "flash_by_design"),
+                            (kernels[2], "decode_by_design")):
+        kernel["launches_serve_mesh"] = served_mesh["launches"][kernel["name"]]
+        kernel["launches_serve_mesh_by_design"] = served_mesh[designs]
     for key, run in {"serve_mixtral": mixtral_run, **served}.items():
         add_served(kernels[1], kernels[2], key, run)
     ffma = phase_ffma_times(args.seed, checks)

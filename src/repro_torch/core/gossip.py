@@ -1,23 +1,33 @@
-"""D-PSGD mixing over the stacked agent axis of one card.
+"""D-PSGD mixing, over the stacked agent axis of one card or across ranks.
 
 Counterpart of the JAX package's ``core/gossip.py``. The mixing step
 x_i ← Σ_j W_ij x_j is realized as
 
-  * ``mix_dense``     — einsum with W over the stacked agent axis
-    (float32 accumulate): the Clique/J communication pattern. Baseline.
-  * ``mix_allreduce`` — exact mean over agents (only valid for W = J).
-  * ``mix_sparse``    — ``neighbor_table(w)`` turns W's activated support
-    into the index/weight table that the kernel
+  * ``mix_dense``     — einsum with W over the agents (float32
+    accumulate): the Clique/J communication pattern. Baseline. With a
+    ``mesh`` each rank holds its agent's ``[1, …]`` leaves, gathers every
+    agent's over the agent group and keeps its row of W.
+  * ``mix_allreduce`` — exact mean over agents (only valid for W = J);
+    with a ``mesh``, one all-reduce over the agent group.
+  * ``mix_sparse``    — on one card: ``neighbor_table(w)`` turns W's
+    activated support into the index/weight table that the kernel
     ``kernels.ops.mixing_sgd_combine_stacked`` reads, one launch per leaf
-    (its form without a gradient term). On one card the agents are dim 0
-    of every leaf, so a "receive" is a read of the neighbour's row; both
-    multi-device forms of the reference (``mix_sparse_shardmap``,
-    ``mix_sparse_flat``) give these values per leaf, and wait for a
-    multi-card slice.
+    (its form without a gradient term); a "receive" is a read of the
+    neighbour's row.
+  * ``mix_sparse_p2p`` — across ranks, the counterpart of the reference's
+    ``mix_sparse_shardmap``: the ``GossipSchedule``'s rounds become
+    point-to-point sends and receives posted in one
+    ``batch_isend_irecv``, and each rank combines its own shard with what
+    it received through ``kernels.ops.mixing_sgd_combine`` (the
+    per-agent form without momentum), one launch per leaf. Each agent
+    ships κ bytes per activated out-edge.
+  * ``mix_sparse_flat`` — across ranks for parameters replicated over
+    ``slice_axes`` (the ``data_dp`` layout): the tree raveled to one
+    buffer, each replica gossiping only its slice, then gathered.
 
 ``build_schedule`` (pure numpy) returns the identical ``GossipSchedule``
-as the JAX package: it is what a multi-device exchange would replay and
-what ``gossip_collective_bytes`` prices.
+as the JAX package: what ``mix_sparse_p2p`` replays and what
+``gossip_collective_bytes`` prices.
 """
 
 from __future__ import annotations
@@ -27,9 +37,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_map
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +125,30 @@ def neighbor_table(
     return np.ascontiguousarray(idx), weights
 
 
-def mix_dense(params: Any, w: torch.Tensor) -> Any:
-    """x_i ← Σ_j W_ij x_j over the leading (stacked) agent axis."""
+def _agents_of(mesh, agent_axes: tuple[str, ...]) -> int:
+    sizes = mesh_lib.axis_sizes(mesh)
+    return int(np.prod([sizes[a] for a in agent_axes]))
+
+
+def mix_dense(params: Any, w: torch.Tensor, mesh=None,
+              agent_axes: tuple[str, ...] = ("data",)) -> Any:
+    """x_i ← Σ_j W_ij x_j over the leading (stacked) agent axis; with a
+    ``DeviceMesh``, over the ranks of ``agent_axes`` (leaves ``[1, …]``,
+    this rank's agent)."""
+    if mesh is None:
+        return tree_map(
+            lambda p: torch.einsum(
+                "ab,b...->a...", w.to(torch.float32), p.to(torch.float32)
+            ).to(p.dtype),
+            params,
+        )
+    row = w.to(torch.float32)[mesh_lib.agent_index(mesh, agent_axes)]
     return tree_map(
         lambda p: torch.einsum(
-            "ab,b...->a...", w.to(torch.float32), p.to(torch.float32)
-        ).to(p.dtype),
+            "b,b...->...", row,
+            torch.stack(mesh_lib.all_gather(p[0], mesh, agent_axes))
+            .to(torch.float32),
+        )[None].to(p.dtype),
         params,
     )
 
@@ -138,15 +168,145 @@ def mix_sparse(params: Any, idx: torch.Tensor, weights: torch.Tensor) -> Any:
     return tree_map(leaf, params)
 
 
-def mix_allreduce(params: Any) -> Any:
-    """W = J: plain averaging (classic data-parallel all-reduce)."""
-    return tree_map(
-        lambda p: p.to(torch.float32)
-        .mean(dim=0, keepdim=True)
-        .expand(p.shape)
-        .to(p.dtype),
-        params,
+def mix_allreduce(params: Any, mesh=None,
+                  agent_axes: tuple[str, ...] = ("data",)) -> Any:
+    """W = J: plain averaging (classic data-parallel all-reduce); with a
+    ``DeviceMesh``, one float32 all-reduce per leaf over the ranks of
+    ``agent_axes``."""
+    if mesh is None:
+        return tree_map(
+            lambda p: p.to(torch.float32)
+            .mean(dim=0, keepdim=True)
+            .expand(p.shape)
+            .to(p.dtype),
+            params,
+        )
+    m = _agents_of(mesh, agent_axes)
+    group = mesh_lib.axis_group(mesh, agent_axes)
+
+    def leaf(p):
+        total = p.to(torch.float32, copy=True)
+        dist.all_reduce(total, group=group)
+        return (total / m).to(p.dtype)
+
+    return tree_map(leaf, params)
+
+
+def _exchanges(schedule: GossipSchedule, agent: int):
+    """``([dst agents this agent sends to], [(src agent, W[agent, src])…])``
+    over the schedule's rounds, in round order."""
+    sends, recvs = [], []
+    for r, pairs in enumerate(schedule.rounds):
+        for src, dst in pairs:
+            if src == agent:
+                sends.append(dst)
+            if dst == agent:
+                recvs.append((src, schedule.weights[r][agent]))
+    return sends, recvs
+
+
+def mix_sparse_p2p(
+    params: Any,
+    schedule: GossipSchedule,
+    mesh,
+    agent_axes: tuple[str, ...],
+) -> Any:
+    """Sparse mixing across ranks from the ``GossipSchedule``.
+
+    ``mesh`` is a ``DeviceMesh`` whose ``agent_axes`` form the agent
+    space; each leaf of ``params`` is the calling rank's ``[1, …]`` shard.
+    For every round in which this rank's agent a is a source it sends its
+    shard to the destination's rank; for every round in which it is a
+    destination it receives the source's shard into the next row of one
+    contiguous ``recv [R_a, N]`` per leaf (R_a: a's in-degree, possibly
+    0). All of them go out in one ``batch_isend_irecv`` over the agent
+    group. Then one launch of ``mixing_sgd_combine`` per leaf:
+    ``W_aa·x + Σ_r W_a,src_r·recv[r]`` with the weights in round order,
+    as the reference adds them (float32 accumulation, one rounding to the
+    leaf's dtype). A round that skips a is not posted: the reference's
+    ppermute delivers zeros with weight 0 there.
+    """
+    m = schedule.num_agents
+    if _agents_of(mesh, agent_axes) != m:
+        raise ValueError(
+            f"agent axes {agent_axes} hold "
+            f"{_agents_of(mesh, agent_axes)} agents, the schedule {m}")
+    coords = mesh_lib.coordinate(mesh)
+    agent = mesh_lib.agent_index(mesh, agent_axes, coords)
+    peers = mesh_lib.axis_ranks(mesh, agent_axes, coords)
+    group = mesh_lib.axis_group(mesh, agent_axes)
+    sends, recvs = _exchanges(schedule, agent)
+    leaves = tree_leaves(params)
+    flats = [p.reshape(-1).contiguous() for p in leaves]
+    bufs = [
+        torch.empty((len(recvs), f.numel()), dtype=f.dtype, device=f.device)
+        for f in flats
+    ]
+    # One message per leaf and directed edge; both ends post the leaves in
+    # one order, rounds in round order.
+    p2p = []
+    for f, buf in zip(flats, bufs):
+        for dst in sends:
+            p2p.append(dist.P2POp(dist.isend, f, peers[dst], group))
+        for k, (src, _) in enumerate(recvs):
+            p2p.append(dist.P2POp(dist.irecv, buf[k], peers[src], group))
+    if p2p:
+        for work in dist.batch_isend_irecv(p2p):
+            work.wait()
+    weights = torch.tensor(
+        [schedule.self_weight[agent]] + [w for _, w in recvs],
+        dtype=torch.float32, device=flats[0].device,
     )
+    out = [
+        ops.mixing_sgd_combine(f, buf, weights).reshape(p.shape)
+        for p, f, buf in zip(leaves, flats, bufs)
+    ]
+    return tree_unflatten(params, out)
+
+
+def mix_sparse_flat(
+    params: Any,
+    schedule: GossipSchedule,
+    mesh,
+    agent_axes: tuple[str, ...],
+    slice_axes: tuple[str, ...] = ("model",),
+) -> Any:
+    """Sparse gossip for parameters REPLICATED over ``slice_axes`` (the
+    ``data_dp`` layout), across ranks.
+
+    The calling rank's ``[1, …]`` leaves are raveled into one buffer in
+    the wire dtype (the leaves' dtype when they share one, else float32)
+    and padded to a multiple of the slice count; this rank gossips only
+    its slice (``mix_sparse_p2p``: one combine launch), and the mixed
+    slices are gathered over ``slice_axes`` (``all_gather_into_tensor``)
+    and unraveled to the leaves' dtypes.
+    """
+    leaves = tree_leaves(params)
+    sizes = mesh_lib.axis_sizes(mesh)
+    n_slices = int(np.prod([sizes[a] for a in slice_axes]))
+    dtypes = {p.dtype for p in leaves}
+    wire = leaves[0].dtype if len(dtypes) == 1 else torch.float32
+    flat = torch.cat([p.reshape(-1).to(wire) for p in leaves])
+    pad = (-flat.numel()) % n_slices
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    chunk = flat.numel() // n_slices
+    s = mesh_lib.agent_index(mesh, slice_axes)
+    mixed = mix_sparse_p2p(
+        flat[s * chunk:(s + 1) * chunk][None], schedule, mesh, agent_axes)
+    del flat
+    # the group's ranks ascend with the index over slice_axes
+    gathered = torch.empty((n_slices * chunk,), dtype=wire,
+                           device=mixed.device)
+    dist.all_gather_into_tensor(
+        gathered, mixed.reshape(-1),
+        group=mesh_lib.axis_group(mesh, slice_axes))
+    out, off = [], 0
+    for p in leaves:
+        n = p.numel()
+        out.append(gathered[off:off + n].reshape(p.shape).to(p.dtype))
+        off += n
+    return tree_unflatten(params, out)
 
 
 def effective_mixing_matrix(w: np.ndarray, rounds: int = 1) -> np.ndarray:

@@ -10,7 +10,10 @@ Two entry points over one CUDA kernel (``csrc/mixing_combine.cu``):
 * ``mixing_sgd_combine(x, recv, weights, momentum, lr=)`` — one agent,
   the neighbours' shards delivered in ``recv[R, N]``; same signature and
   semantics as the TPU kernel, minus its ``block_n`` (any N is accepted,
-  the ragged tail is handled inside the kernel).
+  the ragged tail is handled inside the kernel). With ``momentum=None``
+  (and no ``lr``) it is the mix alone, ``W_ii·x + Σ_r W_ir·recv[r]``:
+  what the gossip across ranks (``core/gossip.mix_sparse_p2p``) launches
+  on each rank once the neighbours' shards have arrived.
 * ``mixing_sgd_combine_stacked(x, idx, weights, g, lr=)`` — all agents
   of one card at once, ``x[A, N]``; agent a's r-th neighbour is the row
   ``x[idx[a, r]]`` read in place, so no ``recv`` buffer is materialised.
@@ -136,11 +139,16 @@ def mixing_sgd_combine(
     x: torch.Tensor,         # [N] own parameters (flat shard)
     recv: torch.Tensor,      # [R, N] received neighbour shards, R ≥ 0
     weights: torch.Tensor,   # [R+1]: [W_ii, W_i,j1, ..., W_i,jR]
-    momentum: torch.Tensor,  # [N]
+    momentum: torch.Tensor | None = None,  # [N], or None: the mix alone
     *,
-    lr: float,
+    lr: float | None = None,  # the step on momentum; given exactly with it
 ) -> torch.Tensor:
-    lr = _check_lr(lr)
+    if (momentum is None) != (lr is None):
+        raise TypeError(
+            "lr scales momentum: pass both (the fused update) or neither "
+            "(the mix)"
+        )
+    lr = 0.0 if momentum is None else _check_lr(lr)
     if x.dim() != 1:
         raise ValueError(f"x must be [N], got {tuple(x.shape)}")
     n = x.shape[0]
@@ -153,7 +161,7 @@ def mixing_sgd_combine(
         raise ValueError(
             f"weights must be [{r + 1}], got {tuple(weights.shape)}"
         )
-    if tuple(momentum.shape) != (n,):
+    if momentum is not None and tuple(momentum.shape) != (n,):
         raise ValueError(
             f"momentum must be [{n}], got {tuple(momentum.shape)}"
         )

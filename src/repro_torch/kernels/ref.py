@@ -93,19 +93,21 @@ def mixing_sgd_combine_ref(
     x: torch.Tensor,
     recv: torch.Tensor,
     weights: torch.Tensor,
-    momentum: torch.Tensor,
+    momentum: torch.Tensor | None = None,
     *,
-    lr: float,
+    lr: float | None = None,
 ) -> torch.Tensor:
     """``W_ii·x + Σ_r W_{i,j_r}·recv[r] − lr·momentum`` for one agent.
 
     x ``[N]``, recv ``[R, N]``, weights ``[R+1]``, momentum ``[N]``;
-    float32 accumulation, one cast back to ``x.dtype``.
+    float32 accumulation, one cast back to ``x.dtype``. With
+    ``momentum=None`` the last term is absent (the mix alone).
     """
     w = weights.to(torch.float32)
     acc = x.to(torch.float32) * w[0]
     acc = acc + torch.einsum("r,rn->n", w[1:], recv.to(torch.float32))
-    acc = acc - lr * momentum.to(torch.float32)
+    if momentum is not None:
+        acc = acc - lr * momentum.to(torch.float32)
     return acc.to(x.dtype)
 
 

@@ -1,10 +1,10 @@
-"""Serving on one card: prefill and decode steps of the model zoo.
+"""Serving: prefill and decode steps of the model zoo, on one card or
+batch-parallel across ranks.
 
-Counterpart of the JAX package's ``launch/serve.py`` without its mesh and
-shardings (those wait with ``launch/mesh.py`` and ``sharding.py``, ROADMAP
-queue A): ``build_serve_artifacts(cfg, shape)`` returns both functions of
-one card's serving loop and the shapes of what they take, read from the
-``meta`` device in place of ``jax.eval_shape``:
+Counterpart of the JAX package's ``launch/serve.py``:
+``build_serve_artifacts(cfg, shape, device, mesh=None)`` returns both
+functions of the serving loop and the shapes of what they take, read from
+the ``meta`` device in place of ``jax.eval_shape``:
 
   prefill_fn(params, inputs)       -> (logits [B, 1, V], caches)
   step_fn(params, caches, token)   -> (logits [B, 1, V], caches)
@@ -19,6 +19,16 @@ the reference's: ``audio_codec`` takes codec token ids as ``tokens``;
 returns the same dict. Attention goes through the hand-written
 ``flash_attention`` (prefill) and ``decode_attention`` (decode) kernels on
 the card; the recurrent blocks' state is torch ops.
+
+With a ``DeviceMesh`` (``launch.mesh.init_mesh``) whose ``model`` axis is
+1, each rank serves its rows of the batch over ``("pod",) "data"`` with
+full weights and the caches of its rows: it feeds both functions its
+part of the inputs (``sharding.shard_tree(inputs, art.input_specs,
+mesh)``), B/|data| rows when B divides, else all B rows on every rank
+(the reference's ``role_axes["batch"] = ()``). ``input_specs``,
+``param_specs`` and ``cache_specs`` say which part each rank holds.
+Tensor parallelism (``model`` > 1, or weights split over ``data``) is
+ROADMAP item A7b and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,11 +36,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.models import model
+from repro_torch.models.sharding_hints import hints
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -40,16 +56,53 @@ class ServeArtifacts:
     param_shapes: Any      # tree of meta tensors
     cache_shapes: Any      # tree of meta tensors
     input_shapes: Any      # {"tokens": meta [B, S], ...} or meta token [B, 1]
+    param_specs: Any = None   # sharding.P trees on a DeviceMesh, else None
+    cache_specs: Any = None
+    input_specs: Any = None
+
+
+def _mesh_specs(cfg, b: int, mesh: DeviceMesh, param_shapes, cache_shapes,
+                input_shapes):
+    """``(role_axes, param_specs, cache_specs, input_specs)`` of the
+    batch-parallel mesh path; raises for what needs tensor parallelism."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    if sizes["model"] > 1:
+        raise NotImplementedError(
+            f"serving on a 'model' axis of {sizes['model']} (tensor "
+            "parallelism) is ROADMAP item A7b")
+    param_specs = sharding.param_specs_serve(param_shapes, mesh, cfg)
+    sharding.require_whole_leaves(param_specs, mesh)   # 2-D TP
+    batch_axes = mesh_lib.agent_axes(mesh, "data")   # ("pod",) "data"
+    bsz = int(np.prod([sizes[a] for a in batch_axes]))
+    split = b % bsz == 0 and b >= bsz
+    role_axes = {"batch": batch_axes if split else (), "tp": ("model",),
+                 "seq": ("model",)}
+    entry = (batch_axes if len(batch_axes) > 1 else batch_axes[0]) \
+        if split else None
+
+    def rows(t):
+        return sharding.P(entry, *([None] * (t.dim() - 1)))
+
+    if split:
+        # the reference's cache specs: batch over the batch axes, the rest
+        # over "model" (size 1)
+        cache_specs = sharding.cache_specs_serve(cache_shapes, mesh, cfg)
+    else:
+        cache_specs = tree_map(
+            lambda t: sharding.P(*([None] * t.dim())), cache_shapes)
+    return role_axes, param_specs, cache_specs, tree_map(rows, input_shapes)
 
 
 def build_serve_artifacts(
     cfg: ModelConfig,
     shape: ShapeConfig,
     device: str | torch.device | None = None,
+    mesh: DeviceMesh | None = None,
 ) -> ServeArtifacts:
     """Prefill and decode functions for ``cfg`` at ``shape`` on ``device``
-    (``None`` means CUDA and raises without a card). ``input_shapes`` is
-    the prompt for a ``prefill`` shape and one token per sequence for a
+    (``None`` means CUDA and raises without a card), for this rank's rows
+    of the batch on a ``DeviceMesh`` (module docstring). ``input_shapes``
+    is the prompt for a ``prefill`` shape and one token per sequence for a
     ``decode`` shape."""
     dev = compat.resolve_device(device)
     b, s = shape.global_batch, shape.seq_len
@@ -71,14 +124,19 @@ def build_serve_artifacts(
             "tokens": torch.empty((b, s), dtype=torch.int32, device=meta)
         }
     input_keys = ("tokens", "patch_embeds") if vision else ("tokens",)
+    specs = (None, None, None)
+    role_axes: dict = {}
+    if mesh is not None:
+        role_axes, *specs = _mesh_specs(
+            cfg, b, mesh, param_shapes, cache_shapes, input_shapes)
 
     def prefill_fn(params, inputs):
-        with torch.inference_mode():
+        with torch.inference_mode(), hints(role_axes):
             moved = {key: inputs[key].to(dev) for key in input_keys}
             return model.prefill(cfg, params, moved, max_len=s)
 
     def step_fn(params, caches, token):
-        with torch.inference_mode():
+        with torch.inference_mode(), hints(role_axes):
             return model.decode_step(cfg, params, caches, token.to(dev))
 
     return ServeArtifacts(
@@ -87,4 +145,7 @@ def build_serve_artifacts(
         param_shapes=param_shapes,
         cache_shapes=cache_shapes,
         input_shapes=input_shapes,
+        param_specs=specs[0],
+        cache_specs=specs[1],
+        input_specs=specs[2],
     )

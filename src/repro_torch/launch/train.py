@@ -1,25 +1,43 @@
-"""D-PSGD training step of the launcher, on one card.
+"""D-PSGD training step of the launcher, on one card or across ranks.
 
 Counterpart of the JAX package's ``launch/train.py``. One step per agent
 (paper eq. (2), compute ∥ exchange form):
 
-  1. per-agent gradients over the stacked agent axis — a loop over the
-     agents, so one agent's activations are alive at a time — with
-     gradient accumulation over ``microbatch`` chunks,
+  1. per-agent gradients — a loop over the agents, so one agent's
+     activations are alive at a time — with gradient accumulation over
+     ``microbatch`` chunks,
   2. local SGD-momentum update (``optim.sgd``),
-  3. gossip mixing of the parameters — sparse (one launch of the
-     ``mixing_sgd_combine`` kernel per leaf, neighbour rows read in
-     place), dense einsum, or all-reduce (W = J), per the designed mixing
-     matrix.
+  3. gossip mixing of the parameters — sparse, dense einsum, or
+     all-reduce (W = J), per the designed mixing matrix.
+
+``build_train_artifacts`` takes either kind of mesh (``launch/mesh.py``):
+
+* a ``Mesh`` description: all m agents on one card, stacked on dim 0 of
+  every leaf; the sparse gossip is one launch of the
+  ``mixing_sgd_combine`` kernel per leaf with neighbour rows read in
+  place (``gossip.mix_sparse``).
+* a ``DeviceMesh`` (``mesh.init_mesh``): each rank holds the leaves
+  ``[1, …]`` of one agent, whole — the layouts ``data_dp`` on any mesh
+  and ``data`` on a mesh whose ``model`` axis is 1. The step takes the
+  rank's part of the batch (``sharding.shard_tree(batch,
+  art.batch_specs, mesh)``): ``tokens[agent, :, model-slice, :]`` under
+  ``data_dp``, where each rank's gradients are accumulated in float32,
+  scaled to its share of the microbatch, cast to bf16 and summed over
+  the ``model`` group. The sparse gossip crosses ranks by point-to-point
+  exchanges (``gossip.mix_sparse_flat`` under ``data_dp``,
+  ``gossip.mix_sparse_p2p`` under ``data``); the loss in the metrics is
+  the mean over every rank. FSDP and tensor parallelism inside an agent
+  (``pod``, ``data`` with ``model`` > 1) raise ``NotImplementedError``
+  (ROADMAP item A7b).
 
 State: ``{"params": [A, ...], "opt": {"momentum": [A, ...]}, "step": int}``
-— stacked leading agent axis A on every leaf; the step counter is a
-Python int on the host, and so is the learning rate it selects.
+— A agents stacked (A = 1 on a rank); the step counter is a Python int on
+the host, and so is the learning rate it selects.
 
 ``build_train_artifacts`` returns the step function, the shapes of the
-state and the batch (``meta`` tensors), and ``init_state``. The
-reference's shardings, ``jit`` and ``lower`` have no counterpart on one
-card: every agent is a row of the stacked leaves (``launch/mesh.py``).
+state and the global batch (``meta`` tensors), their partition specs
+(``launch/sharding.py``), and ``init_state``. The reference's
+``NamedSharding``s, ``jit`` and ``lower`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -29,12 +47,16 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import dpsgd, gossip
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.models import model
+from repro_torch.models.sharding_hints import hints
 from repro_torch.optim import sgd
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -48,6 +70,8 @@ class TrainArtifacts:
     mixing_matrix: np.ndarray | None
     gossip: str                # resolved mode: none/allreduce/dense/sparse
     init_state: Callable[[int], Any]  # seed -> concrete state on device
+    param_specs: Any           # sharding.P per stacked parameter leaf
+    batch_specs: Any           # sharding.P per batch leaf (microbatch dim)
 
 
 def _batch_shapes(
@@ -107,28 +131,61 @@ def resolve_gossip(
     return mode, w_arr
 
 
+def _batch_specs(batch_shapes: dict, mesh, layout: str) -> dict:
+    """The reference's batch specs with the microbatch dim inserted."""
+    specs = sharding.batch_specs_train(
+        {k: torch.empty((v.shape[0], *v.shape[2:]), device="meta")
+         for k, v in batch_shapes.items()},
+        mesh, layout,
+    )
+    return {k: sharding.P(spec[0], None, *spec[1:])
+            for k, spec in specs.items()}
+
+
+def _reduce_gradients(grads, group) -> None:
+    """Sum every gradient leaf over ``group`` in place (the ``model``
+    group under ``data_dp``)."""
+    for g in tree_leaves(grads):
+        dist.all_reduce(g, group=group)
+
+
 def build_train_artifacts(
     cfg: ModelConfig,
     tcfg: TrainConfig,
     shape: ShapeConfig,
-    mesh: mesh_lib.Mesh,
+    mesh: mesh_lib.Mesh | DeviceMesh,
     mixing_matrix: np.ndarray | None = None,
     learning_rate: Callable[[int], float] | None = None,
     device: str | torch.device | None = None,
 ) -> TrainArtifacts:
     """Assemble the train step for one (arch × shape) cell on ``device``
-    (``None`` means CUDA and raises without a card).
+    (``None`` means CUDA and raises without a card): all agents on one
+    card for a ``Mesh`` description, this rank's agent for a
+    ``DeviceMesh`` (whose device type must match ``device``).
 
     ``mixing_matrix`` must be m×m for m = number of agents implied by the
     layout and mesh; None ⇒ identity (no gossip; m=1 cells).
     ``learning_rate(step)`` is a host function (``optim.schedule``).
     """
     dev = compat.resolve_device(device)
-    m = mesh_lib.num_agents(mesh, tcfg.agent_layout)
+    layout = tcfg.agent_layout
+    m = mesh_lib.num_agents(mesh, layout)
     if mixing_matrix is not None and mixing_matrix.shape[0] != m:
         raise ValueError(
             f"mixing matrix is {mixing_matrix.shape[0]}x…, layout implies m={m}"
         )
+    state_shapes = _stacked_state_shapes(cfg, m)
+    batch_shapes = _batch_shapes(cfg, shape, m, tcfg.microbatch)
+    param_specs = sharding.param_specs_train(
+        state_shapes["params"], mesh, layout)
+    batch_specs = _batch_specs(batch_shapes, mesh, layout)
+    on_ranks = isinstance(mesh, DeviceMesh)
+    if on_ranks:
+        if layout == "pod":
+            raise NotImplementedError(
+                "the 'pod' layout (FSDP + TP inside one agent) is ROADMAP "
+                "item A7b")
+        sharding.require_whole_leaves(param_specs, mesh, from_dim=1)
     mode, w_arr = resolve_gossip(tcfg.gossip, mixing_matrix, m)
     plan = dpsgd.mixing_plan(w_arr, dev) if w_arr is not None else None
     lr_fn = learning_rate or (lambda step: tcfg.learning_rate)
@@ -140,9 +197,11 @@ def build_train_artifacts(
         torch.bfloat16 if tcfg.agent_layout == "data_dp" else torch.float32
     )
 
-    def grads_fn(params, batch):
+    def grads_fn(params, batch, share: float = 1.0):
         """Per-agent mean losses ``[A]`` and gradients accumulated over the
-        k microbatches (``a + g.f32 / k``), stacked like ``params``."""
+        k microbatches (``a + g.f32 / k``; each ``g`` scaled by ``share``
+        first when the batch holds that share of every microbatch),
+        stacked like ``params``."""
         leaves = tree_leaves(params)
         n_agents, k = batch["tokens"].shape[:2]
         grads = [
@@ -166,7 +225,10 @@ def build_train_artifacts(
                     loss_acc = loss_acc + loss.detach() / k
                     for buf, gi in zip(acc, g):
                         if gi is not None:
-                            buf.add_(gi.to(torch.float32) / k)
+                            gi = gi.to(torch.float32)
+                            if share != 1.0:
+                                gi = gi * share
+                            buf.add_(gi / k)
                 del loss, g
             with torch.no_grad():
                 for out, buf in zip(grads, acc):
@@ -199,18 +261,86 @@ def build_train_artifacts(
         new_state = {"params": new_params, "opt": new_opt, "step": step + 1}
         return new_state, {"loss": loss.mean(), "lr": lr}
 
+    if on_ranks:
+        step_fn = _mesh_step(
+            mesh, layout, mode, w_arr, plan, batch_specs, grads_fn, lr_fn,
+            tcfg.momentum, dev)
+    agents_here = 1 if on_ranks else m
+
     def init_state(seed: int) -> dict:
         """Identical init across agents (standard D-PSGD start): one
-        ``model.init`` from ``seed``, stacked m times."""
-        params = dpsgd.replicate_for_agents(model.init(cfg, seed, device=dev), m)
+        ``model.init`` from ``seed``, stacked for the agents held here
+        (all m on one card, this rank's one on a ``DeviceMesh``)."""
+        params = dpsgd.replicate_for_agents(
+            model.init(cfg, seed, device=dev), agents_here)
         return {"params": params, "opt": sgd.init(params), "step": 0}
 
     return TrainArtifacts(
         step_fn=step_fn,
-        state_shapes=_stacked_state_shapes(cfg, m),
-        batch_shapes=_batch_shapes(cfg, shape, m, tcfg.microbatch),
+        state_shapes=state_shapes,
+        batch_shapes=batch_shapes,
         num_agents=m,
         mixing_matrix=w_arr,
         gossip=mode,
         init_state=init_state,
+        param_specs=param_specs,
+        batch_specs=batch_specs,
     )
+
+
+def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, grads_fn,
+               lr_fn, momentum, dev) -> Callable:
+    """The step of one rank of a ``DeviceMesh`` (module docstring)."""
+    agent_axes = mesh_lib.agent_axes(mesh, layout)
+    sizes = mesh_lib.axis_sizes(mesh)
+    # data_dp: each "model" rank holds 1/M of every microbatch and the
+    # gradients are summed over the "model" group; unsplit, none is.
+    split = batch_specs["tokens"][2]
+    share, reduce_group = 1.0, None
+    if split is not None:
+        share = 1.0 / sizes[split]
+        reduce_group = mesh_lib.axis_group(mesh, (split,))
+    schedule = gossip.build_schedule(w_arr) if mode == "sparse" else None
+    # The reference's activation hints per layout: the batch role on the
+    # repurposed "model" axis (data_dp) or nowhere (data).
+    role_axes = {"batch": ("model",) if layout == "data_dp" else (),
+                 "tp": () if layout == "data_dp" else ("model",),
+                 "seq": () if layout == "data_dp" else ("model",)}
+    world = dist.get_world_size()
+
+    def mix_fn(params):
+        with torch.no_grad():
+            if mode == "allreduce":
+                return gossip.mix_allreduce(params, mesh, agent_axes)
+            if mode == "dense":
+                return gossip.mix_dense(params, plan.w, mesh, agent_axes)
+            if mode == "sparse" and layout == "data_dp":
+                # Replicated over "model": gossip the raveled tree, each
+                # replica its slice.
+                return gossip.mix_sparse_flat(
+                    params, schedule, mesh, agent_axes, ("model",))
+            if mode == "sparse":
+                return gossip.mix_sparse_p2p(
+                    params, schedule, mesh, agent_axes)
+            return params
+
+    def step_fn(state, batch):
+        """``batch`` is this rank's part of the global batch."""
+        params, opt, step = state["params"], state["opt"], state["step"]
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        with hints(role_axes):
+            loss, grads = grads_fn(params, batch, share)
+        if reduce_group is not None:
+            _reduce_gradients(grads, reduce_group)
+        lr = sgd.host_lr(lr_fn(step))
+        new_params, new_opt = sgd.update(
+            grads, opt, params, lr, momentum=momentum
+        )
+        del grads
+        new_params = mix_fn(new_params)
+        loss = loss.mean()
+        dist.all_reduce(loss)   # equal shares: the mean over every rank
+        new_state = {"params": new_params, "opt": new_opt, "step": step + 1}
+        return new_state, {"loss": loss / world, "lr": lr}
+
+    return step_fn

@@ -32,6 +32,7 @@ import torch.utils.checkpoint
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, layers
+from repro_torch.models.sharding_hints import constrain
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -123,6 +124,8 @@ def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
     pattern = cfg.block_pattern
 
     def group_body(x, gp):
+        # Group boundaries are batch-pinned only, as in the reference.
+        x = constrain(x, ("batch", None, None))
         aux_tot = blocks.no_aux(x.device)
         for i, kind in enumerate(pattern):
             x, aux = blocks.apply_train(gp[f"b{i}_{kind}"], x, cfg, kind)

@@ -17,9 +17,9 @@ Where the port departs from the reference's calls, not its results:
 * The gathers index rows (``x[rows, idx]``), never ``torch.gather`` with
   an index expanded to ``d``: at the served prefill that index alone would
   be ``[4, 20480, 4096]`` int64, 2.7 GB.
-* The reference's ``constrain(...)`` calls are left out: they are GSPMD
-  sharding hints, the identity on one card. They come back with
-  ``models/sharding_hints.py`` in the multi-card slice (ROADMAP queue A).
+* ``constrain(...)`` stands where the reference pins the batch dim of
+  the dispatch buffers; on the port's local tensors it is the identity
+  (``models/sharding_hints.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models.sharding_hints import constrain
 
 # Above this many elements of one expert's [cap, d_ff] intermediate the
 # experts run one after another (the same flops, E× less live memory), as
@@ -129,14 +130,14 @@ def apply(
     b, n, d = x.shape
     e = spec.num_experts
     cap = capacity(n, spec)
-    xt = x.to(compute_dtype)
+    xt = constrain(x.to(compute_dtype), ("batch", None, None))
     router_logits, probs, gate_vals, expert_idx = route(params, xt, spec)
     token_for_slot, slot_for_choice = dispatch_indices(expert_idx, cap, e)
     rows = torch.arange(b, device=x.device)[:, None]
 
     # ---- dispatch gather -------------------------------------------------
     xin = _pad_row(xt)[rows, token_for_slot.long()]           # [b, E·C, d]
-    xin = xin.reshape(b, e, cap, d)
+    xin = constrain(xin, ("batch", None, None)).reshape(b, e, cap, d)
 
     # ---- expert SwiGLU ---------------------------------------------------
     # Each weight is cast to the compute dtype where it is used, so at most
@@ -157,11 +158,14 @@ def apply(
             torch.einsum("becd,edf->becf", xin, w("up")))
         yout = torch.einsum("becf,efd->becd", h, w("down"))
 
+    yout = constrain(yout.reshape(b, e * cap, d), ("batch", None, None))
+
     # ---- combine gather ---------------------------------------------------
-    per_choice = _pad_row(yout.reshape(b, e * cap, d))[
+    per_choice = _pad_row(yout)[
         rows, slot_for_choice.long()
     ].reshape(b, n, spec.top_k, d)
     y = torch.einsum("bnk,bnkd->bnd", gate_vals.to(compute_dtype), per_choice)
+    y = constrain(y, ("batch", None, None))
 
     if not with_aux:
         return y, None

@@ -3,7 +3,9 @@
 The JAX package leans on ``jax.tree``; the port's parameters are plain
 nested dicts of tensors and need only map / leaves / flatten. Dicts are
 walked in insertion order (``jax.tree`` sorts keys; the order only has
-to be consistent within the port).
+to be consistent within the port). A tuple subclass whose class sets
+``tree_leaf = True`` (``launch.sharding.P``) is a leaf, as a
+``PartitionSpec`` is to ``jax.tree``.
 """
 
 from __future__ import annotations
@@ -11,8 +13,8 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
-def _is_node(x: Any) -> bool:
-    return isinstance(x, (dict, list, tuple))
+def _is_seq(x: Any) -> bool:
+    return isinstance(x, (list, tuple)) and not getattr(x, "tree_leaf", False)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -24,7 +26,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {
             k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()
         }
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         for other in rest:
             if len(other) != len(tree):
                 raise ValueError("tree_map: sequence lengths differ")
@@ -38,7 +40,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [l for v in tree.values() for l in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [l for v in tree for l in tree_leaves(v)]
     return [tree]
 
@@ -56,7 +58,7 @@ def tree_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     """``[(slash/joined/path, leaf), …]`` in ``tree_leaves`` order."""
     if isinstance(tree, dict):
         items = tree.items()
-    elif isinstance(tree, (list, tuple)):
+    elif _is_seq(tree):
         items = enumerate(tree)
     else:
         return [(prefix, tree)]
@@ -65,3 +67,19 @@ def tree_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
         for k, v in items
         for pl in tree_paths(v, f"{prefix}/{k}" if prefix else str(k))
     ]
+
+
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` leaf-wise, ``path`` as ``tree_paths`` gives it."""
+    if isinstance(tree, dict):
+        return {
+            k: tree_map_with_path(fn, v, f"{prefix}/{k}" if prefix else str(k))
+            for k, v in tree.items()
+        }
+    if _is_seq(tree):
+        out = [
+            tree_map_with_path(fn, v, f"{prefix}/{i}" if prefix else str(i))
+            for i, v in enumerate(tree)
+        ]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    return fn(prefix, tree)

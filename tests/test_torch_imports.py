@@ -69,7 +69,8 @@ def test_package_has_the_slices_modules():
         "repro_torch.runtime.events", "repro_torch.runtime.faultinject",
         "repro_torch.runtime.stragglers", "repro_torch.runtime.compression",
         "repro_torch.runtime.fault_tolerance",
-        "repro_torch.runtime.design_service",
+        "repro_torch.runtime.design_service", "repro_torch.launch.sharding",
+        "repro_torch.models.sharding_hints",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention_wgmma",
@@ -155,6 +156,7 @@ def test_ast_scan(path):
 LAUNCHER_SLICE = (
     "optim/__init__.py", "optim/sgd.py", "optim/schedule.py",
     "optim/adamw.py", "launch/mesh.py", "launch/fabric.py", "launch/train.py",
+    "launch/sharding.py", "launch/serve.py", "models/sharding_hints.py",
     "data/pipeline.py", "checkpoint/__init__.py", "checkpoint/checkpoint.py",
 )
 

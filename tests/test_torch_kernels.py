@@ -272,3 +272,52 @@ def test_mix_sparse_is_one_g_free_call_per_leaf(monkeypatch):
     torch.testing.assert_close(got["a"], want["a"], rtol=FP32_TOL, atol=FP32_TOL)
     torch.testing.assert_close(got["b"]["c"], want["b"]["c"], rtol=FP32_TOL,
                                atol=FP32_TOL)
+
+
+PER_AGENT_MIX_CASES = [(1 << 16, 3), (1 << 14, 1), (65537, 6), (1001, 0)]
+
+
+@pytest.mark.parametrize("n,r", PER_AGENT_MIX_CASES)
+def test_per_agent_plain_without_momentum_is_the_mix(n, r):
+    """``momentum=None`` (the gossip across ranks' combine) is bitwise the
+    fused form with zero momentum, and holds against the JAX package's
+    oracle and its Pallas kernel in interpret mode at ``lr = 0``."""
+    x, recv, w, _ = _inputs(n + 7 * r, n, r)
+    zeros = np.zeros_like(x)
+    got = ops.mixing_sgd_combine(*(torch.from_numpy(a) for a in (x, recv, w)))
+    fused = ref.mixing_sgd_combine_ref(
+        *(torch.from_numpy(a) for a in (x, recv, w, zeros)), lr=0.1)
+    assert torch.equal(got, fused)
+    args = [jnp.asarray(a) for a in (x, recv, w, zeros)]
+    exp = jax_ref.mixing_sgd_combine_ref(*args, lr=0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    if n % 1024 == 0:
+        exp = pallas_combine(*args, lr=0.0, block_n=1024, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp),
+                                   rtol=FP32_TOL, atol=FP32_TOL)
+
+
+def test_per_agent_bf16_without_momentum():
+    x, recv, w, _ = _inputs(9, 1 << 12, 3)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    rb = torch.from_numpy(recv).to(torch.bfloat16)
+    got = ops.mixing_sgd_combine(xb, rb, torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16
+    exp = jax_ref.mixing_sgd_combine_ref(
+        jnp.asarray(x).astype(jnp.bfloat16),
+        jnp.asarray(recv).astype(jnp.bfloat16), jnp.asarray(w),
+        jnp.zeros(x.shape, jnp.bfloat16), lr=0.0)
+    np.testing.assert_allclose(
+        got.to(torch.float32).numpy(), np.asarray(exp).astype(np.float32),
+        rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("case", ["momentum_without_lr", "lr_without_momentum"])
+def test_per_agent_lr_goes_with_momentum(case):
+    x, recv, w = torch.zeros(8), torch.zeros(2, 8), torch.zeros(3)
+    with pytest.raises(TypeError, match="lr scales momentum"):
+        if case == "momentum_without_lr":
+            ops.mixing_sgd_combine(x, recv, w, torch.zeros(8))
+        else:
+            ops.mixing_sgd_combine(x, recv, w, lr=0.1)
