@@ -34,6 +34,15 @@ points a user calls:
   the one-card step, ``gossip.mix_sparse_flat`` launching the combine
   once, and the serve mesh path (4 prompts of 8192 tokens, 16 greedy
   steps) bitwise the one-card serving path;
+* tensor parallelism over "model" inside an agent — two rank processes
+  sharing the card on a (1, 2) ``DeviceMesh`` over gloo (NCCL refuses two
+  ranks on one device; every collective staged through pinned host
+  memory, so a check of values, not of TP speed): Qwen2-0.5B's ``data``
+  layout at full width (7 / 1 heads, 75 968 vocabulary rows and 2432 FFN
+  columns a rank) held to the one-card launcher step, and Mixtral-8x7B at
+  8 layers served at 16 / 4 heads and 7168 expert columns a rank, held to
+  the one-card path by the median-position rule; both attention kernels
+  timed alone at the TP-local shapes;
 * the runtime — ``examples/elastic_failover.py`` at full width:
   Qwen2-0.5B x 8 agents trained by D-PSGD while
   ``runtime.design_service`` (pricing on the card's torch engine)
@@ -81,7 +90,8 @@ exits non-zero.
 Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
 ``train``, ``train_launch``, ``per_agent_flat_combine``, ``mesh_init``,
-``train_mesh``, ``serve_mesh``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
+``train_mesh``, ``serve_mesh``, ``train_tp``, ``serve_tp``,
+``tp_local_attention``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
 ``serve_gemma2``, ``moe_layer_check``, ``mixtral_attention``,
 ``serve_check`` (Mixtral float32 at 2 layers), ``serve_mixtral``,
@@ -161,7 +171,14 @@ from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.launch import fabric, serve, sharding, train
 from repro_torch.launch import mesh as launch_mesh
-from repro_torch.models import attention, blocks, model, moe, ssm
+from repro_torch.models import (
+    attention,
+    blocks,
+    model,
+    moe,
+    sharding_hints,
+    ssm,
+)
 from repro_torch.models.layers import mlp_apply
 from repro_torch.net import (
     MarkovLinkModel,
@@ -180,6 +197,7 @@ from repro_torch.net import (
 )
 from repro_torch.net.stochastic import densify_realizations
 from repro_torch.net.topology import Graph
+from repro_torch.optim import sgd
 from repro_torch.paper import fig5_training
 from repro_torch.paper import priced_training as paper_gate
 from repro_torch.paper import scenario as paper
@@ -2242,6 +2260,554 @@ def phase_serve_mesh(seed: int, mesh) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism inside an agent: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# Two ranks along "model" on the one card. NCCL refuses two ranks of one
+# communicator on one device, so their collectives go through gloo, staged
+# through pinned host memory: a check of values at the TP-local shapes, not
+# a measure of tensor parallelism's speed.
+TP_MESH = (1, 2)
+TP_TIMEOUT_S = 600
+# train_tp: Qwen2-0.5B in the data layout (each leaf split over "model")
+# at microbatch 2, 1 agent x 2 x 512 tokens, 1 warm-up + 2 timed steps;
+# held to the one-card step: losses rtol 5e-3 (two bf16 forwards summed in
+# another order), parameters within combine_tolerance's bf16 limit.
+TP_TRAIN_STEPS = 2
+TP_LOSS_RTOL = 5e-3
+# serve_tp: Mixtral-8x7B at full width and 8 of its 32 layers, capacity
+# 4.0 (no drops, so decoding equals the teacher-forced forward), 2 prompts
+# of 8192 tokens and 8 decode steps teacher-forced on the one-card path's
+# greedy tokens.
+TP_SERVE_CFG = dataclasses.replace(mixtral_8x7b.CONFIG, num_layers=8,
+                                   capacity_factor=4.0)
+TP_SERVE = (2, 8192, 8192 + 8, 8)
+
+
+def tp_train_config():
+    return dataclasses.replace(get_train_config("qwen2-0.5b"),
+                               agent_layout="data", microbatch=2)
+
+
+def tp_batches(cfg, art) -> list:
+    """The phase's batches: TRAIN_MESH_SHAPE's stream, 1 + TP_TRAIN_STEPS."""
+    stream = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_MESH_SHAPE.seq_len,
+        num_agents=1, dirichlet_alpha=0.3, seed=1))
+    batch_fn = make_batch_fn(stream, art.batch_shapes, cfg.vocab_size)
+    return [batch_fn(k) for k in range(1 + TP_TRAIN_STEPS)]
+
+
+def own_wo_partial(rank: int):
+    """The control: on ``rank`` 0, attention keeps its own partial sum
+    after ``wo`` (it still joins the all-reduce, so the other rank does not
+    wait), put in here by swapping attention's view of ``models.layers``."""
+    real = attention.layers
+    if rank != 0:
+        return real
+
+    def keep_own(params, x, compute_dtype, partial):
+        y = real.row_split_apply(params, x, compute_dtype, False)
+        if partial:
+            sharding_hints.reduce_from_tp(y)
+        return y
+
+    faulty = {k: getattr(real, k) for k in dir(real) if not k.startswith("__")}
+    faulty["row_split_apply"] = keep_own
+    return types.SimpleNamespace(**faulty)
+
+
+def tp_rank_train(mesh, rank: int, work: str, seed: int) -> dict:
+    """One rank of train_tp: the launcher's ``data`` layout step on the
+    ``DeviceMesh`` (its half of every split leaf), then the sparse gossip
+    at W = [1] (``gossip.mix_sparse_p2p``: one combine launch a leaf, the
+    leaf unchanged); then the control from the same start. Rank 0 saves
+    the whole trees (``gather_tree``) of both runs."""
+    cfg, tcfg = qwen2_0_5b.CONFIG, tp_train_config()
+    art = train.build_train_artifacts(cfg, tcfg, TRAIN_MESH_SHAPE, mesh,
+                                      np.eye(1))
+    batches = tp_batches(cfg, art)
+    schedule = gossip.build_schedule(np.eye(1))
+
+    def run():
+        state = art.init_state(seed)
+        steps = []
+        for batch in batches:
+            local = sharding.shard_tree(batch, art.batch_specs, mesh)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = art.step_fn(state, local)
+            state["params"] = gossip.mix_sparse_p2p(
+                state["params"], schedule, mesh, ("data",))
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss,
+                          "step_ms": (time.perf_counter() - t) * 1e3})
+        return state, steps
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    state, steps = run()
+    launches = {name: ops.launch_count(name) for name in KERNELS}
+    leaves = len(tree_leaves(state["params"]))
+    want = {"mixing_sgd_combine": leaves * len(batches),
+            "flash_attention": 0, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"train_tp rank {rank}: launches {launches}, "
+                             f"not {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    whole = sharding.gather_tree(state["params"], art.param_specs, mesh)
+    if rank == 0:
+        torch.save(tree_map(lambda t: t.cpu(), whole),
+                   os.path.join(work, "params.pt"))
+    del state, whole
+    real_layers, attention.layers = attention.layers, own_wo_partial(rank)
+    control, control_steps = run()
+    attention.layers = real_layers
+    whole = sharding.gather_tree(control["params"], art.param_specs, mesh)
+    if rank == 0:
+        torch.save(tree_map(lambda t: t.cpu(), whole),
+                   os.path.join(work, "control_params.pt"))
+    return {"steps": steps, "control_steps": control_steps,
+            "launches": launches, "leaves": leaves, "peak_memory_gb": peak_gb,
+            "local_shapes": {path: list(p.shape) for path, p in tree_paths(
+                control["params"]) if path.endswith(("wq/kernel",
+                                                     "embed/table"))}}
+
+
+def tp_rank_serve(mesh, rank: int, work: str, seed: int) -> dict:
+    """One rank of serve_tp: its part of Mixtral's weights (the two ranks
+    draw the whole tree from the one-card seed in turn and keep their
+    part), a prefill of the phase's prompts and the decode steps fed the
+    one-card path's tokens, then the control. Rank 0 saves the logits of
+    both runs; each rank asserts its launches by design and the shapes the
+    flash kernel saw."""
+    cfg = TP_SERVE_CFG
+    b, prompt, max_len, steps = TP_SERVE
+    arts = [serve.build_serve_artifacts(
+        cfg, ShapeConfig("serve_tp", max_len, b, kind), mesh=mesh)
+        for kind in ("prefill", "decode")]
+    params = None
+    for turn in range(2):
+        if turn == rank:
+            whole = serve_params(cfg, seed)
+            params = tree_map(lambda t: t.clone(), sharding.shard_tree(
+                whole, arts[0].param_specs, mesh))
+            del whole
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    given = torch.load(os.path.join(work, "inputs.pt"))
+    toks, fed = given["prompt"].to("cuda"), given["fed"].to("cuda")
+    inputs = sharding.shard_tree({"tokens": toks}, arts[0].input_specs, mesh)
+    seen, real_flash = [], ops.flash_attention
+
+    def spy(q, *args, **kwargs):
+        seen.append(list(q.shape))
+        return real_flash(q, *args, **kwargs)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = arts[0].prefill_fn(params, inputs)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, step_ms = [logits[:, 0].float()], []
+        for t in range(steps):
+            t1 = time.perf_counter()
+            logits, caches = arts[1].step_fn(params, caches,
+                                             fed[:, t:t + 1])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            out.append(logits[:, 0].float())
+        kv_heads = {key: c["k"].shape[3] for key, c in caches.items()}
+        del caches
+        return torch.stack(out, dim=1), prefill_s, step_ms, kv_heads
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    ops.flash_attention = spy
+    logits, prefill_s, step_ms, kv_heads = run()
+    ops.flash_attention = real_flash
+    launches = {name: ops.launch_count(name) for name in KERNELS}
+    flash_designs = flash_mod.launch_count_by_design()
+    decode_designs = decode_mod.launch_count_by_design()
+    layers = attention_layers(cfg)
+    local_q = [b, cfg.num_heads // TP_MESH[1], prompt,
+               cfg.resolved_head_dim]
+    if seen != [local_q] * layers or flash_designs != launches_by_design(
+            flash_mod.DESIGNS, "wgmma", layers) or \
+            decode_designs != launches_by_design(
+                decode_mod.DESIGNS, "mma", layers * steps) or \
+            launches["mixing_sgd_combine"]:
+        raise AssertionError(
+            f"serve_tp rank {rank}: flash saw {seen}, designs "
+            f"{flash_designs} / {decode_designs}, launches {launches}")
+    if set(kv_heads.values()) != {cfg.num_kv_heads // TP_MESH[1]}:
+        raise AssertionError(f"serve_tp rank {rank}: cache heads {kv_heads}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        torch.save(logits.cpu(), os.path.join(work, "logits.pt"))
+    real_layers, attention.layers = attention.layers, own_wo_partial(rank)
+    control = run()[0]
+    attention.layers = real_layers
+    if rank == 0:
+        torch.save(control.cpu(), os.path.join(work, "control_logits.pt"))
+    return {"prefill_seconds": prefill_s, "decode_step_ms": step_ms,
+            "launches": launches, "flash_by_design": flash_designs,
+            "decode_by_design": decode_designs, "flash_q": seen[0],
+            "cache_kv_heads": cfg.num_kv_heads // TP_MESH[1],
+            "peak_memory_gb": peak_gb}
+
+
+def tp_rank_main(phase: str, rank: int, work: str, seed: int) -> None:
+    """A rank process of ``train_tp`` / ``serve_tp`` (started by
+    ``run_tp_ranks``): a (1, 2) mesh over gloo on the one card, its
+    report in ``work/rank{rank}.json``."""
+    mesh = launch_mesh.init_mesh(
+        TP_MESH, ("data", "model"), backend="gloo",
+        init_method=f"file://{os.path.join(work, 'rendezvous')}", rank=rank,
+        world_size=TP_MESH[0] * TP_MESH[1],
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    fn = tp_rank_train if phase == "train_tp" else tp_rank_serve
+    report = fn(mesh, rank, work, seed)
+    report["backend"] = torch.distributed.get_backend()
+    emit(f"{phase}_rank", rank=rank, **{k: report[k] for k in (
+        "launches", "peak_memory_gb", "backend")})
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def run_tp_ranks(phase: str, work: str, seed: int) -> list[dict]:
+    """Start the two rank processes of ``phase`` on the card and wait for
+    both: if one fails or the time runs out, the other is killed and the
+    phase raises with both logs' ends. Returns their reports."""
+    world = TP_MESH[0] * TP_MESH[1]
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in
+            range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", phase,
+         str(r), work, "--seed", str(seed)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while any(p.poll() is None for p in procs) and \
+            time.monotonic() < deadline and \
+            all(p.poll() in (None, 0) for p in procs):
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    if any(p.returncode for p in procs):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (exit {procs[r].returncode})\n"
+                             + f.read()[-3000:])
+        raise AssertionError(f"{phase}: a rank failed\n" + "\n".join(tails))
+    reports = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_train_tp(seed: int) -> dict:
+    """Qwen2-0.5B's ``data`` layout split over "model" at full width (14 ->
+    7 query heads and 2 -> 1 KV heads a rank, vocabulary 151936 -> 75968,
+    d_ff 4864 -> 2432), two ranks sharing the card over gloo, against the
+    one-card launcher step (``Mesh((1, 1))``) on the same batches: 1
+    warm-up + 2 timed steps, each followed on the ranks by the sparse
+    gossip at W = [1] (the combine once a local leaf a step). Losses rtol
+    TP_LOSS_RTOL. Parameters by ``phase_serve_check``'s bf16 rule, leaf by
+    leaf: the ranks' may be at most twice as far from a float32 run of the
+    same steps from the same start (max abs error) as the one-card bf16
+    run is, plus ``BF16_ULP_ATOL`` x the leaf's initial scale. (The
+    combine's one-ulp limit against the one-card run refuses two bf16
+    paths that round in another order: the key biases, whose gradient is
+    zero but for rounding, and two-ulp steps of the embedding.) The
+    control in which rank 0 keeps its own partial sum after ``wo`` must be
+    refused by the same comparison."""
+    t0 = time.perf_counter()
+    cfg, tcfg = qwen2_0_5b.CONFIG, tp_train_config()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    one_card = launch_mesh.make_test_mesh((1, 1))
+    art = train.build_train_artifacts(cfg, tcfg, TRAIN_MESH_SHAPE, one_card)
+    batches = tp_batches(cfg, art)
+    state = art.init_state(seed)
+    start = tree_map(lambda t: t.to(torch.float32), state["params"])
+    scales = [leaf_scale(t) for t in tree_leaves(start)]
+    runs = {}
+    for name, c, st in (
+            ("one", cfg, state),
+            ("fp32", cfg32, {"params": start, "opt": sgd.init(start),
+                             "step": 0})):
+        art = train.build_train_artifacts(c, tcfg, TRAIN_MESH_SHAPE,
+                                          one_card)
+        steps = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, metrics = art.step_fn(st, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss,
+                          "step_ms": (time.perf_counter() - t) * 1e3})
+        runs[name] = (tree_map(lambda t: t.cpu(), st["params"]), steps)
+        del st, art
+    del state, start
+    torch.cuda.empty_cache()
+    (one, one_steps), (truth, fp32_steps) = runs["one"], runs["fp32"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_tp_")
+    reports = run_tp_ranks("train_tp", work, seed)
+    got = torch.load(os.path.join(work, "params.pt"))
+    control = torch.load(os.path.join(work, "control_params.pt"))
+
+    def distance(a, b) -> float:
+        return float((a.to(torch.float32) - b).abs().max())
+
+    base = [distance(b, t) for b, t in zip(tree_leaves(one),
+                                           tree_leaves(truth))]
+
+    def held(params, steps):
+        """(agrees, worst loss error over its limit, each leaf's error
+        over its limit, the worst leaves)."""
+        loss_worst = max(
+            abs(s["loss"] - o["loss"]) / (TP_LOSS_RTOL * abs(o["loss"]))
+            for s, o in zip(steps, one_steps))
+        ok, over, leaves = loss_worst <= 1.0, {}, {}
+        for (path, a), t, d, s in zip(tree_paths(params), tree_leaves(truth),
+                                      base, scales):
+            err = distance(a, t)
+            over[path] = err / (2 * d + BF16_ULP_ATOL * s)
+            ok = ok and over[path] <= 1.0 and bool(torch.isfinite(a).all())
+            leaves[path] = {"err_over_limit": over[path],
+                            "tp_vs_fp32_max": err, "one_card_vs_fp32_max": d}
+        worst = sorted(leaves.items(), key=lambda kv: -kv[1]["err_over_limit"])
+        return ok, loss_worst, over, worst[:4]
+
+    ok, loss_worst, over, worst = held(got, reports[0]["steps"])
+    c_ok, c_loss, c_over, _ = held(control, reports[0]["control_steps"])
+    timed = [np.mean([s["step_ms"] for s in r["steps"][1:]])
+             for r in reports]
+    out = {
+        "config": cfg.name, "layout": tcfg.agent_layout,
+        "mesh": list(TP_MESH), "backend": reports[0]["backend"],
+        "transport": "two ranks sharing one card over host-staged gloo: a "
+                     "check of values, not of TP speed",
+        "steps_by_rank": [r["steps"] for r in reports],
+        "one_card_steps": one_steps, "fp32_steps": fp32_steps,
+        "step_ms_mean_timed_by_rank": timed,
+        "launches_by_rank": [r["launches"] for r in reports],
+        "leaves_a_rank": reports[0]["leaves"],
+        "local_shapes_rank0": reports[0]["local_shapes"],
+        "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in reports],
+        "loss_err_over_limit": loss_worst,
+        "params_err_over_limit": max(over.values()),
+        "params_rule": "max|tp - fp32| <= 2 x max|one card - fp32| + 1e-4 "
+                       "x the leaf's initial scale, each leaf",
+        "params_worst_leaves": worst,
+        "control_loss_err_over_limit": c_loss,
+        "control_params_err_over_limit": max(c_over.values()),
+        "seconds": time.perf_counter() - t0,
+    }
+    emit("train_tp", **out)
+    if not ok:
+        raise AssertionError("train_tp: the ranks' losses or parameters "
+                             "are beyond their limits")
+    if c_ok:
+        raise AssertionError("train_tp: the check cannot tell the control "
+                             "(rank 0 keeps its own wo partial) apart")
+    return out
+
+
+def phase_serve_tp(seed: int) -> dict:
+    """Mixtral-8x7B at full width and 8 of its 32 layers split over
+    "model" (32 -> 16 query heads and 8 -> 4 KV heads a rank, D = 128,
+    window 4096, experts along F 14336 -> 7168), two ranks sharing the card
+    over gloo. First the one-card path in this process: a prefill of 2
+    prompts of 8192 tokens and 8 greedy decode steps, and the float32
+    forward (torch ops, each bf16 weight cast where used) at those
+    positions; all kept on the host and the card freed. Then the ranks
+    feed the one-card path's tokens (teacher-forced, so a bf16 tie cannot
+    cascade). Held by ``phase_serve_check``'s MoE rule: the median over
+    (request, position) of each position's largest error against the
+    float32 forward at most twice the one-card path's plus 1e-4; the
+    control in which rank 0 keeps its own partial sum after ``wo`` must be
+    refused by it."""
+    t0 = time.perf_counter()
+    cfg = TP_SERVE_CFG
+    b, prompt, max_len, steps = TP_SERVE
+    params = serve_params(cfg, seed)
+    toks = serve_prompts(cfg, b, seed, prompt)
+    art = serve.build_serve_artifacts(
+        cfg, ShapeConfig("serve_tp", max_len, b, "prefill"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, caches = art.prefill_fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    one_prefill_s = time.perf_counter() - t1
+    one, fed, one_step_ms = [logits[:, 0].float()], [], []
+    for _ in range(steps):
+        fed.append(logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None])
+        t1 = time.perf_counter()
+        logits, caches = art.step_fn(params, caches, fed[-1])
+        torch.cuda.synchronize()
+        one_step_ms.append((time.perf_counter() - t1) * 1e3)
+        one.append(logits[:, 0].float())
+    one = torch.stack(one, dim=1)
+    fed = torch.cat(fed, dim=1)
+    del caches, logits
+    torch.cuda.empty_cache()
+    # The float32 forward at positions prompt-1 .. prompt+steps-1: the
+    # sequence is padded to the chunked attention's multiple of 1024 (later
+    # tokens change nothing before them: causal, and capacity 4.0 drops
+    # nothing).
+    seq = torch.cat([toks, fed], dim=1)
+    pad = -seq.shape[1] % attention.CHUNK_Q
+    seq = torch.cat([seq, seq.new_zeros((b, pad))], dim=1)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        truth, _ = model.forward(cfg32, params, {"tokens": seq}, remat=False)
+    truth = truth[:, prompt - 1:prompt + steps].float().cpu()
+    one = one.cpu()
+    del params, seq
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
+    torch.save({"prompt": toks.cpu(), "fed": fed.cpu()},
+               os.path.join(work, "inputs.pt"))
+    del toks, fed
+    torch.cuda.empty_cache()
+    reports = run_tp_ranks("serve_tp", work, seed)
+    got = torch.load(os.path.join(work, "logits.pt"))
+    control = torch.load(os.path.join(work, "control_logits.pt"))
+
+    def median_err(x):
+        return float((x - truth).abs().amax(dim=-1).flatten().median())
+
+    limit = 2 * median_err(one) + FP32_ORDER_ATOL
+    out = {
+        "config": cfg.name, "layers": cfg.num_layers,
+        "capacity_factor": cfg.capacity_factor, "mesh": list(TP_MESH),
+        "backend": reports[0]["backend"],
+        "transport": "two ranks sharing one card over host-staged gloo: a "
+                     "check of values, not of TP speed",
+        "batch": b, "prompt": prompt, "decode_steps": steps,
+        "one_card_prefill_seconds": one_prefill_s,
+        "one_card_decode_step_ms_mean_after_first":
+            float(np.mean(one_step_ms[1:])),
+        "prefill_seconds_by_rank": [r["prefill_seconds"] for r in reports],
+        "decode_step_ms_mean_after_first_by_rank": [
+            float(np.mean(r["decode_step_ms"][1:])) for r in reports],
+        "launches_by_rank": [r["launches"] for r in reports],
+        "flash_by_design_by_rank": [r["flash_by_design"] for r in reports],
+        "decode_by_design_by_rank": [r["decode_by_design"] for r in reports],
+        "flash_q": reports[0]["flash_q"],
+        "cache_kv_heads_a_rank": reports[0]["cache_kv_heads"],
+        "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in reports],
+        "tp_vs_fp32_median": median_err(got),
+        "one_card_vs_fp32_median": median_err(one),
+        "control_vs_fp32_median": median_err(control),
+        "tp_vs_one_card_max": float((got - one).abs().max()),
+        "logit_scale": float(truth.abs().mean()),
+        "rule": "tp_vs_fp32_median <= 2 x one_card_vs_fp32_median + 1e-4",
+    }
+    if not (bool(torch.isfinite(got).all()) and got.shape == one.shape
+            and out["tp_vs_fp32_median"] <= limit):
+        raise AssertionError(f"serve_tp: {out}")
+    if out["control_vs_fp32_median"] <= limit:
+        raise AssertionError(f"serve_tp: the check cannot tell the control "
+                             f"(rank 0 keeps its own wo partial) apart: "
+                             f"{out}")
+    out["seconds"] = time.perf_counter() - t0
+    emit("serve_tp", **out)
+    return out
+
+
+def tp_local_attention_kernels(seed: int) -> dict:
+    """Both attention kernels alone at the TP-local shapes of the two
+    phases (a rank's heads at model = 2), held to their plain versions at
+    the data-scaled limit and timed beside their bounds, their plain
+    versions and SDPA: Mixtral's prefill layer q [2, 16, 8192, 128], k/v
+    [2, 4, 8192, 128], window 4096; its decode step q [2, 16, 1, 128]
+    against the [2, 4, 4096, 128] ring; Qwen2-0.5B's layer q [32, 7, 8192,
+    64], k/v [32, 1, 8192, 64], causal."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    bf16, flash, refused = torch.bfloat16, [], []
+    mix, qwen = TP_SERVE_CFG, qwen2_0_5b.CONFIG
+    t = TP_MESH[1]
+    cases = (
+        ("Mixtral-8x7B prefill layer at model 2 (window 4096)", 2,
+         mix.num_heads // t, mix.num_kv_heads // t, mix.resolved_head_dim,
+         mix.sliding_window),
+        ("Qwen2-0.5B layer at model 2", 32, qwen.num_heads // t,
+         qwen.num_kv_heads // t, qwen.resolved_head_dim, None),
+    )
+    for name, b, h, kv, d, window in cases:
+        q, k, v = attn_inputs(gen, b, h, kv, SERVE_PROMPT, SERVE_PROMPT, d,
+                              bf16)
+        res, refusals = hold_flash_layer(
+            f"flash {name} q={list(q.shape)} k={list(k.shape)} bf16", q, k,
+            v, requests=(0, b - 1), window=window)
+        refused += refusals
+        if res["design"] != "wgmma":
+            raise AssertionError(f"{res['case']} ran {res['design']}")
+        timed = time_flash_layer(q, k, v, window=window)
+
+        def plain_by_request():
+            for i in range(b):
+                ref.flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        window=window)
+
+        plain_ms = time_cuda(plain_by_request, reps=1)
+        if window is None:
+            def library():
+                return library_attention(q, k, v, True)
+            call = "scaled_dot_product_attention(is_causal, enable_gqa), " \
+                   "flash backend"
+        else:
+            mask = attention.causal_mask(SERVE_PROMPT, SERVE_PROMPT, window,
+                                         "cuda")
+            kk, vv = repeat_kv(k, h), repeat_kv(v, h)
+
+            def library():
+                return library_attention_masked(q, kk, vv, mask)
+            call = "scaled_dot_product_attention(attn_mask=window mask), " \
+                   f"efficient backend, k/v repeated to {h} heads"
+        lib_held = hold(f"SDPA vs the flash kernel ({name})", library(),
+                        ops.flash_attention(q, k, v, window=window),
+                        scaled=True)
+        lib_ms = time_cuda(library, reps=TIMING_REPS)
+        flash.append({
+            "case": name, "q": list(q.shape), "k": list(k.shape),
+            "window": window, "design": res["design"],
+            "max_abs_err": res["max_abs_err"],
+            "largest_err_over_limit": res["largest_err_over_limit"],
+            **timed, "plain_ms": plain_ms,
+            "plain_note": f"plain version run request by request, {b} calls",
+            "library_ms": lib_ms, "ms_over_library_ms": timed["ms"] / lib_ms,
+            "library_call": call,
+            "library_vs_kernel_max_abs_err": lib_held["max_abs_err"],
+        })
+        del q, k, v, library
+        torch.cuda.empty_cache()
+    q, k, v = attn_inputs(gen, 2, mix.num_heads // t, mix.num_kv_heads // t,
+                          1, mix.sliding_window, mix.resolved_head_dim, bf16)
+    _, refusals, decode = hold_decode_step(
+        "Mixtral-8x7B step at model 2 (4096-slot ring)", q, k, v,
+        mix.sliding_window, decode_mod.tile_slots(bf16, mix.resolved_head_dim))
+    refused += refusals
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit("tp_local_attention", flash=flash, decode=decode, refused=refused)
+    return {"flash_attention": flash, "decode_attention": [decode]}
+
+
+# ---------------------------------------------------------------------------
 # The runtime: elastic training over the design service (runtime/)
 # ---------------------------------------------------------------------------
 
@@ -4051,14 +4617,14 @@ def hold_flash_layer(what, q, k, v, requests, window=None, softcap=None,
     versions that limit must refuse on request 0's later half of query
     rows (each keeps the layer's window and softcap): ``kv = h % KV``, the
     causal diagonal excluded and, with ``drop_tile``, keys ``drop_tile`` ..
-    ``drop_tile + tile - 1`` left out; without GQA (H = KV, where ``kv =
-    h % KV`` is no fault) only the other two. ``row_block``: as
+    ``drop_tile + tile - 1`` left out; without GQA (H = KV) or at one KV
+    head, where ``kv = h % KV`` is no fault, only the other two. ``row_block``: as
     ``check_flash``. Returns (result, refusals)."""
     res, got = check_flash(what, q, k, v, window, softcap, requests=requests,
                            row_block=row_block)
     row0 = q.shape[2] // 2
     faults = [("the causal diagonal excluded", "strict_causal")]
-    if q.shape[1] != k.shape[1]:
+    if q.shape[1] != k.shape[1] and k.shape[1] > 1:
         faults.insert(0, ("kv = h % KV", "head_mod"))
     if drop_tile is not None:
         faults.append((f"keys {drop_tile} .. {drop_tile + tile - 1}"
@@ -4441,12 +5007,19 @@ def main(argv=None) -> int:
                     help="profile one extra rollout batch, one extra "
                          "training step and one extra decode step of "
                          "Qwen2-0.5B and of Mixtral-8x7B with torch.profiler")
+    # one rank process of train_tp / serve_tp, started by run_tp_ranks
+    ap.add_argument("--tp-rank", nargs=3, metavar=("PHASE", "RANK", "DIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
               file=sys.stderr)
         return 1
+    if args.tp_rank is not None:
+        phase, rank, work = args.tp_rank
+        tp_rank_main(phase, int(rank), work, args.seed)
+        return 0
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4486,6 +5059,11 @@ def main(argv=None) -> int:
     trained_mesh = phase_train_mesh(args.seed, mesh)
     served_mesh = phase_serve_mesh(args.seed, mesh)
     torch.distributed.destroy_process_group()
+    trained_tp = phase_train_tp(args.seed)
+    served_tp = phase_serve_tp(args.seed)
+    tp_local = tp_local_attention_kernels(args.seed)
+    kernels[0]["launches_train_tp_by_rank"] = [
+        r["mixing_sgd_combine"] for r in trained_tp["launches_by_rank"]]
     kernels[0]["per_agent_flat"] = {
         **{k: flat[k] for k in ("form", "n", "neighbours", "dtype", "ms",
                                 "plain_ms", "bound_ms", "bound_by",
@@ -4528,6 +5106,10 @@ def main(argv=None) -> int:
         kernel["launches_serve_mesh_by_design"] = served_mesh[designs]
     for key, run in {"serve_mixtral": mixtral_run, **served}.items():
         add_served(kernels[1], kernels[2], key, run)
+    for kernel in kernels[1:]:
+        kernel["launches_serve_tp_by_rank"] = [
+            r[kernel["name"]] for r in served_tp["launches_by_rank"]]
+        kernel["tp_local_shapes"] = tp_local[kernel["name"]]
     ffma = phase_ffma_times(args.seed, checks)
     kernels[1]["ffma"] = ffma["flash_attention"]
     kernels[2]["ffma"] = ffma["decode_attention"]

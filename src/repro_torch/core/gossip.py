@@ -37,7 +37,6 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
@@ -186,7 +185,7 @@ def mix_allreduce(params: Any, mesh=None,
 
     def leaf(p):
         total = p.to(torch.float32, copy=True)
-        dist.all_reduce(total, group=group)
+        mesh_lib.group_all_reduce(total, group)
         return (total / m).to(p.dtype)
 
     return tree_map(leaf, params)
@@ -244,15 +243,12 @@ def mix_sparse_p2p(
     ]
     # One message per leaf and directed edge; both ends post the leaves in
     # one order, rounds in round order.
-    p2p = []
+    messages = []
     for f, buf in zip(flats, bufs):
-        for dst in sends:
-            p2p.append(dist.P2POp(dist.isend, f, peers[dst], group))
-        for k, (src, _) in enumerate(recvs):
-            p2p.append(dist.P2POp(dist.irecv, buf[k], peers[src], group))
-    if p2p:
-        for work in dist.batch_isend_irecv(p2p):
-            work.wait()
+        messages += [("send", f, peers[dst]) for dst in sends]
+        messages += [("recv", buf[k], peers[src])
+                     for k, (src, _) in enumerate(recvs)]
+    mesh_lib.exchange(messages, group)
     weights = torch.tensor(
         [schedule.self_weight[agent]] + [w for _, w in recvs],
         dtype=torch.float32, device=flats[0].device,
@@ -298,9 +294,8 @@ def mix_sparse_flat(
     # the group's ranks ascend with the index over slice_axes
     gathered = torch.empty((n_slices * chunk,), dtype=wire,
                            device=mixed.device)
-    dist.all_gather_into_tensor(
-        gathered, mixed.reshape(-1),
-        group=mesh_lib.axis_group(mesh, slice_axes))
+    mesh_lib.all_gather_into(gathered, mixed.reshape(-1),
+                             mesh_lib.axis_group(mesh, slice_axes))
     out, off = [], 0
     for p in leaves:
         n = p.numel()

@@ -6,17 +6,24 @@ Counterpart of the JAX package's ``launch/mesh.py``. Two kinds of mesh:
   device. The one-card paths take it: all m agents are stacked on dim 0
   of every parameter leaf, and the mesh only says how many agents a
   layout implies (``num_agents``) and over which axes (``agent_axes``).
-* ``init_mesh(shape, axes, device)`` — a ``torch.distributed``
-  ``DeviceMesh`` over the default process group, one rank a device (NCCL
-  on CUDA, gloo on the CPU). The launcher's mesh paths take it: each rank
-  holds one agent (or, under ``data_dp``, one replica of an agent along
-  ``model``), and the gossip crosses ranks by point-to-point exchanges
+* ``init_mesh(shape, axes, device, backend=)`` — a ``torch.distributed``
+  ``DeviceMesh`` over the default process group (NCCL on CUDA, gloo on the
+  CPU, unless ``backend`` says otherwise). The launcher's mesh paths take
+  it: each rank holds one agent (or, under ``data_dp``, one replica of an
+  agent along ``model``), or its ``model`` part of one agent's leaves, and
+  the gossip crosses ranks by point-to-point exchanges
   (``core/gossip.py``).
 
 ``axis_sizes`` reads either kind as ``{axis name: size}`` (the reference's
 ``mesh.shape[name]``); ``coordinate``, ``agent_index``, ``axis_ranks``,
-``axis_group`` and ``all_gather`` read a ``DeviceMesh`` for the calling
-rank.
+``axis_group``, ``all_gather`` and ``all_reduce`` read a ``DeviceMesh``
+for the calling rank; ``group_all_reduce``, ``all_gather_into`` and
+``exchange`` act on a process group.
+
+Gloo moves host memory. Where a group's backend is gloo and a tensor lies
+on CUDA, the collectives here stage it through pinned host memory: that
+is the transport the caller chose with ``backend="gloo"`` (several ranks
+sharing one card, which NCCL refuses), not a fallback.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ def init_mesh(
     axes,
     device: str | torch.device | None = None,
     *,
+    backend: str | None = None,
     init_method: str | None = None,
     rank: int | None = None,
     world_size: int | None = None,
@@ -77,16 +85,26 @@ def init_mesh(
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the default
     process group, ranks laid out row-major.
 
-    ``device=None`` means CUDA over NCCL and raises
-    ``compat.NoCudaDeviceError`` without a card (rank r takes card r mod
-    the cards on its host); ``device="cpu"`` means gloo. The default group
-    is initialised here unless it already is: from ``init_method`` (a
-    ``file://`` or ``tcp://`` address) with ``rank`` and ``world_size``,
-    or, without them, from the usual ``MASTER_ADDR`` / ``MASTER_PORT`` /
-    ``RANK`` / ``WORLD_SIZE`` environment variables.
+    ``device=None`` means CUDA and raises ``compat.NoCudaDeviceError``
+    without a card (rank r takes card r mod the cards on its host);
+    ``device="cpu"`` means the CPU. ``backend`` defaults to NCCL on CUDA
+    and gloo on the CPU; ``backend="gloo"`` on CUDA lets several ranks
+    share one card, their collectives staged through host memory. The
+    default group is initialised here unless it already is (then its
+    backend must be ``backend``): from ``init_method`` (a ``file://`` or
+    ``tcp://`` address) with ``rank`` and ``world_size``, or, without
+    them, from the usual ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` /
+    ``WORLD_SIZE`` environment variables.
     """
     dev = compat.resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo") or (backend == "nccl"
+                                           and dev.type != "cuda"):
+        raise ValueError(f"backend {backend!r} on {dev.type}")
+    if dist.is_initialized() and dist.get_backend() != backend:
+        raise ValueError(
+            f"the default group runs {dist.get_backend()}, not {backend}")
     if not dist.is_initialized():
         kwargs = {} if timeout is None else {"timeout": timeout}
         if init_method is not None:
@@ -101,7 +119,9 @@ def init_mesh(
             f"mesh {shape} needs {int(np.prod(shape))} ranks, the group "
             f"has {dist.get_world_size()}")
     ranks = torch.arange(dist.get_world_size()).reshape(shape)
-    return DeviceMesh(dev.type, ranks, mesh_dim_names=tuple(axes))
+    # The mesh's device type is its groups' transport: gloo's is the host.
+    kind = "cuda" if backend == "nccl" else "cpu"
+    return DeviceMesh(kind, ranks, mesh_dim_names=tuple(axes))
 
 
 def axis_names(mesh: Mesh | DeviceMesh) -> tuple[str, ...]:
@@ -195,12 +215,83 @@ def axis_group(mesh: DeviceMesh, axes: tuple[str, ...]):
     return known[axes]
 
 
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` crosses ``group`` through pinned host memory: a CUDA
+    tensor over a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+
+
+def group_all_reduce(x: torch.Tensor, group,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced (sum by default) over ``group`` (None: the default
+    group), in place; returns ``x``. Collective over the group."""
+    if not _staged(x, group):
+        dist.all_reduce(x, op=op, group=group)
+        return x
+    host = _host(x)
+    dist.all_reduce(host, op=op, group=group)
+    return x.copy_(host)
+
+
+def all_reduce(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...],
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` summed (or reduced by ``op``) over the ranks along ``axes``
+    through the calling rank's other coordinates, in place; returns
+    ``x``. Collective over the group."""
+    return group_all_reduce(x, axis_group(mesh, axes), op)
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``dist.all_gather_into_tensor`` over ``group``, staged for gloo."""
+    if not _staged(x, group):
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    dist.all_gather_into_tensor(host, _host(x.contiguous()), group=group)
+    out.copy_(host)
+
+
+def exchange(messages: list, group) -> None:
+    """Point-to-point messages in one ``batch_isend_irecv`` over
+    ``group``, posted in the order given: each is ``("send", tensor,
+    global rank)`` or ``("recv", buffer, global rank)``, the buffer filled
+    in place; returns when all are done. Both ends must post the messages
+    between them in one order."""
+    if not messages:
+        return
+    staged = _staged(messages[0][1], group)
+    wire = [
+        (_host(t) if kind == "send" else torch.empty(
+            t.shape, dtype=t.dtype, pin_memory=True)) if staged else t
+        for kind, t, _ in messages
+    ]
+    ops = [dist.P2POp(dist.isend if kind == "send" else dist.irecv, w,
+                      peer, group)
+           for (kind, _, peer), w in zip(messages, wire)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for (kind, buf, _), host in zip(messages, wire):
+            if kind == "recv":
+                buf.copy_(host)
+
+
 def all_gather(x: torch.Tensor, mesh: DeviceMesh,
                axes: tuple[str, ...]) -> list[torch.Tensor]:
     """Every rank's ``x`` along ``axes`` (through the calling rank's other
     coordinates), in ``agent_index`` order; collective over the group."""
     ranks = axis_ranks(mesh, axes)
-    parts = [torch.empty_like(x) for _ in ranks]
-    dist.all_gather(parts, x.contiguous(), group=axis_group(mesh, axes))
+    group = axis_group(mesh, axes)
     order = sorted(ranks)     # a group's ranks ascend
+    if _staged(x, group):
+        parts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                 for _ in ranks]
+        dist.all_gather(parts, _host(x.contiguous()), group=group)
+        return [parts[order.index(r)].to(x.device) for r in ranks]
+    parts = [torch.empty_like(x) for _ in ranks]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return [parts[order.index(r)] for r in ranks]

@@ -20,15 +20,20 @@ returns the same dict. Attention goes through the hand-written
 ``flash_attention`` (prefill) and ``decode_attention`` (decode) kernels on
 the card; the recurrent blocks' state is torch ops.
 
-With a ``DeviceMesh`` (``launch.mesh.init_mesh``) whose ``model`` axis is
-1, each rank serves its rows of the batch over ``("pod",) "data"`` with
-full weights and the caches of its rows: it feeds both functions its
+With a ``DeviceMesh`` (``launch.mesh.init_mesh``) each rank serves its
+rows of the batch over ``("pod",) "data"``: it feeds both functions its
 part of the inputs (``sharding.shard_tree(inputs, art.input_specs,
 mesh)``), B/|data| rows when B divides, else all B rows on every rank
-(the reference's ``role_axes["batch"] = ()``). ``input_specs``,
-``param_specs`` and ``cache_specs`` say which part each rank holds.
-Tensor parallelism (``model`` > 1, or weights split over ``data``) is
-ROADMAP item A7b and raises ``NotImplementedError``.
+(the reference's ``role_axes["batch"] = ()``), and its part of the
+weights (``sharding.shard_tree(params, art.param_specs, mesh)``): whole
+on a ``model`` axis of 1, split along ``model`` above it (1-D tensor
+parallelism, ``models/sharding_hints.py``), the caches then holding the
+rank's KV heads and its block of Mamba's d_inner. ``input_specs``,
+``param_specs`` and ``cache_specs`` say which part each rank holds (under
+tensor parallelism ``cache_specs`` covers the batch dim only: a rank's
+heads are not always a block of the whole, ``attention.head_plan``).
+Weights split over ``data`` of size > 1 (serving's 2-D tensor
+parallelism) are ROADMAP item A7b(ii) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,15 +68,11 @@ class ServeArtifacts:
 
 def _mesh_specs(cfg, b: int, mesh: DeviceMesh, param_shapes, cache_shapes,
                 input_shapes):
-    """``(role_axes, param_specs, cache_specs, input_specs)`` of the
-    batch-parallel mesh path; raises for what needs tensor parallelism."""
+    """``(role_axes, param_specs, cache_specs, input_specs)`` of the mesh
+    path; raises for weights split over ``data``/``pod`` (2-D TP)."""
     sizes = mesh_lib.axis_sizes(mesh)
-    if sizes["model"] > 1:
-        raise NotImplementedError(
-            f"serving on a 'model' axis of {sizes['model']} (tensor "
-            "parallelism) is ROADMAP item A7b")
     param_specs = sharding.param_specs_serve(param_shapes, mesh, cfg)
-    sharding.require_whole_leaves(param_specs, mesh)   # 2-D TP
+    sharding.require_whole_over(param_specs, mesh)
     batch_axes = mesh_lib.agent_axes(mesh, "data")   # ("pod",) "data"
     bsz = int(np.prod([sizes[a] for a in batch_axes]))
     split = b % bsz == 0 and b >= bsz
@@ -83,7 +84,13 @@ def _mesh_specs(cfg, b: int, mesh: DeviceMesh, param_shapes, cache_shapes,
     def rows(t):
         return sharding.P(entry, *([None] * (t.dim() - 1)))
 
-    if split:
+    if sizes["model"] > 1:
+        # the rank's rows; its heads / d_inner block are the model's own
+        cache_specs = tree_map(
+            lambda t: sharding.P(*([None] * t.dim())) if t.dim() < 2
+            else sharding.P(None, entry, *([None] * (t.dim() - 2))),
+            cache_shapes)
+    elif split:
         # the reference's cache specs: batch over the batch axes, the rest
         # over "model" (size 1)
         cache_specs = sharding.cache_specs_serve(cache_shapes, mesh, cfg)
@@ -101,7 +108,8 @@ def build_serve_artifacts(
 ) -> ServeArtifacts:
     """Prefill and decode functions for ``cfg`` at ``shape`` on ``device``
     (``None`` means CUDA and raises without a card), for this rank's rows
-    of the batch on a ``DeviceMesh`` (module docstring). ``input_shapes``
+    of the batch and its part of the weights on a ``DeviceMesh`` (module
+    docstring). ``input_shapes``
     is the prompt for a ``prefill`` shape and one token per sequence for a
     ``decode`` shape."""
     dev = compat.resolve_device(device)
@@ -131,12 +139,12 @@ def build_serve_artifacts(
             cfg, b, mesh, param_shapes, cache_shapes, input_shapes)
 
     def prefill_fn(params, inputs):
-        with torch.inference_mode(), hints(role_axes):
+        with torch.inference_mode(), hints(role_axes, mesh):
             moved = {key: inputs[key].to(dev) for key in input_keys}
             return model.prefill(cfg, params, moved, max_len=s)
 
     def step_fn(params, caches, token):
-        with torch.inference_mode(), hints(role_axes):
+        with torch.inference_mode(), hints(role_axes, mesh):
             return model.decode_step(cfg, params, caches, token.to(dev))
 
     return ServeArtifacts(

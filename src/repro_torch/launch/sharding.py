@@ -26,11 +26,13 @@ batch over ("pod","data") and sequence over "model".
 The rules are divisibility-safe: an axis is only assigned if the dim
 divides evenly, else dropped.
 
-The port acts on specs in which every inner dimension lies on axes of
-size 1 (each rank holds whole parameter leaves of one agent):
-``shard_tree`` slices a replicated tree to the calling rank's local
-leaves with no communication, ``gather_tree`` gathers them back.
-Tensor parallelism and FSDP inside an agent are ROADMAP item A7b.
+The port acts on specs whose inner dimensions lie on "model" or on axes
+of size 1: ``shard_tree`` slices a replicated tree to the calling rank's
+local leaves with no communication, ``gather_tree`` gathers them back,
+and the model runs on the local leaves under tensor parallelism
+(``models/sharding_hints.py``). ``require_whole_over`` refuses a split
+over the ``data``/``pod`` axes: FSDP and EP inside an agent, and serving's
+2-D tensor parallelism at ``data`` > 1, are ROADMAP item A7b(ii).
 """
 
 from __future__ import annotations
@@ -313,18 +315,22 @@ def _part(leaf, spec: P, mesh, coords: dict[str, int]):
     return leaf[tuple(index)]
 
 
-def require_whole_leaves(specs: Any, mesh, from_dim: int = 0) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP A7b) where a spec puts a
-    dim at or after ``from_dim`` on axes of size > 1: the port's mesh
-    paths hold whole leaves a rank."""
+def require_whole_over(specs: Any, mesh, axes: tuple[str, ...] = (
+        "pod", "data"), from_dim: int = 0) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP A7b(ii)) where a spec puts a
+    dim at or after ``from_dim`` on one of ``axes`` of size > 1: the
+    port's mesh paths split leaves along "model" (tensor parallelism) and
+    hold them whole over the other axes."""
+    sizes = mesh_lib.axis_sizes(mesh)
     for path, spec in tree_paths(specs):
         for entry in spec[from_dim:]:
-            axes = _axes_of(entry)
-            if _size(mesh, axes) > 1:
+            over = [a for a in _axes_of(entry)
+                    if a in axes and sizes.get(a, 1) > 1]
+            if over:
                 raise NotImplementedError(
-                    f"{path}: spec {spec} splits a dim over {axes}; tensor "
-                    "parallelism and FSDP inside an agent are ROADMAP item "
-                    "A7b")
+                    f"{path}: spec {spec} splits a dim over {tuple(over)}; "
+                    "FSDP and EP over 'data' inside an agent, and serving's "
+                    "2-D tensor parallelism, are ROADMAP item A7b(ii)")
 
 
 def shard_tree(tree: Any, specs: Any, mesh,

@@ -17,18 +17,22 @@ Counterpart of the JAX package's ``launch/train.py``. One step per agent
   ``mixing_sgd_combine`` kernel per leaf with neighbour rows read in
   place (``gossip.mix_sparse``).
 * a ``DeviceMesh`` (``mesh.init_mesh``): each rank holds the leaves
-  ``[1, …]`` of one agent, whole — the layouts ``data_dp`` on any mesh
-  and ``data`` on a mesh whose ``model`` axis is 1. The step takes the
-  rank's part of the batch (``sharding.shard_tree(batch,
-  art.batch_specs, mesh)``): ``tokens[agent, :, model-slice, :]`` under
-  ``data_dp``, where each rank's gradients are accumulated in float32,
-  scaled to its share of the microbatch, cast to bf16 and summed over
-  the ``model`` group. The sparse gossip crosses ranks by point-to-point
-  exchanges (``gossip.mix_sparse_flat`` under ``data_dp``,
-  ``gossip.mix_sparse_p2p`` under ``data``); the loss in the metrics is
-  the mean over every rank. FSDP and tensor parallelism inside an agent
-  (``pod``, ``data`` with ``model`` > 1) raise ``NotImplementedError``
-  (ROADMAP item A7b).
+  ``[1, …]`` of one agent — whole under ``data_dp``, its ``model`` part
+  under ``data`` (``sharding.shard_tree(state, art.param_specs, mesh)``
+  of the stacked tree; tensor parallelism, ``models/sharding_hints.py``).
+  The step takes the rank's part of the batch (``sharding.shard_tree(
+  batch, art.batch_specs, mesh)``): ``tokens[agent, :, model-slice, :]``
+  under ``data_dp``, where each rank's gradients are accumulated in
+  float32, scaled to its share of the microbatch, cast to bf16 and summed
+  over the ``model`` group; the agent's whole microbatch on each of its
+  ``model`` ranks under ``data``, whose replicated leaves (norms, the
+  router) get the same gradient on every rank through the conjugate pair.
+  The sparse gossip crosses ranks by point-to-point exchanges
+  (``gossip.mix_sparse_flat`` under ``data_dp``, ``gossip.mix_sparse_p2p``
+  under ``data``, each ``model`` coordinate gossiping its part of every
+  leaf); the loss in the metrics is the mean over every rank. FSDP and EP
+  over ``data`` inside an agent (the ``pod`` layout) raise
+  ``NotImplementedError`` (ROADMAP item A7b(ii)).
 
 State: ``{"params": [A, ...], "opt": {"momentum": [A, ...]}, "step": int}``
 — A agents stacked (A = 1 on a rank); the step counter is a Python int on
@@ -146,7 +150,7 @@ def _reduce_gradients(grads, group) -> None:
     """Sum every gradient leaf over ``group`` in place (the ``model``
     group under ``data_dp``)."""
     for g in tree_leaves(grads):
-        dist.all_reduce(g, group=group)
+        mesh_lib.group_all_reduce(g, group)
 
 
 def build_train_artifacts(
@@ -183,9 +187,9 @@ def build_train_artifacts(
     if on_ranks:
         if layout == "pod":
             raise NotImplementedError(
-                "the 'pod' layout (FSDP + TP inside one agent) is ROADMAP "
-                "item A7b")
-        sharding.require_whole_leaves(param_specs, mesh, from_dim=1)
+                "the 'pod' layout (FSDP and EP over 'data' + TP inside one "
+                "agent) is ROADMAP item A7b(ii)")
+        sharding.require_whole_over(param_specs, mesh, from_dim=1)
     mode, w_arr = resolve_gossip(tcfg.gossip, mixing_matrix, m)
     plan = dpsgd.mixing_plan(w_arr, dev) if w_arr is not None else None
     lr_fn = learning_rate or (lambda step: tcfg.learning_rate)
@@ -270,9 +274,14 @@ def build_train_artifacts(
     def init_state(seed: int) -> dict:
         """Identical init across agents (standard D-PSGD start): one
         ``model.init`` from ``seed``, stacked for the agents held here
-        (all m on one card, this rank's one on a ``DeviceMesh``)."""
+        (all m on one card, this rank's one on a ``DeviceMesh``, at its
+        ``model`` part of each leaf)."""
         params = dpsgd.replicate_for_agents(
             model.init(cfg, seed, device=dev), agents_here)
+        if on_ranks:
+            mine = tree_map(lambda s: sharding.P(None, *s[1:]), param_specs)
+            params = tree_map(lambda p: p.clone(),
+                              sharding.shard_tree(params, mine, mesh))
         return {"params": params, "opt": sgd.init(params), "step": 0}
 
     return TrainArtifacts(
@@ -328,7 +337,7 @@ def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, grads_fn,
         """``batch`` is this rank's part of the global batch."""
         params, opt, step = state["params"], state["opt"], state["step"]
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        with hints(role_axes):
+        with hints(role_axes, mesh):
             loss, grads = grads_fn(params, batch, share)
         if reduce_group is not None:
             _reduce_gradients(grads, reduce_group)
@@ -339,7 +348,7 @@ def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, grads_fn,
         del grads
         new_params = mix_fn(new_params)
         loss = loss.mean()
-        dist.all_reduce(loss)   # equal shares: the mean over every rank
+        mesh_lib.group_all_reduce(loss, None)  # equal shares: every rank's
         new_state = {"params": new_params, "opt": new_opt, "step": step + 1}
         return new_state, {"loss": loss / world, "lr": lr}
 

@@ -21,6 +21,16 @@ Caches are written **in place** (``index_copy_`` at a slot held on the
 device) and the same dict is returned, where the reference returns new
 arrays; ``pos`` stays an int32 device tensor, so a decode step reads
 nothing back to the host.
+
+Tensor parallelism (``sharding_hints.tp()``): the head counts come from
+the local weights, not from the spec. ``head_plan`` reads ``wo``'s local
+rows — the block of ``H·Dh`` this rank's partial sum covers — and picks
+the query heads that cover them (whole GQA groups where the rows would
+leave the local group uneven) and their KV heads. ``wq``/``wk``/``wv``
+are used as they lie when their split matches, else gathered whole and
+sliced (``sharding_hints.take``). The kernels get the local heads; the
+cache holds the rank's KV heads; ``wo``'s partial sums go through
+``reduce_from_tp``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.models import sharding_hints as sh
 
 NEG_INF = -2.0e38
 
@@ -67,16 +78,60 @@ def init(generator, spec: AttnSpec, dtype, device, lead=()) -> dict:
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """This rank's part of one attention layer: query heads ``[q0, q1)``,
+    KV heads ``[k0, k1)``, the rows ``[lo, hi)`` of ``wo`` (of the
+    flattened ``H·Dh``) it holds, and whether its output is a partial
+    sum over the TP ranks."""
+    q0: int
+    q1: int
+    k0: int
+    k1: int
+    lo: int
+    hi: int
+    partial: bool
+    head_dim: int
+
+
+def head_plan(params, spec: AttnSpec) -> HeadPlan:
+    """The heads this rank computes (module docstring); every head on one
+    card or where ``wo`` is whole."""
+    h, kv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    lo, hi, partial = sh.local_range(params["wo"]["kernel"].shape[-2], h * hd)
+    g = h // kv
+    q0, q1 = lo // hd, -(-hi // hd)
+    if q0 // g != (q1 - 1) // g and (q0 % g or q1 % g):
+        q0, q1 = q0 // g * g, -(-q1 // g) * g      # whole groups
+    return HeadPlan(q0, q1, q0 // g, (q1 - 1) // g + 1, lo, hi, partial, hd)
+
+
+def _qkv_params(params, spec: AttnSpec, plan: HeadPlan) -> dict:
+    """``wq``/``wk``/``wv`` (kernel, bias) restricted to the plan's heads."""
+    hd = spec.head_dim
+    cols = {"wq": (plan.q0 * hd, plan.q1 * hd, spec.num_heads * hd),
+            "wk": (plan.k0 * hd, plan.k1 * hd, spec.num_kv_heads * hd),
+            "wv": (plan.k0 * hd, plan.k1 * hd, spec.num_kv_heads * hd)}
+    return {
+        name: {key: sh.take(leaf, -1, *cols[name], plan.partial,
+                            f"attention/{name}")
+               for key, leaf in params[name].items()}
+        for name in cols
+    }
+
+
 def _project_qkv(params, x, spec: AttnSpec, positions, compute_dtype):
+    """q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` at the head counts of
+    the weights given (the local ones under tensor parallelism)."""
     b, s, _ = x.shape
     q = layers.dense_apply(params["wq"], x, compute_dtype).reshape(
-        b, s, spec.num_heads, spec.head_dim
+        b, s, -1, spec.head_dim
     )
     k = layers.dense_apply(params["wk"], x, compute_dtype).reshape(
-        b, s, spec.num_kv_heads, spec.head_dim
+        b, s, -1, spec.head_dim
     )
     v = layers.dense_apply(params["wv"], x, compute_dtype).reshape(
-        b, s, spec.num_kv_heads, spec.head_dim
+        b, s, -1, spec.head_dim
     )
     if spec.rope_theta > 0:  # theta == 0 ⇒ NoPE (e.g. Jamba attention)
         q = layers.apply_rope(q, positions, spec.rope_theta)
@@ -84,12 +139,35 @@ def _project_qkv(params, x, spec: AttnSpec, positions, compute_dtype):
     return q, k, v
 
 
+def _local(params, x, spec: AttnSpec):
+    """(the q/k/v weights, the block input and the plan) of this rank:
+    ``params`` and ``x`` themselves, and None, without tensor
+    parallelism."""
+    if sh.tp() is None:
+        return params, x, None
+    plan = head_plan(params, spec)
+    if plan.partial:
+        x = sh.copy_to_tp(x)
+    return _qkv_params(params, spec, plan), x, plan
+
+
+def _out(params, out, plan: HeadPlan | None, compute_dtype):
+    """``wo`` on the heads' output ``[B, S, Hq·Dh]``: its slice at ``wo``'s
+    local rows, then the sum over the TP ranks where it is partial (the
+    bias, if any, added once after it)."""
+    if plan is not None and out.shape[-1] != plan.hi - plan.lo:
+        start = plan.lo - plan.q0 * plan.head_dim
+        out = out[..., start:start + plan.hi - plan.lo]
+    return layers.row_split_apply(params["wo"], out, compute_dtype,
+                                  plan is not None and plan.partial)
+
+
 def _sdpa(q, k, v, mask, spec: AttnSpec, compute_dtype):
     """Grouped scaled-dot-product attention. q:[B,Sq,H,D] k/v:[B,Sk,Hkv,D];
     mask:[B,Sq,Sk] boolean, True = attend."""
-    groups = spec.num_heads // spec.num_kv_heads
     b, sq, h, d = q.shape
-    qg = q.reshape(b, sq, spec.num_kv_heads, groups, d)
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d)
     logits = torch.einsum(
         "bqkgd,bskd->bkgqs", qg.to(torch.float32), k.to(torch.float32)
     ) * (d**-0.5)
@@ -118,7 +196,7 @@ def _sdpa_chunked(q, k, v, spec: AttnSpec, compute_dtype, window):
     the reference they add ``exp(NEG_INF − m) = 0`` with ``alpha = 1``, so
     the result is the same. Differentiable (the training form)."""
     b, s, h, d = q.shape
-    kv = spec.num_kv_heads
+    kv = k.shape[2]
     groups = h // kv
     cq, ck = min(CHUNK_Q, s), min(CHUNK_K, s)
     nq, nk = s // cq, s // ck
@@ -163,22 +241,28 @@ def apply_train(
     """Full-sequence training attention. x: [B, S, D]."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(params, x, spec, positions, compute_dtype)
+    qkv, x, plan = _local(params, x, spec)
+    q, k, v = _project_qkv(qkv, x, spec, positions, compute_dtype)
     window = spec.window if window_override is None else window_override
     if s >= CHUNKED_ATTN_THRESHOLD and s % CHUNK_Q == 0 and s % CHUNK_K == 0:
         out = _sdpa_chunked(q, k, v, spec, compute_dtype, window)
     else:
         mask = causal_mask(s, s, window, x.device).expand(b, s, s)
         out = _sdpa(q, k, v, mask, spec, compute_dtype)
-    return layers.dense_apply(
-        params["wo"], out.reshape(b, s, -1), compute_dtype
-    )
+    return _out(params, out.reshape(b, s, -1), plan, compute_dtype)
 
 
 def init_cache(batch: int, max_len: int, spec: AttnSpec, dtype, device,
-               lead=()) -> dict:
+               lead=(), params=None) -> dict:
+    """Empty K/V of ``spec.num_kv_heads`` heads, or of this rank's KV
+    heads under tensor parallelism when ``params`` (the layer's local
+    weights, stacked or not) are given."""
     s_cache = min(max_len, spec.window) if spec.window else max_len
-    shape = (*lead, batch, s_cache, spec.num_kv_heads, spec.head_dim)
+    kv = spec.num_kv_heads
+    if params is not None and sh.tp() is not None:
+        plan = head_plan(params, spec)
+        kv = plan.k1 - plan.k0
+    shape = (*lead, batch, s_cache, kv, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -200,8 +284,9 @@ def apply_decode(
     """
     b = x.shape[0]
     pos = cache["pos"]
+    qkv, x, plan = _local(params, x, spec)
     q, k_new, v_new = _project_qkv(
-        params, x, spec, pos.expand(b, 1), compute_dtype
+        qkv, x, spec, pos.expand(b, 1), compute_dtype
     )
     s_cache = cache["k"].shape[1]
     if spec.window is not None:
@@ -218,9 +303,8 @@ def apply_decode(
         cache["v"].transpose(1, 2), length.to(torch.int32),
         softcap=spec.softcap,
     )
-    out = layers.dense_apply(
-        params["wo"], out.transpose(1, 2).reshape(b, 1, -1), compute_dtype
-    )
+    out = _out(params, out.transpose(1, 2).reshape(b, 1, -1), plan,
+               compute_dtype)
     cache["pos"].add_(1)
     return out, cache
 
@@ -240,17 +324,18 @@ def prefill_cache(
     """
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(params, x, spec, positions, compute_dtype)
+    qkv, x, plan = _local(params, x, spec)
+    q, k, v = _project_qkv(qkv, x, spec, positions, compute_dtype)
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=spec.window, softcap=spec.softcap,
     )
-    y = layers.dense_apply(
-        params["wo"], out.transpose(1, 2).reshape(b, s, -1), compute_dtype
-    )
+    y = _out(params, out.transpose(1, 2).reshape(b, s, -1), plan,
+             compute_dtype)
 
     if cache is None:
-        cache = init_cache(b, max_len, spec, compute_dtype, x.device)
+        cache = init_cache(b, max_len, spec, compute_dtype, x.device,
+                           params=params)
     s_cache = cache["k"].shape[1]
     if spec.window is not None and s >= s_cache:
         tail = s - s_cache

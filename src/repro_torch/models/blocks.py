@@ -138,18 +138,21 @@ def _ffn(params, x, cfg: ModelConfig, kind: str, cdt, with_aux=False):
     if kind in MOE_KINDS:
         y, aux = moe.apply(params["ffn"], h, _moe_spec(cfg), cdt, with_aux)
         return x + y, aux
-    return x + layers.mlp_apply(params["ffn"], h, cdt), None
+    return x + layers.mlp_apply(params["ffn"], h, cdt, cfg.d_ff), None
 
 
 def init_cache(batch: int, max_len: int, cfg: ModelConfig, kind: str, device,
-               lead=()):
+               lead=(), params=None):
+    """The block's empty cache; at this rank's local widths under tensor
+    parallelism when the block's local ``params`` are given."""
     _, cdt = _dtype(cfg)
+    mixer = None if params is None else params["mixer"]
     if kind in ATTN_KINDS:
         return attention.init_cache(
-            batch, max_len, _attn_spec(cfg, kind), cdt, device, lead)
+            batch, max_len, _attn_spec(cfg, kind), cdt, device, lead, mixer)
     name, spec = _recurrent(cfg, kind)
     if name == "mamba":
-        return ssm.mamba_init_state(batch, spec, cdt, device, lead)
+        return ssm.mamba_init_state(batch, spec, cdt, device, lead, mixer)
     return getattr(ssm, f"{name}_init_state")(batch, spec, device, lead)
 
 
@@ -191,6 +194,7 @@ def prefill(params, x, cfg: ModelConfig, kind: str, max_len: int, cache=None):
         fn, spec = _mixer_fn(cfg, kind, "prefill")
         y, state = fn(params["mixer"], h, spec, cdt)
         if cache is None:
-            cache = init_cache(x.shape[0], max_len, cfg, kind, x.device)
+            cache = init_cache(x.shape[0], max_len, cfg, kind, x.device,
+                               params=params)
         cache = _write_state(cache, state)
     return _ffn(params, x + y, cfg, kind, cdt)[0], cache

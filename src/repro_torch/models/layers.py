@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding_hints as sh
+
 _SQRT2 = math.sqrt(2.0)
 # Φ(−2) and Φ(2): the truncated normal is drawn by inverse CDF on (−2, 2).
 _CDF_LO = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))
@@ -79,6 +81,19 @@ def dense_init_bias(generator, d_in, d_out, dtype, device, lead=()) -> dict:
 
 def dense_apply(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     y = x.to(compute_dtype) @ params["kernel"].to(compute_dtype)
+    if "bias" in params:
+        y = y + params["bias"].to(compute_dtype)
+    return y
+
+
+def row_split_apply(params: dict, x: torch.Tensor, compute_dtype,
+                    partial: bool) -> torch.Tensor:
+    """``dense_apply`` of a layer whose rows may be split over the TP
+    ranks: where ``partial``, each rank's product is summed over the ranks
+    (``reduce_from_tp``) and the bias added once, after the sum."""
+    y = x.to(compute_dtype) @ params["kernel"].to(compute_dtype)
+    if partial:
+        y = sh.reduce_from_tp(y)
     if "bias" in params:
         y = y + params["bias"].to(compute_dtype)
     return y
@@ -161,7 +176,15 @@ def mlp_init(generator, d_model, d_ff, dtype, device, lead=()) -> dict:
     }
 
 
-def mlp_apply(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, compute_dtype,
+              d_ff: int | None = None) -> torch.Tensor:
+    """SwiGLU. Under tensor parallelism, where the leaves' d_ff is less
+    than the whole ``d_ff``, ``gate``/``up`` are column-split and ``down``
+    row-split: the rank's partial sum, summed by ``reduce_from_tp``."""
+    partial = d_ff is not None and sh.local_range(
+        params["down"]["kernel"].shape[-2], d_ff)[2]
+    if partial:
+        x = sh.copy_to_tp(x)
     gate = F.silu(dense_apply(params["gate"], x, compute_dtype))
     up = dense_apply(params["up"], x, compute_dtype)
-    return dense_apply(params["down"], gate * up, compute_dtype)
+    return row_split_apply(params["down"], gate * up, compute_dtype, partial)

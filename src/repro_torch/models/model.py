@@ -20,6 +20,14 @@ state, ``caches["b0_mamba"]["conv"|"ssm"]``) carry a leading G axis — so
 the two packages' trees map key for key (``models/convert.py``); the
 groups are walked with a Python loop. ``decode_step`` writes the caches in
 place and returns the same dict (the reference returns new arrays).
+
+Under tensor parallelism (``sharding_hints.tp()``, the rank's local
+leaves) the vocabulary is split: the embedding looks up its local rows
+with the other ids masked and sums over the ranks; ``loss`` is a
+vocabulary-parallel cross-entropy on the local logits (the max, the sum
+of exponentials and the label's logit summed over the ranks, never the
+whole ``[B, S, V]``); ``forward``, ``prefill`` and ``decode_step`` return
+the whole logits, gathered once over the vocabulary.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch.utils.checkpoint
 from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, layers
+from repro_torch.models import sharding_hints as sh
 from repro_torch.models.sharding_hints import constrain
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -91,7 +100,15 @@ def init(
 
 def _embed_tokens(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     cdt = compat.dtype_of(cfg.compute_dtype)
-    x = layers.embed_apply(params["embed"], tokens, cdt)
+    table = params["embed"]["table"]
+    v0, v1, partial = sh.local_range(table.shape[0], cfg.vocab_size)
+    if partial:
+        ids = tokens.to(torch.int64)
+        inside = (ids >= v0) & (ids < v1)
+        x = table.to(cdt)[torch.where(inside, ids - v0, 0)]
+        x = sh.reduce_from_tp(torch.where(inside[..., None], x, 0))
+    else:
+        x = layers.embed_apply(params["embed"], tokens, cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
     return x
@@ -102,8 +119,11 @@ def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
     x = _embed_tokens(cfg, params, inputs["tokens"])
     if cfg.frontend == "vision_patches":
         cdt = compat.dtype_of(cfg.compute_dtype)
+        d = cfg.d_model
+        proj = {"kernel": sh.take(params["patch_proj"]["kernel"], -1, 0, d,
+                                  d, False, "frontend/patch_proj")}
         patches = layers.dense_apply(
-            params["patch_proj"], inputs["patch_embeds"].to(cdt), cdt
+            proj, inputs["patch_embeds"].to(cdt), cdt
         )
         x = torch.cat([patches, x], dim=1)
     return x
@@ -135,8 +155,9 @@ def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
     aux = blocks.no_aux(x.device)
     for gp in _group_params(cfg, params):
         if remat and torch.is_grad_enabled():
+            # the recompute may run on autograd's thread: carry the hints
             x, aux_g = torch.utils.checkpoint.checkpoint(
-                group_body, x, gp, use_reentrant=False
+                sh.carry(group_body), x, gp, use_reentrant=False
             )
         else:
             x, aux_g = group_body(x, gp)
@@ -144,13 +165,24 @@ def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
     return x, aux
 
 
-def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
-    """Final norm, LM head, float32 logits with the final softcap."""
+def _local_logits(cfg: ModelConfig, params, x):
+    """Final norm, LM head, float32 logits with the final softcap → (the
+    logits, whether they are this rank's block of the vocabulary)."""
     cdt = compat.dtype_of(cfg.compute_dtype)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps, cdt)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    partial = sh.local_range(table["table"].shape[0], cfg.vocab_size)[2]
+    if partial:
+        x = sh.copy_to_tp(x)
     logits = layers.unembed_apply(table, x, cdt)
-    return layers.softcap(logits.to(torch.float32), cfg.final_logit_softcap)
+    return layers.softcap(logits.to(torch.float32),
+                          cfg.final_logit_softcap), partial
+
+
+def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
+    """The whole vocabulary's logits (gathered under tensor parallelism)."""
+    logits, partial = _local_logits(cfg, params, x)
+    return sh.gather_from_tp(logits, -1) if partial else logits
 
 
 def forward(cfg: ModelConfig, params, inputs, remat: bool = True):
@@ -158,6 +190,25 @@ def forward(cfg: ModelConfig, params, inputs, remat: bool = True):
     x = _embed_inputs(cfg, params, inputs)
     x, aux = _loop_groups(cfg, params, x, remat=remat)
     return _logits(cfg, params, x), aux
+
+
+def _nll(lg: torch.Tensor, labels: torch.Tensor,
+         partial: bool = False) -> torch.Tensor:
+    """lse − label_logit over the vocab dim of float32 logits, as the
+    reference computes it (the max is a constant of the differentiation
+    there too); vocabulary-parallel on a rank's block of the logits."""
+    m = lg.max(dim=-1, keepdim=True).values.detach()
+    if not partial:
+        lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+        label_logit = lg.gather(-1, labels[..., None])[..., 0]
+        return lse - label_logit
+    m = sh.reduce_max_from_tp(m)
+    v0 = sh.tp().index * lg.shape[-1]
+    inside = (labels >= v0) & (labels < v0 + lg.shape[-1])
+    mine = lg.gather(-1, torch.where(inside, labels - v0, 0)[..., None])
+    label_logit = sh.reduce_from_tp(torch.where(inside, mine[..., 0], 0.0))
+    sumexp = sh.reduce_from_tp(torch.exp(lg - m).sum(dim=-1))
+    return torch.log(sumexp) + m[..., 0] - label_logit
 
 
 def loss(
@@ -178,17 +229,13 @@ def loss(
     inputs["tokens"] = tokens[:, :-1]
     labels = tokens[:, 1:].to(torch.int64)
 
-    logits, aux = forward(cfg, params, inputs, remat=remat)
+    x = _embed_inputs(cfg, params, inputs)
+    x, aux = _loop_groups(cfg, params, x, remat=remat)
+    logits, partial = _local_logits(cfg, params, x)
     if cfg.frontend == "vision_patches":
         logits = logits[:, inputs["patch_embeds"].shape[1]:, :]
 
-    # lse − label_logit over the vocab dim, as the reference computes it
-    # (the max is a constant of the differentiation there too).
-    lg = logits.to(torch.float32)
-    m = lg.max(dim=-1, keepdim=True).values.detach()
-    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-    label_logit = lg.gather(-1, labels[..., None])[..., 0]
-    nll = lse - label_logit
+    nll = _nll(logits.to(torch.float32), labels, partial)
     ce = nll.mean()
     total = (
         ce
@@ -204,18 +251,23 @@ def init_caches(
     batch: int,
     max_len: int,
     device: str | torch.device | None = None,
+    params=None,
 ) -> dict:
     """Stacked decode caches, empty: ``{"b{i}_{kind}": {"k", "v": [G, B,
     S_cache, KV, Dh], "pos": int32 [G]}}`` for attention kinds, the mixer's
     state with a leading G for recurrent ones (zeros, ``m`` at −inf), on
-    ``device`` (``None`` means CUDA; ``"meta"`` gives shapes only)."""
+    ``device`` (``None`` means CUDA; ``"meta"`` gives shapes only). Under
+    tensor parallelism, with the rank's local ``params``, at its local
+    widths (its KV heads, its block of Mamba's d_inner)."""
     dev = (
         torch.device("meta") if str(device) == "meta"
         else compat.resolve_device(device)
     )
     return {
         f"b{i}_{kind}": blocks.init_cache(
-            batch, max_len, cfg, kind, dev, lead=(cfg.num_groups,)
+            batch, max_len, cfg, kind, dev, lead=(cfg.num_groups,),
+            params=None if params is None else params["blocks"][
+                f"b{i}_{kind}"],
         )
         for i, kind in enumerate(cfg.block_pattern)
     }
@@ -230,7 +282,7 @@ def prefill(cfg: ModelConfig, params, inputs, max_len: int):
     """Process the prompt → (logits at the last position ``[B, 1, V]``,
     caches of depth ``max_len`` holding the prompt)."""
     x = _embed_inputs(cfg, params, inputs)
-    caches = init_caches(cfg, x.shape[0], max_len, x.device)
+    caches = init_caches(cfg, x.shape[0], max_len, x.device, params)
     for gi, gp in enumerate(_group_params(cfg, params)):
         gc = _group_caches(caches, gi)
         for i, kind in enumerate(cfg.block_pattern):

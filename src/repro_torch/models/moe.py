@@ -20,6 +20,13 @@ Where the port departs from the reference's calls, not its results:
 * ``constrain(...)`` stands where the reference pins the batch dim of
   the dispatch buffers; on the port's local tensors it is the identity
   (``models/sharding_hints.py``).
+
+Tensor parallelism splits the experts along F (``gate``/``up``'s columns,
+``down``'s rows). The router stays whole: every rank routes, sizes and
+drops alike from the same input, feeds the dispatched rows through
+``copy_to_tp`` to its F block, and sums the experts' outputs with
+``reduce_from_tp`` right after ``down``, before the gates weigh them (so
+the router's gradient is whole on every rank).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models import sharding_hints as sh
 from repro_torch.models.sharding_hints import constrain
 
 # Above this many elements of one expert's [cap, d_ff] intermediate the
@@ -138,6 +146,9 @@ def apply(
     # ---- dispatch gather -------------------------------------------------
     xin = _pad_row(xt)[rows, token_for_slot.long()]           # [b, E·C, d]
     xin = constrain(xin, ("batch", None, None)).reshape(b, e, cap, d)
+    partial = sh.local_range(params["down"].shape[-2], spec.d_ff)[2]
+    if partial:
+        xin = sh.copy_to_tp(xin)
 
     # ---- expert SwiGLU ---------------------------------------------------
     # Each weight is cast to the compute dtype where it is used, so at most
@@ -158,6 +169,8 @@ def apply(
             torch.einsum("becd,edf->becf", xin, w("up")))
         yout = torch.einsum("becf,efd->becd", h, w("down"))
 
+    if partial:
+        yout = sh.reduce_from_tp(yout)
     yout = constrain(yout.reshape(b, e * cap, d), ("batch", None, None))
 
     # ---- combine gather ---------------------------------------------------

@@ -1,22 +1,50 @@
-"""Opt-in activation sharding hints for mesh-agnostic model code.
+"""Opt-in activation sharding hints and the tensor-parallel context.
 
 Counterpart of the JAX package's ``models/sharding_hints.py``. The
 launch layer knows the mesh ("data"/"model"/"pod" axes); the model only
 knows logical roles ("batch", "seq", "tp"). ``hints`` installs a
-role→axes map for the duration of a ``with`` block; ``constrain(x,
-roles)`` is called where the reference pins activations (the group
-boundary in ``model.py``, the dispatch buffers in ``moe.py``).
+role→axes map, and the mesh when there is one, for the duration of a
+``with`` block; ``constrain(x, roles)`` is called where the reference
+pins activations (the group boundary in ``model.py``, the dispatch
+buffers in ``moe.py``). The port's activations are local tensors, with no
+partitioner to pin them, so ``constrain`` returns ``x`` itself with or
+without hints. ``resolve(shape, roles, mesh)`` gives the spec that the
+reference's divisibility guard would pin under the installed hints.
 
-The port's activations are local tensors, with no partitioner to pin
-them, so ``constrain`` returns ``x`` itself with or without hints.
-``resolve(shape, roles, mesh)`` gives the spec that the reference's
-divisibility guard would pin under the installed hints, for tensor
-parallelism inside an agent (ROADMAP item A7b) to act on.
+Tensor parallelism inside an agent. When the installed hints come with a
+``DeviceMesh`` whose "tp" axes have a size T > 1, ``tp()`` is that
+context (mesh, axes, T, this rank's index) and each rank's
+parameter leaves are its parts under the sharding rules
+(``launch/sharding.py``). The model code then runs on the local widths it
+reads from the leaves, with Megatron's conjugate pair around each split:
+
+* ``copy_to_tp`` — identity forward, all-reduce backward: in front of a
+  column-split projection (and on any replicated tensor that enters a
+  rank's partial computation, so its gradient is summed over the ranks);
+* ``reduce_from_tp`` — all-reduce forward, identity backward: after a
+  row-split projection. (``torch.distributed.nn.functional.all_reduce``
+  is not this: its backward sums again, counting the replicated gradient
+  T times.)
+* ``gather_from_tp`` — all-gather forward along a dim, the rank's part of
+  the gradient backward: a split leaf or activation needed whole.
+
+Where a leaf's split along "model" is one the local computation cannot
+use as it lies, the rank gathers the leaf whole at its use and slices
+what it needs (``take``); GSPMD reshards such leaves silently.
+``GATHERED_LEAVES`` names every such leaf, and ``gather_count`` counts
+the gathers. Without hints (or at T = 1) every function here returns its
+input itself, so the one-card paths run exactly the ops they ran before.
 """
 
 from __future__ import annotations
 
+import collections
 import contextvars
+import dataclasses
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.sharding import P
@@ -24,24 +52,102 @@ from repro_torch.launch.sharding import P
 _HINTS: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "sharding_hints", default=None
 )
+_TP: contextvars.ContextVar = contextvars.ContextVar(
+    "tensor_parallel", default=None
+)
+
+# Leaves gathered whole at their use under tensor parallelism, and why.
+GATHERED_LEAVES = {
+    "attention/wq": "query heads split off a head boundary (H % T != 0)",
+    "attention/wk": "KV heads that do not match the rank's query heads "
+                    "(KV % T != 0, or heads split off a boundary)",
+    "attention/wv": "as attention/wk",
+    "mamba/in_proj": "a contiguous column split cuts across [u | z]",
+    "frontend/patch_proj": "a column split with no row-split partner",
+    "slstm/wo": "a row split of the output gate's input projection, which "
+                "is concatenated with the three unsplit gates",
+}
+_GATHERS: collections.Counter = collections.Counter()
+
+
+def gather_count(name: str | None = None) -> int:
+    """Leaf gathers since the last reset (of ``name``, or of all)."""
+    return sum(_GATHERS.values()) if name is None else _GATHERS[name]
+
+
+def reset_gather_count() -> None:
+    _GATHERS.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The tensor-parallel context: ``size`` ranks along ``axes`` of
+    ``mesh``, this rank at ``index``."""
+    mesh: DeviceMesh
+    axes: tuple[str, ...]
+    size: int
+    index: int
+
+
+def _tensor_parallel(role_axes: dict, mesh) -> TensorParallel | None:
+    axes = tuple(role_axes.get("tp", ()))
+    if not axes or not isinstance(mesh, DeviceMesh):
+        return None
+    sizes = mesh_lib.axis_sizes(mesh)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    if size <= 1:
+        return None
+    return TensorParallel(mesh, axes, size, mesh_lib.agent_index(mesh, axes))
 
 
 class hints:
-    """``with hints({"batch": ("data",), "tp": ("model",)}):`` installs
-    the role→axes map until the block exits (nested blocks restore the
-    outer map)."""
+    """``with hints({"batch": ("data",), "tp": ("model",)}, mesh):``
+    installs the role→axes map (and, on a ``DeviceMesh`` whose "tp" axes
+    are larger than 1, the tensor-parallel context) until the block exits
+    (nested blocks restore the outer map)."""
 
-    def __init__(self, role_axes: dict):
+    def __init__(self, role_axes: dict, mesh=None):
         self._role_axes = dict(role_axes)
+        self._mesh = mesh
         self._tokens: list = []
 
     def __enter__(self):
-        self._tokens.append(_HINTS.set(self._role_axes))
+        ctx = _tensor_parallel(self._role_axes, self._mesh)
+        self._tokens.append((_HINTS.set(self._role_axes), _TP.set(ctx)))
         return self
 
     def __exit__(self, *exc):
-        _HINTS.reset(self._tokens.pop())
+        role_token, tp_token = self._tokens.pop()
+        _TP.reset(tp_token)
+        _HINTS.reset(role_token)
         return False
+
+
+def tp() -> TensorParallel | None:
+    """The installed tensor-parallel context, or None (no hints, no mesh,
+    or "tp" axes of size 1)."""
+    return _TP.get()
+
+
+def carry(fn):
+    """``fn`` with the hints installed now re-installed around each call:
+    for a function called later on another thread (the recompute of
+    ``torch.utils.checkpoint``, which runs in autograd's device thread on
+    CUDA, where this context is not set)."""
+    role_axes, ctx = _HINTS.get(), _TP.get()
+    if role_axes is None:
+        return fn
+
+    def run(*args, **kwargs):
+        tokens = _HINTS.set(role_axes), _TP.set(ctx)
+        out = fn(*args, **kwargs)
+        _TP.reset(tokens[1])
+        _HINTS.reset(tokens[0])
+        return out
+
+    return run
 
 
 def constrain(x, roles: tuple):
@@ -75,3 +181,130 @@ def resolve(shape, roles: tuple, mesh) -> P | None:
         else:
             spec.append(tuple(axes))
     return P(*spec)
+
+
+# ---------------------------------------------------------------------------
+# The conjugate pair and the gather
+# ---------------------------------------------------------------------------
+
+
+def _reduced(x: torch.Tensor, ctx: TensorParallel, op=dist.ReduceOp.SUM):
+    return mesh_lib.all_reduce(
+        x.clone(memory_format=torch.contiguous_format), ctx.mesh, ctx.axes,
+        op)
+
+
+def _gathered(x: torch.Tensor, dim: int, ctx: TensorParallel):
+    return torch.cat(mesh_lib.all_gather(x, ctx.mesh, ctx.axes), dim=dim)
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.tp = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _reduced(grad, fctx.tp), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return _reduced(x, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.tp, fctx.dim, fctx.n = ctx, dim, x.shape[dim]
+        return _gathered(x, dim, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        part = grad.narrow(fctx.dim, fctx.tp.index * fctx.n, fctx.n)
+        return part.contiguous(), None, None
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, sum of the gradient over the TP ranks backward;
+    ``x`` itself without a TP context."""
+    ctx = tp()
+    if ctx is None:
+        return x
+    return _CopyToTP.apply(x, ctx)
+
+
+def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the TP ranks forward, identity backward; ``x`` itself
+    without a TP context."""
+    ctx = tp()
+    if ctx is None:
+        return x
+    return _ReduceFromTP.apply(x, ctx)
+
+
+def reduce_max_from_tp(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the TP ranks of a tensor outside autograd
+    (a detached stabiliser); ``x`` itself without a TP context."""
+    ctx = tp()
+    if ctx is None:
+        return x
+    return _reduced(x.detach(), ctx, dist.ReduceOp.MAX)
+
+
+def gather_from_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The TP ranks' ``x`` concatenated along ``dim`` in rank order
+    forward, this rank's part of the gradient backward; ``x`` itself
+    without a TP context."""
+    ctx = tp()
+    if ctx is None:
+        return x
+    return _GatherFromTP.apply(x, dim % x.dim(), ctx)
+
+
+def take(w: torch.Tensor, dim: int, lo: int, hi: int, full: int,
+         partial: bool, name: str | None = None) -> torch.Tensor:
+    """Columns (or rows) ``[lo, hi)`` of a leaf whose whole size along
+    ``dim`` is ``full`` and whose local part is ``w``, for a computation
+    that is this rank's partial sum (``partial``) or replicated.
+
+    * The local part is exactly ``[lo, hi)``: ``w`` itself.
+    * ``w`` is whole (the rule left it unsplit): its slice; in a partial
+      computation through ``copy_to_tp``, so its gradient is summed.
+    * Otherwise the leaf is gathered whole (``gather_from_tp``, counted
+      under ``name``, a key of ``GATHERED_LEAVES``) and sliced, through
+      ``copy_to_tp`` in a partial computation.
+    """
+    ctx = tp()
+    dim = dim % w.dim()
+    n = w.shape[dim]
+    split = n != full
+    if split and ctx.index * n == lo and hi - lo == n:
+        return w
+    if split:
+        if name not in GATHERED_LEAVES:
+            raise ValueError(f"{name!r} is not a gathered leaf")
+        _GATHERS[name] += 1
+        w = gather_from_tp(w, dim)
+    if partial:
+        w = copy_to_tp(w)
+    return w if (lo, hi) == (0, full) else w.narrow(dim, lo, hi - lo)
+
+
+def local_range(local: int, full: int) -> tuple[int, int, bool]:
+    """``(lo, hi, partial)`` of a leaf dim of ``full`` entries whose local
+    part has ``local``: this rank's block when the dim is split over the
+    TP ranks (a partial computation), else the whole dim."""
+    ctx = tp()
+    if ctx is None or local == full:
+        return 0, full, False
+    if local * ctx.size != full:
+        raise ValueError(f"a local dim of {local} of {full} over "
+                         f"{ctx.size} ranks")
+    return ctx.index * local, (ctx.index + 1) * local, True

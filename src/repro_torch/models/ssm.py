@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models import sharding_hints as sh
 
 # Steps of Mamba's scan whose decay and input are made at once.
 SCAN_CHUNK = 256
@@ -96,11 +97,43 @@ def mamba_init(generator, spec: MambaSpec, dtype, device, lead=()) -> dict:
     }
 
 
-def _mamba_gates(params, u, spec: MambaSpec):
+def _mamba_local(params, x, spec: MambaSpec):
+    """(the leaves at this rank's block of d_inner, the mixer's input, and
+    whether the output is a partial sum over the TP ranks): ``params`` and
+    ``x`` themselves without tensor parallelism. The block is ``out_proj``'s
+    local rows; ``in_proj``'s contiguous column split cuts across ``[u |
+    z]``, so it is gathered whole and the block's ``u`` and ``z`` columns
+    taken from it."""
+    if sh.tp() is None:
+        return params, x, False
+    di = spec.d_inner
+    lo, hi, partial = sh.local_range(params["out_proj"]["kernel"].shape[-2],
+                                     di)
+    if partial:
+        x = sh.copy_to_tp(x)
+    w = sh.take(params["in_proj"]["kernel"], -1, 0, 2 * di, 2 * di, partial,
+                "mamba/in_proj")
+    local = dict(params)
+    local["in_proj"] = {"kernel": torch.cat(
+        [w[..., lo:hi], w[..., di + lo:di + hi]], dim=-1)}
+    for name, dim in (("conv", -1), ("conv_bias", -1), ("dt_bias", -1),
+                      ("d_skip", -1), ("a_log", -2)):
+        local[name] = sh.take(params[name], dim, lo, hi, di, partial)
+    for name, dim in (("dt_proj", -1), ("x_proj", -2)):
+        local[name] = {"kernel": sh.take(params[name]["kernel"], dim, lo, hi,
+                                         di, partial)}
+    return local, x, partial
+
+
+def _mamba_gates(params, u, spec: MambaSpec, partial: bool = False):
     """Input-dependent SSM parameters of the post-conv ``u [B, S, d_inner]``:
     (dt ``[B, S, d_inner]``, A ``[d_inner, d_state]``, B and C ``[B, S,
-    d_state]``), float32."""
+    d_state]``), float32. Under tensor parallelism ``x_proj``'s local rows
+    give a partial sum, summed over the ranks and then used by each rank's
+    block (so its gradient is summed too)."""
     proj = layers.dense_apply(params["x_proj"], u, torch.float32)
+    if partial:
+        proj = sh.copy_to_tp(sh.reduce_from_tp(proj))
     dt_raw, bmat, cmat = torch.split(
         proj, [1, spec.d_state, spec.d_state], dim=-1)
     dt = _softplus(
@@ -111,10 +144,11 @@ def _mamba_gates(params, u, spec: MambaSpec):
     return dt, a, bmat, cmat
 
 
-def _mamba_out(params, y32, uc, z, compute_dtype):
+def _mamba_out(params, y32, uc, z, compute_dtype, partial: bool = False):
     y = y32.to(compute_dtype) + params["d_skip"].to(compute_dtype) * uc
     y = y * F.silu(z)
-    return layers.dense_apply(params["out_proj"], y, compute_dtype)
+    return layers.row_split_apply(params["out_proj"], y, compute_dtype,
+                                  partial)
 
 
 def mamba_prefill(params, x, spec: MambaSpec, compute_dtype):
@@ -122,15 +156,17 @@ def mamba_prefill(params, x, spec: MambaSpec, compute_dtype):
     Causal depthwise conv over ``d_conv - 1`` zeros on the left, then the
     chunked scan ``h_t = decay_t · h_{t-1} + bu_t``."""
     b, s, _ = x.shape
-    di, ds, dc = spec.d_inner, spec.d_state, spec.d_conv
+    params, x, partial = _mamba_local(params, x, spec)
+    ds, dc = spec.d_state, spec.d_conv
     xz = layers.dense_apply(params["in_proj"], x, compute_dtype)
     u, z = xz.chunk(2, dim=-1)                                  # [B, S, di]
+    di = u.shape[-1]                       # this rank's block under TP
     w = params["conv"].to(compute_dtype)                        # [dc, di]
     upad = torch.cat([u.new_zeros((b, dc - 1, di)), u], dim=1)
     uc = sum(w[i] * upad[:, i:i + s] for i in range(dc))
     uc = F.silu(uc + params["conv_bias"].to(compute_dtype))
 
-    dt, a, bmat, cmat = _mamba_gates(params, uc, spec)
+    dt, a, bmat, cmat = _mamba_gates(params, uc, spec, partial)
     h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
     ys = []
     for c0 in range(0, s, SCAN_CHUNK):
@@ -147,7 +183,8 @@ def mamba_prefill(params, x, spec: MambaSpec, compute_dtype):
         ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
                                cmat[:, part]).to(compute_dtype))
         del hs
-    y = _mamba_out(params, torch.cat(ys, dim=1), uc, z, compute_dtype)
+    y = _mamba_out(params, torch.cat(ys, dim=1), uc, z, compute_dtype,
+                   partial)
     return y, {"conv": upad[:, s:], "ssm": h}
 
 
@@ -157,17 +194,22 @@ def mamba_apply_train(params, x, spec: MambaSpec, compute_dtype):
 
 
 def mamba_init_state(batch: int, spec: MambaSpec, dtype, device,
-                     lead=()) -> dict:
+                     lead=(), params=None) -> dict:
+    """The empty state; at this rank's block of d_inner (``out_proj``'s
+    rows) when the mixer's local ``params`` are given."""
+    di = spec.d_inner if params is None else \
+        params["out_proj"]["kernel"].shape[-2]
     return {
-        "conv": torch.zeros((*lead, batch, spec.d_conv - 1, spec.d_inner),
+        "conv": torch.zeros((*lead, batch, spec.d_conv - 1, di),
                             dtype=dtype, device=device),
-        "ssm": torch.zeros((*lead, batch, spec.d_inner, spec.d_state),
+        "ssm": torch.zeros((*lead, batch, di, spec.d_state),
                            dtype=torch.float32, device=device),
     }
 
 
 def mamba_apply_decode(params, x, state, spec: MambaSpec, compute_dtype):
     """Single-step recurrence. x: [B, 1, D]."""
+    params, x, partial = _mamba_local(params, x, spec)
     xz = layers.dense_apply(params["in_proj"], x, compute_dtype)
     u, z = xz.chunk(2, dim=-1)                                  # [B, 1, di]
     hist = torch.cat([state["conv"], u], dim=1)                 # [B, dc, di]
@@ -176,12 +218,12 @@ def mamba_apply_decode(params, x, state, spec: MambaSpec, compute_dtype):
         compute_dtype)
     uc = F.silu(uc)[:, None, :]                                 # [B, 1, di]
 
-    dt, a, bmat, cmat = _mamba_gates(params, uc, spec)
+    dt, a, bmat, cmat = _mamba_gates(params, uc, spec, partial)
     dt0 = dt[:, 0, :, None]
     h = (state["ssm"] * torch.exp(dt0 * a)
          + (dt0 * bmat[:, 0, None, :]) * uc.to(torch.float32)[:, 0, :, None])
     y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None, :]
-    return _mamba_out(params, y, uc, z, compute_dtype), {
+    return _mamba_out(params, y, uc, z, compute_dtype, partial), {
         "conv": hist[:, 1:], "ssm": h}
 
 
@@ -350,8 +392,13 @@ def slstm_init_state(batch: int, spec: SLSTMSpec, device, lead=()) -> dict:
 
 
 def _slstm_input(params, x):
-    """The four gates' input projections ``[..., 4·d]`` in float32."""
-    w = torch.cat([params[f"w{g}"]["kernel"] for g in _GATES], dim=-1)
+    """The four gates' input projections ``[..., 4·d]`` in float32. Under
+    tensor parallelism the rule splits ``wo``'s rows alone (its path
+    matches attention's ``wo``); it is gathered whole here."""
+    d = params["wz"]["kernel"].shape[-1]
+    w = torch.cat([
+        sh.take(params[f"w{g}"]["kernel"], -2, 0, d, d, False, "slstm/wo")
+        for g in _GATES], dim=-1)
     bias = torch.cat([params[f"w{g}"]["bias"] for g in _GATES], dim=-1)
     return layers.dense_apply({"kernel": w, "bias": bias}, x, torch.float32)
 

@@ -5,9 +5,13 @@
 
 CASE is `gossip` (a (2, 2, 2) mesh), `train_data` (a (4, 1) mesh, the
 `data` layout in the sparse, dense and allreduce modes), `train_data_dp`
-(a (4, 2) mesh, `data_dp`/sparse), `serve` (a (4, 1) mesh) or `world1`
+(a (4, 2) mesh, `data_dp`/sparse), `serve` (a (4, 1) mesh), `world1`
 (a (1, 1) mesh: the mesh paths against the one-card paths, which is all
-one card can run over NCCL). INPUTS is
+one card can run over NCCL), `tp_train` (a (4, 2) mesh, the `data` layout
+with each leaf split over "model", for smoke Qwen2, Mixtral and Jamba),
+`tp_serve` (meshes (1, 4) and (2, 2), serving's 1-D tensor parallelism)
+or `tp_units` (a (1, 2) mesh: the conjugate pair, the
+vocabulary-parallel cross-entropy and the MoE's routing). INPUTS is
 the test's `npz` (the reference's initial parameters, tokens, W). The rank
 writes what it holds to `OUT_DIR/rank{RANK}.npz`. Each FAULT named reruns
 the case with one fault put in by this script, never by the package, and
@@ -15,13 +19,17 @@ writes that run's results under `fault/<FAULT>/`:
 
 * `dropped_round` — the gossip schedule without its last round;
 * `no_model_reduce` — the `model` group's gradient sum skipped;
-* `wrong_rows` — rank 0 given the next agent's (or rank's) rows.
+* `wrong_rows` — rank 0 given the next agent's (or rank's) rows;
+* `naive_uz` — Mamba's split `in_proj` used as the `[u | z]` it is not;
+* `own_wo_partial` — rank 0 keeps its own partial sum after `wo` (it
+  still joins the all-reduce, so the other ranks do not wait forever).
 """
 
 import dataclasses
 import datetime
 import os
 import sys
+import types
 
 import numpy as np
 import torch
@@ -29,14 +37,20 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import torch.distributed.nn  # noqa: E402
+
 from repro_torch.configs import base  # noqa: E402
+from repro_torch.configs import gemma2_2b, jamba_1_5_large_398b  # noqa: E402
+from repro_torch.configs import mixtral_8x7b  # noqa: E402
 from repro_torch.configs.qwen2_0_5b import SMOKE_CONFIG as CFG  # noqa: E402
 from repro_torch.core import dpsgd, gossip  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve, sharding, train  # noqa: E402
-from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import attention, convert, model, moe  # noqa: E402
+from repro_torch.models import sharding_hints as sh  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_paths  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 STEPS = 3
 DECODE_STEPS = 4
@@ -46,6 +60,9 @@ MESHES = {
     "train_data_dp": ((4, 2), ("data", "model")),
     "serve": ((4, 1), ("data", "model")),
     "world1": ((1, 1), ("data", "model")),
+    "tp_train": ((4, 2), ("data", "model")),
+    "tp_serve": ((1, 4), ("data", "model")),
+    "tp_units": ((1, 2), ("data", "model")),
 }
 TRAIN_MODES = {  # case -> [(mode name, gossip asked, W key)]
     "train_data": [("sparse", "sparse", "w_ring"), ("dense", "dense", "w_ring"),
@@ -56,6 +73,13 @@ TRAIN_SHAPES = {"train_data": ("train_data", 16, 8, "train"),
                 "train_data_dp": ("train_data_dp", 16, 16, "train")}
 SERVE_BATCHES = (4, 2)   # 4 splits over "data", 2 does not
 SERVE_PROMPT, SERVE_MAX_LEN = 8, 8 + DECODE_STEPS   # the last fed token fills it
+TP_CFGS = {"qwen2": CFG, "mixtral": mixtral_8x7b.SMOKE_CONFIG,
+           "jamba": jamba_1_5_large_398b.SMOKE_CONFIG,
+           "gemma2": gemma2_2b.SMOKE_CONFIG}
+TP_TRAIN_ARCHS = ("qwen2", "mixtral", "jamba")
+TP_TRAIN_SHAPE = ("tp", 16, 8)       # name, seq_len, global batch (4 agents)
+TP_SERVE_RUNS = ("qwen2:1:4", "gemma2:2:2", "mixtral:2:2")  # arch:data:model
+TP_SERVE_BATCH = 2                   # splits over "data" at (2, 2)
 
 
 def nest(flat: dict) -> dict:
@@ -78,6 +102,33 @@ def section(inputs: dict, prefix: str) -> dict:
 def drop_last_round(schedule):
     return dataclasses.replace(schedule, rounds=schedule.rounds[:-1],
                                weights=schedule.weights[:-1])
+
+
+def naive_uz(real_local):
+    """``ssm._mamba_local`` with the rank's contiguous columns of
+    ``in_proj`` taken as its ``[u | z]`` (after the real gather, so the
+    ranks' collectives stay matched)."""
+    def local(params, x, spec):
+        got, x, partial = real_local(params, x, spec)
+        if sh.tp() is not None:
+            got = {**got, "in_proj": params["in_proj"]}
+        return got, x, partial
+    return local
+
+
+def own_wo_partial(real):
+    """``models.layers`` as attention sees it, with ``wo``'s rank-partial
+    product kept as it is: the all-reduce is still joined (so the other
+    ranks do not wait forever) and its sum dropped."""
+    def keep_own(params, x, compute_dtype, partial):
+        y = real.row_split_apply(params, x, compute_dtype, False)
+        if partial:
+            sh.reduce_from_tp(y)
+        return y
+
+    faulty = {k: getattr(real, k) for k in dir(real) if not k.startswith("__")}
+    faulty["row_split_apply"] = keep_own
+    return types.SimpleNamespace(**faulty)
 
 
 def wrong_coords(mesh, coords, axes):
@@ -139,14 +190,26 @@ def run_train(case, mesh, inputs, out, key, fault):
             out[f"{key}{name}/momentum/{path}"] = leaf
     out[f"{key}agent"] = np.asarray(mesh_lib.agent_index(mesh, ("data",)))
     if fault is None and case == "train_data_dp":
-        refused = []
-        for other, w in (("pod", None), ("data", inputs["w_ring"])):
-            tcfg = base.TrainConfig(agent_layout=other, gossip="sparse",
-                                    microbatch=2)
-            refused.append(_raises(lambda: train.build_train_artifacts(
-                CFG, tcfg, shape, mesh, w, device="cpu")))
+        # what A7b(ii) still has to port: the pod layout; serving's 2-D
+        # TP on a (2, 4) mesh (Mixtral-8x7B's weights are over 8 GB a
+        # model rank, so its rule splits them over "data" too); a
+        # data-layout leaf split over "data" at model 2
+        tcfg = base.TrainConfig(agent_layout="pod", gossip="sparse",
+                                microbatch=2)
+        refused = [_raises(lambda: train.build_train_artifacts(
+            CFG, tcfg, shape, mesh, None, device="cpu"))]
+        wide = mesh_lib.init_mesh((2, 4), ("data", "model"), "cpu")
         refused.append(_raises(lambda: serve.build_serve_artifacts(
-            CFG, base.ShapeConfig("s", 12, 4, "prefill"), "cpu", mesh)))
+            mixtral_8x7b.CONFIG, base.ShapeConfig("s", 12, 4, "prefill"),
+            "cpu", wide)))
+        tcfg = base.TrainConfig(agent_layout="data", gossip="sparse",
+                                microbatch=2)
+        art = train.build_train_artifacts(CFG, tcfg, shape, mesh,
+                                          inputs["w_ring"], device="cpu")
+        specs = dict(art.param_specs)
+        specs["final_norm"] = {"scale": sharding.P("data", "data")}
+        refused.append(_raises(lambda: sharding.require_whole_over(
+            specs, mesh, from_dim=1)))
         out["unported_raise"] = np.asarray(refused)
 
 
@@ -189,6 +252,185 @@ def run_serve(mesh, inputs, out, key, fault):
         out[f"{key}{b}/logits"] = np.stack(steps)
         out[f"{key}{b}/split"] = np.asarray(pre.input_specs["tokens"][0]
                                             is not None)
+
+
+def run_tp_train(mesh, inputs, out, key, fault):
+    """3 steps of the ``data`` layout at (4, 2) for each arch: the whole
+    tree gathered back (``gather_tree``), the leaves left whole by the
+    rule as this rank holds them, the expert ids of the first step."""
+    for arch in TP_TRAIN_ARCHS:
+        if fault == "naive_uz" and arch != "jamba":
+            continue
+        cfg = TP_CFGS[arch]
+        tcfg = base.TrainConfig(agent_layout="data", gossip="sparse",
+                                microbatch=2, learning_rate=0.05)
+        art = train.build_train_artifacts(
+            cfg, tcfg, base.ShapeConfig(*TP_TRAIN_SHAPE, "train"), mesh,
+            inputs["w_ring"], device="cpu")
+        whole = convert.params_from_jax(
+            nest(section(inputs, f"init/{arch}/")), cfg, "cpu")
+        stacked = dpsgd.replicate_for_agents(whole, art.num_agents)
+        params = tree_map(lambda p: p.clone(), sharding.shard_tree(
+            stacked, art.param_specs, mesh))
+        if fault is None:
+            again = sharding.gather_tree(params, art.param_specs, mesh)
+            for path, leaf in tree_paths(convert.params_to_jax(again)):
+                out[f"{arch}/init_gathered/{path}"] = leaf
+        state = {"params": params, "opt": sgd.init(params), "step": 0}
+        experts, real_route = [], moe.route
+
+        def spy(*args, **kwargs):
+            got = real_route(*args, **kwargs)
+            experts.append(got[3].reshape(-1).numpy().copy())
+            return got
+
+        losses = []
+        for k in range(STEPS):
+            moe.route = spy if k == 0 else real_route
+            local = sharding.shard_tree(
+                {"tokens": inputs[f"tokens/{arch}/{k}"]}, art.batch_specs,
+                mesh)
+            state, met = art.step_fn(state, local)
+            losses.append(float(met["loss"]))
+        moe.route = real_route
+        out[f"{key}{arch}/resolved"] = np.asarray(art.gossip)
+        out[f"{key}{arch}/losses"] = np.asarray(losses)
+        for part, tree in (("params", state["params"]),
+                           ("momentum", state["opt"]["momentum"])):
+            whole = sharding.gather_tree(tree, art.param_specs, mesh)
+            for path, leaf in tree_paths(convert.params_to_jax(whole)):
+                out[f"{key}{arch}/{part}/{path}"] = leaf
+        specs = dict(tree_paths(art.param_specs))
+        for part, tree in (("params", state["params"]),
+                           ("momentum", state["opt"]["momentum"])):
+            for path, leaf in tree_paths(tree):
+                if "model" not in [a for e in specs[path][1:]
+                                   for a in sharding._axes_of(e)]:
+                    out[f"{key}{arch}/replicated/{part}/{path}"] = \
+                        leaf.numpy()
+        out[f"{key}{arch}/experts"] = np.concatenate(
+            experts) if experts else np.zeros(0, np.int64)
+    out[f"{key}agent"] = np.asarray(mesh_lib.agent_index(mesh, ("data",)))
+
+
+_TP_MESHES: dict = {}
+
+
+def tp_serve_mesh(data: int, model_size: int):
+    """The (data, model) ``DeviceMesh`` over the default group, made once."""
+    if (data, model_size) not in _TP_MESHES:
+        _TP_MESHES[(data, model_size)] = mesh_lib.init_mesh(
+            (data, model_size), ("data", "model"), "cpu")
+    return _TP_MESHES[(data, model_size)]
+
+
+def run_tp_serve(mesh, inputs, out, key, fault):
+    """A prefill and DECODE_STEPS decode steps of each ``TP_SERVE_RUNS``
+    entry on its mesh, each rank on its rows and its part of the
+    weights; the leaf gathers of the run."""
+    for run in TP_SERVE_RUNS:
+        if fault is not None and run != TP_SERVE_RUNS[0]:
+            continue
+        arch, data, model_size = run.split(":")
+        dm = tp_serve_mesh(int(data), int(model_size))
+        cfg = TP_CFGS[arch]
+        arts = [serve.build_serve_artifacts(
+            cfg, base.ShapeConfig("serve", SERVE_MAX_LEN, TP_SERVE_BATCH,
+                                  kind), "cpu", dm)
+            for kind in ("prefill", "decode")]
+        whole = convert.params_from_jax(
+            nest(section(inputs, f"init/{arch}/")), cfg, "cpu")
+        params = sharding.shard_tree(whole, arts[0].param_specs, dm)
+        tokens = torch.from_numpy(inputs[f"serve/tokens/{arch}"])
+        prompt = sharding.shard_tree({"tokens": tokens[:, :SERVE_PROMPT]},
+                                     arts[0].input_specs, dm)
+        sh.reset_gather_count()
+        logits, caches = arts[0].prefill_fn(params, prompt)
+        steps = [logits.numpy()]
+        for t in range(DECODE_STEPS):
+            nxt = tokens[:, SERVE_PROMPT + t:SERVE_PROMPT + t + 1]
+            logits, caches = arts[1].step_fn(
+                params, caches,
+                sharding.shard_tree(nxt, arts[1].input_specs, dm))
+            steps.append(logits.numpy())
+        out[f"{key}{run}/logits"] = np.stack(steps)
+        coords = mesh_lib.coordinate(dm)
+        out[f"{key}{run}/coords"] = np.asarray([coords["data"],
+                                                 coords["model"]])
+        out[f"{key}{run}/split"] = np.asarray(
+            arts[0].input_specs["tokens"][0] is not None)
+        names = sorted(sh._GATHERS)
+        out[f"{key}{run}/gather_names"] = np.asarray(names, dtype=str)
+        out[f"{key}{run}/gather_counts"] = np.asarray(
+            [sh.gather_count(n) for n in names], np.int64)
+
+
+def run_tp_units(mesh, inputs, out, key, fault):
+    """The conjugate pair, a summing-backward control, the
+    vocabulary-parallel cross-entropy and the MoE's routing at 2 ranks,
+    each against the whole computation in this process."""
+    gen = torch.Generator().manual_seed(0)
+    x, w1, w2, c = (torch.randn(s, generator=gen)
+                    for s in ((4, 8), (8, 16), (16, 8), (4, 8)))
+    i = mesh_lib.coordinate(mesh)["model"]
+    cols = slice(8 * i, 8 * (i + 1))
+
+    def mlp(reduce, copy, w1_, w2_):
+        xr, a, b = (t.clone().requires_grad_(True) for t in (x, w1_, w2_))
+        y = reduce(torch.nn.functional.gelu(copy(xr) @ a) @ b)
+        grads = torch.autograd.grad((y * c).sum(), (xr, a, b))
+        return {"y": y.detach(), "grad_x": grads[0], "grad_w1": grads[1],
+                "grad_w2": grads[2]}
+
+    whole = mlp(lambda t: t, lambda t: t, w1, w2)
+    whole["grad_w1"] = whole["grad_w1"][:, cols]
+    whole["grad_w2"] = whole["grad_w2"][cols]
+    group = mesh_lib.axis_group(mesh, ("model",))
+    with sh.hints({"tp": ("model",)}, mesh):
+        pair = mlp(sh.reduce_from_tp, sh.copy_to_tp, w1[:, cols], w2[cols])
+        summing = mlp(
+            lambda t: torch.distributed.nn.functional.all_reduce(
+                t, group=group), sh.copy_to_tp, w1[:, cols], w2[cols])
+    for name, got in (("whole", whole), ("pair", pair),
+                      ("summing", summing)):
+        for k, v in got.items():
+            out[f"{name}/{k}"] = v.numpy()
+
+    logits = torch.randn((2, 5, 12), generator=gen)
+    labels = torch.randint(0, 12, (2, 5), generator=gen)
+    vocab = slice(6 * i, 6 * (i + 1))
+    lw = logits.clone().requires_grad_(True)
+    nll = model._nll(lw, labels)
+    out["ce_whole/nll"] = nll.detach().numpy()
+    out["ce_whole/grad_logits"] = torch.autograd.grad(
+        nll.sum(), lw)[0][..., vocab].numpy()
+    with sh.hints({"tp": ("model",)}, mesh):
+        ll = logits[..., vocab].clone().requires_grad_(True)
+        nll = model._nll(ll, labels, partial=True)
+        out["ce/nll"] = nll.detach().numpy()
+        out["ce/grad_logits"] = torch.autograd.grad(nll.sum(), ll)[0].numpy()
+
+    spec = moe.MoESpec(64, 128, 4, 2, capacity_factor=1.0)
+    params = moe.init(gen, spec, torch.float32, "cpu")
+    xs = torch.randn((2, 6, 64), generator=gen)
+    ff = slice(64 * i, 64 * (i + 1))
+    local = {"router": params["router"], "gate": params["gate"][..., ff],
+             "up": params["up"][..., ff], "down": params["down"][:, ff]}
+    out["moe_whole/y"] = moe.apply(params, xs, spec, torch.float32,
+                                   with_aux=False)[0].numpy()
+    experts, real_route = [], moe.route
+
+    def spy(*args, **kwargs):
+        got = real_route(*args, **kwargs)
+        experts.append(got[3].reshape(-1).numpy().copy())
+        return got
+
+    moe.route = spy
+    with sh.hints({"tp": ("model",)}, mesh):
+        out["moe/y"] = moe.apply(local, xs, spec, torch.float32,
+                                 with_aux=False)[0].numpy()
+    moe.route = real_route
+    out["moe/experts"] = np.concatenate(experts)
 
 
 def run_world1(mesh, inputs, out, key, fault):
@@ -260,21 +502,33 @@ def main(argv):
         inputs = dict(data)
     out: dict = {}
     real_reduce, real_schedule = train._reduce_gradients, gossip.build_schedule
+    real_local, real_layers = ssm._mamba_local, attention.layers
     for fault in [None, *faults]:
         key = "" if fault is None else f"fault/{fault}/"
         train._reduce_gradients, gossip.build_schedule = (
             real_reduce, real_schedule)
+        ssm._mamba_local, attention.layers = real_local, real_layers
         if fault == "dropped_round":
             gossip.build_schedule = (
                 lambda w, atol=1e-12: drop_last_round(real_schedule(w, atol)))
         if fault == "no_model_reduce":
             train._reduce_gradients = lambda grads, group: None
+        if fault == "naive_uz":
+            ssm._mamba_local = naive_uz(real_local)
+        if fault == "own_wo_partial" and int(rank) == 0:
+            attention.layers = own_wo_partial(real_layers)
         if case == "gossip":
             run_gossip(mesh, inputs, out, key, fault)
         elif case == "world1":
             run_world1(mesh, inputs, out, key, fault)
         elif case == "serve":
             run_serve(mesh, inputs, out, key, fault)
+        elif case == "tp_train":
+            run_tp_train(mesh, inputs, out, key, fault)
+        elif case == "tp_serve":
+            run_tp_serve(mesh, inputs, out, key, fault)
+        elif case == "tp_units":
+            run_tp_units(mesh, inputs, out, key, fault)
         else:
             run_train(case, mesh, inputs, out, key, fault)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

@@ -26,7 +26,7 @@ bf16 ulp of the gradients under `data_dp` (`tests/test_torch_train.py`);
 serving 1e-4 (`tests/test_torch_serve.py`). Each faulty run of the rank
 script (a dropped round, the `model` gradient sum skipped, one rank given
 another agent's rows) must be refused by the same comparison, and the
-layouts left to ROADMAP A7b must raise `NotImplementedError`.
+layouts left to ROADMAP A7b(ii) must raise `NotImplementedError`.
 """
 
 import contextlib
@@ -375,12 +375,18 @@ def test_train_mesh_faults_are_refused(runs, case, name, fault):
     assert errs["params"] > 1.0, errs
 
 
-@pytest.mark.parametrize("what", ["pod", "data at model 2", "serve at model 2"])
+UNPORTED = ["pod", "serve 2-D at data 2",
+            "data at model 2 with a leaf over data"]
+
+
+@pytest.mark.parametrize("what", UNPORTED)
 def test_unported_layouts_raise(runs, what):
+    """What ROADMAP A7b(ii) has still to port raises naming it (the data
+    layout and serving at model 2 run: tests/test_torch_multirank_tp.py)."""
     _, _, ranks = runs
-    i = ["pod", "data at model 2", "serve at model 2"].index(what)
+    i = UNPORTED.index(what)
     for out in ranks["train_data_dp"]:
-        assert "A7b" in str(out["unported_raise"][i])
+        assert "A7b(ii)" in str(out["unported_raise"][i])
 
 
 # ---------------------------------------------------------------------------

@@ -124,6 +124,50 @@ def test_cache_specs_match(arch, mesh_name, shape):
 
 
 # ---------------------------------------------------------------------------
+# require_whole_over: "model" splits pass, "data"/"pod" splits raise
+# ---------------------------------------------------------------------------
+
+
+def _over_data(specs, tm, from_dim: int) -> bool:
+    sizes = mesh.axis_sizes(tm)
+    return any(
+        a in ("pod", "data") and sizes[a] > 1
+        for _, spec in tree_paths(specs) for entry in spec[from_dim:]
+        for a in (entry if isinstance(entry, tuple) else (entry,))
+        if a is not None)
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("kind", ["data", "pod", "serve"])
+@pytest.mark.parametrize("arch", base.ARCH_IDS)
+def test_require_whole_over(arch, kind, mesh_name):
+    """The ``data`` layout splits inner dims over "model" alone and
+    passes; the ``pod`` layout (FSDP over "data") raises naming A7b(ii);
+    serving passes for 1-D tensor parallelism and raises for the 2-D form
+    on a ``data`` axis larger than 1."""
+    _, tm = _meshes(mesh_name)
+    if kind == "serve":
+        specs = sharding.param_specs_serve(_serve_shapes(arch)[1], tm,
+                                           base.get_config(arch))
+        from_dim = 0
+    else:
+        m = mesh.num_agents(tm, kind)
+        specs = sharding.param_specs_train(_train_shapes(arch, m)[1], tm,
+                                           kind)
+        from_dim = 1
+    over = _over_data(specs, tm, from_dim)
+    if kind == "data":
+        assert not over
+    if kind == "pod":
+        assert over
+    if over:
+        with pytest.raises(NotImplementedError, match=r"A7b\(ii\)"):
+            sharding.require_whole_over(specs, tm, from_dim=from_dim)
+    else:
+        sharding.require_whole_over(specs, tm, from_dim=from_dim)
+
+
+# ---------------------------------------------------------------------------
 # sharding_hints
 # ---------------------------------------------------------------------------
 
