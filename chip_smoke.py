@@ -43,6 +43,15 @@ points a user calls:
   8 layers served at 16 / 4 heads and 7168 expert columns a rank, held to
   the one-card path by the median-position rule; both attention kernels
   timed alone at the TP-local shapes;
+* FSDP and expert parallelism over "data" inside an agent — four rank
+  processes sharing the card at (data 2, model 2) over gloo: Mixtral-8x7B
+  at full width and 2 layers trained in the ``pod`` layout (FSDP gathers
+  with reduce-scattered gradients, the 8 experts 4 a data rank behind an
+  all-to-all, TP over "model"; a 512-token row a data rank) held to the
+  one-card launcher step and a float32 run, and the 8-layer Mixtral
+  served under 2-D tensor parallelism (a row a rank) held by the
+  median-position rule, each with its faulty controls refused; both
+  attention kernels and the per-agent combine at the local shapes;
 * the runtime — ``examples/elastic_failover.py`` at full width:
   Qwen2-0.5B x 8 agents trained by D-PSGD while
   ``runtime.design_service`` (pricing on the card's torch engine)
@@ -91,7 +100,8 @@ Output: one JSON object per phase (``device``, ``build``,
 ``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
 ``train``, ``train_launch``, ``per_agent_flat_combine``, ``mesh_init``,
 ``train_mesh``, ``serve_mesh``, ``train_tp``, ``serve_tp``,
-``tp_local_attention``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
+``tp_local_attention``, ``train_pod``, ``serve_2d``,
+``pod_local_attention``, ``pod_local_combine``, ``elastic``, ``design``, ``gate``, ``design_full_width``, ``design_eigh``,
 ``serve_check`` (Qwen2-0.5B, then Gemma2-2B), ``serve``,
 ``serve_gemma2``, ``moe_layer_check``, ``mixtral_attention``,
 ``serve_check`` (Mixtral float32 at 2 layers), ``serve_mixtral``,
@@ -1982,10 +1992,25 @@ def per_agent_flat_combine(seed: int, w: np.ndarray) -> dict:
     agent = int(degree.argmax())
     r = int(degree[agent])
     nbrs = [int(j) for j in idx[agent, :r]]
-    weights = torch.tensor([w[agent, agent]] + [w[agent, j] for j in nbrs],
-                           dtype=torch.float32, device="cuda")
+    weights = [w[agent, agent]] + [w[agent, j] for j in nbrs]
+    out = hold_per_agent_combine(seed + 21, n, weights, "per-agent flat "
+                                 "combine")
+    out["agent"] = agent
+    emit("per_agent_flat_combine", **out)
+    return out
+
+
+def hold_per_agent_combine(seed: int, n: int, w_row, what: str) -> dict:
+    """The per-agent form without momentum at x[N] bf16 with R = len(w_row)
+    - 1 received rows recv[R, N] and the weights ``w_row`` (its own first),
+    data drawn from ``seed``: held against its plain version at one bf16
+    ulp and the data-scaled limit, with a control that drops one received
+    row refused; timed over 20 launches beside its byte bound, the plain
+    version and one ``torch.addmm``."""
+    r = len(w_row) - 1
+    weights = torch.tensor(w_row, dtype=torch.float32, device="cuda")
     scale = 0.02
-    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.empty(n, dtype=torch.bfloat16, device="cuda")
     x.normal_(generator=gen).mul_(scale)
     recv = torch.empty(r, n, dtype=torch.bfloat16, device="cuda")
@@ -1993,7 +2018,7 @@ def per_agent_flat_combine(seed: int, w: np.ndarray) -> dict:
     rtol, atol = combine_tolerance(torch.bfloat16, scale)
     got = ops.mixing_sgd_combine(x, recv, weights)
     want = ref.mixing_sgd_combine_ref(x, recv, weights)
-    err = assert_close(got, want, rtol, "per-agent flat combine", atol=atol)
+    err = assert_close(got, want, rtol, what, atol=atol)
     del want
     dropped = weights.clone()
     dropped[1] = 0.0
@@ -2001,8 +2026,8 @@ def per_agent_flat_combine(seed: int, w: np.ndarray) -> dict:
     agree, _, refused = compare(got, faulty, rtol, atol)
     if agree:
         raise AssertionError(
-            "per-agent flat combine: the check cannot tell the kernel's "
-            "output from a mix with a received row dropped")
+            f"{what}: the check cannot tell the kernel's output from a mix "
+            "with a received row dropped")
     del faulty, got
     torch.cuda.empty_cache()
     ms = time_cuda(lambda: ops.mixing_sgd_combine(x, recv, weights),
@@ -2021,7 +2046,7 @@ def per_agent_flat_combine(seed: int, w: np.ndarray) -> dict:
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     out = {
         "form": "per-agent, momentum=None", "n": n, "neighbours": r,
-        "agent": agent, "dtype": "torch.bfloat16", "data_scale": scale,
+        "dtype": "torch.bfloat16", "data_scale": scale,
         "rtol": rtol, "atol": atol, "max_abs_err": err,
         "dropped_row_refused_err_over_limit": refused,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -2031,7 +2056,6 @@ def per_agent_flat_combine(seed: int, w: np.ndarray) -> dict:
         "bytes_moved_once": moved, "flops": flops,
         "achieved_bytes_per_s": moved / (ms * 1e-3),
     }
-    emit("per_agent_flat_combine", **out)
     del x, recv
     torch.cuda.empty_cache()
     return out
@@ -2282,6 +2306,25 @@ TP_LOSS_RTOL = 5e-3
 TP_SERVE_CFG = dataclasses.replace(mixtral_8x7b.CONFIG, num_layers=8,
                                    capacity_factor=4.0)
 TP_SERVE = (2, 8192, 8192 + 8, 8)
+# FSDP and EP over "data" beside TP over "model": four ranks at (data 2,
+# model 2) on the one card over gloo, as TP_MESH's two. train_pod:
+# Mixtral-8x7B at full width and 2 of its 32 layers in the pod layout (one
+# agent: a "pod" axis of 1), microbatch 1 of 2 x 512 tokens (1 x 512 a
+# data rank), the load-balance loss at weight 1 so that its per-rank
+# control shows; 1 warm-up + 2 timed steps against the one-card launcher
+# and a float32 run by train_tp's rules. serve_2d: serve_tp's Mixtral,
+# prompts and fed tokens with the weights also split over "data" (at
+# model 2 the reference's rule picks 2-D from 6 layers up), 1 row a rank.
+POD_TRAIN_CFG = dataclasses.replace(mixtral_8x7b.CONFIG, num_layers=2)
+POD_TRAIN_SHAPE = ShapeConfig("train_pod", 512, 2, "train")
+POD_AUX = 1.0
+# phase -> (mesh shape, axes) of its rank processes
+RANK_MESHES = {
+    "train_tp": (TP_MESH, ("data", "model")),
+    "serve_tp": (TP_MESH, ("data", "model")),
+    "train_pod": ((1, 2, 2), ("pod", "data", "model")),
+    "serve_2d": ((2, 2), ("data", "model")),
+}
 
 
 def tp_train_config():
@@ -2460,17 +2503,21 @@ def tp_rank_serve(mesh, rank: int, work: str, seed: int) -> dict:
 
 
 def tp_rank_main(phase: str, rank: int, work: str, seed: int) -> None:
-    """A rank process of ``train_tp`` / ``serve_tp`` (started by
-    ``run_tp_ranks``): a (1, 2) mesh over gloo on the one card, its
-    report in ``work/rank{rank}.json``."""
+    """A rank process of ``train_tp`` / ``serve_tp`` / ``train_pod`` /
+    ``serve_2d`` (started by ``run_tp_ranks``): the phase's mesh
+    (``RANK_MESHES``) over gloo on the one card, its report in
+    ``work/rank{rank}.json``."""
+    shape, axes = RANK_MESHES[phase]
     mesh = launch_mesh.init_mesh(
-        TP_MESH, ("data", "model"), backend="gloo",
+        shape, axes, backend="gloo",
         init_method=f"file://{os.path.join(work, 'rendezvous')}", rank=rank,
-        world_size=TP_MESH[0] * TP_MESH[1],
+        world_size=math.prod(shape),
         timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-    fn = tp_rank_train if phase == "train_tp" else tp_rank_serve
+    fn = {"train_tp": tp_rank_train, "serve_tp": tp_rank_serve,
+          "train_pod": pod_rank_train, "serve_2d": pod_rank_serve}[phase]
     report = fn(mesh, rank, work, seed)
     report["backend"] = torch.distributed.get_backend()
+    report["coords"] = launch_mesh.coordinate(mesh)
     emit(f"{phase}_rank", rank=rank, **{k: report[k] for k in (
         "launches", "peak_memory_gb", "backend")})
     torch.distributed.barrier()
@@ -2480,10 +2527,10 @@ def tp_rank_main(phase: str, rank: int, work: str, seed: int) -> None:
 
 
 def run_tp_ranks(phase: str, work: str, seed: int) -> list[dict]:
-    """Start the two rank processes of ``phase`` on the card and wait for
-    both: if one fails or the time runs out, the other is killed and the
-    phase raises with both logs' ends. Returns their reports."""
-    world = TP_MESH[0] * TP_MESH[1]
+    """Start the rank processes of ``phase`` on the card and wait for all:
+    if one fails or the time runs out, the others are killed and the phase
+    raises with every log's end. Returns their reports."""
+    world = math.prod(RANK_MESHES[phase][0])
     logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in
             range(world)]
     procs = [subprocess.Popen(
@@ -2515,6 +2562,88 @@ def run_tp_ranks(phase: str, work: str, seed: int) -> list[dict]:
     return reports
 
 
+def one_card_train_references(cfg, tcfg, shape, seed: int) -> dict:
+    """The one-card launcher's run of ``cfg`` on ``tp_batches`` from
+    ``seed`` (bf16) and a float32 run of the same steps from the same start
+    (parameters cast), both on a ``Mesh((1, 1))`` description, one after
+    the other; their parameters on the host, their losses and step times,
+    each leaf's initial scale. The card is freed after each."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    one_card = launch_mesh.make_test_mesh((1, 1))
+    torch.cuda.reset_peak_memory_stats()
+    art = train.build_train_artifacts(cfg, tcfg, shape, one_card)
+    batches = tp_batches(cfg, art)
+    state = art.init_state(seed)
+    start = tree_map(lambda t: t.to(torch.float32).cpu(), state["params"])
+    scales = [leaf_scale(t) for t in tree_leaves(start)]
+    runs = {}
+    for name, c in (("one", cfg), ("fp32", cfg32)):
+        if name == "fp32":
+            params = tree_map(lambda t: t.to("cuda"), start)
+            state = {"params": params, "opt": sgd.init(params), "step": 0}
+        art = train.build_train_artifacts(c, tcfg, shape, one_card)
+        steps = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = art.step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss,
+                          "step_ms": (time.perf_counter() - t) * 1e3})
+            if name == "fp32":
+                # the last step's cached blocks released: Mixtral's
+                # float32 step peaks within a few GB of the card's size
+                torch.cuda.empty_cache()
+        runs[name] = (tree_map(lambda t: t.cpu(), state["params"]), steps)
+        del state, art
+        torch.cuda.empty_cache()
+    del start
+    (one, one_steps), (truth, fp32_steps) = runs["one"], runs["fp32"]
+    base = [leaf_distance(b, t) for b, t in zip(tree_leaves(one),
+                                                tree_leaves(truth))]
+    return {"truth": truth, "base": base, "scales": scales,
+            "one_steps": one_steps, "fp32_steps": fp32_steps,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def leaf_distance(a, b) -> float:
+    """max|a - b| of two leaves on the host, taken on the card."""
+    return float((a.to("cuda", torch.float32) - b.to("cuda")).abs().max())
+
+
+def held_to_references(refs: dict, parts: list, steps: list,
+                       slicers=None):
+    """(agrees, worst loss error over its limit, each leaf's error over its
+    limit, the worst leaves) of a run across ranks against
+    ``one_card_train_references``: its losses within TP_LOSS_RTOL of the
+    one-card run's, and each leaf no farther from the float32 run than
+    twice the one-card run is plus ``BF16_ULP_ATOL`` x its initial scale.
+    ``parts`` are parameter trees — the whole tree, or each rank's part
+    with ``slicers[i]`` cutting the same part of a whole tree — and a
+    leaf's error is the largest over them."""
+    loss_worst = max(
+        abs(s["loss"] - o["loss"]) / (TP_LOSS_RTOL * abs(o["loss"]))
+        for s, o in zip(steps, refs["one_steps"]))
+    errs: dict = {}
+    finite = True
+    for i, part in enumerate(parts):
+        truth = refs["truth"] if slicers is None else slicers[i](
+            refs["truth"])
+        for (path, a), t in zip(tree_paths(part), tree_leaves(truth)):
+            errs[path] = max(errs.get(path, 0.0), leaf_distance(a, t))
+            finite = finite and bool(torch.isfinite(a).all())
+    ok, over, leaves = loss_worst <= 1.0 and finite, {}, {}
+    for (path, err), d, s in zip(errs.items(), refs["base"], refs["scales"]):
+        over[path] = err / (2 * d + BF16_ULP_ATOL * s)
+        ok = ok and over[path] <= 1.0
+        leaves[path] = {"err_over_limit": over[path],
+                        "ranks_vs_fp32_max": err, "one_card_vs_fp32_max": d}
+    worst = sorted(leaves.items(), key=lambda kv: -kv[1]["err_over_limit"])
+    return ok, loss_worst, over, worst[:4]
+
+
 def phase_train_tp(seed: int) -> dict:
     """Qwen2-0.5B's ``data`` layout split over "model" at full width (14 ->
     7 query heads and 2 -> 1 KV heads a rank, vocabulary 151936 -> 75968,
@@ -2533,65 +2662,16 @@ def phase_train_tp(seed: int) -> dict:
     refused by the same comparison."""
     t0 = time.perf_counter()
     cfg, tcfg = qwen2_0_5b.CONFIG, tp_train_config()
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
-    one_card = launch_mesh.make_test_mesh((1, 1))
-    art = train.build_train_artifacts(cfg, tcfg, TRAIN_MESH_SHAPE, one_card)
-    batches = tp_batches(cfg, art)
-    state = art.init_state(seed)
-    start = tree_map(lambda t: t.to(torch.float32), state["params"])
-    scales = [leaf_scale(t) for t in tree_leaves(start)]
-    runs = {}
-    for name, c, st in (
-            ("one", cfg, state),
-            ("fp32", cfg32, {"params": start, "opt": sgd.init(start),
-                             "step": 0})):
-        art = train.build_train_artifacts(c, tcfg, TRAIN_MESH_SHAPE,
-                                          one_card)
-        steps = []
-        for batch in batches:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            st, metrics = art.step_fn(st, batch)
-            loss = float(metrics["loss"])
-            torch.cuda.synchronize()
-            steps.append({"loss": loss,
-                          "step_ms": (time.perf_counter() - t) * 1e3})
-        runs[name] = (tree_map(lambda t: t.cpu(), st["params"]), steps)
-        del st, art
-    del state, start
-    torch.cuda.empty_cache()
-    (one, one_steps), (truth, fp32_steps) = runs["one"], runs["fp32"]
+    refs = one_card_train_references(cfg, tcfg, TRAIN_MESH_SHAPE, seed)
+    one_steps, fp32_steps = refs["one_steps"], refs["fp32_steps"]
     work = tempfile.mkdtemp(prefix="chip_smoke_train_tp_")
     reports = run_tp_ranks("train_tp", work, seed)
     got = torch.load(os.path.join(work, "params.pt"))
     control = torch.load(os.path.join(work, "control_params.pt"))
-
-    def distance(a, b) -> float:
-        return float((a.to(torch.float32) - b).abs().max())
-
-    base = [distance(b, t) for b, t in zip(tree_leaves(one),
-                                           tree_leaves(truth))]
-
-    def held(params, steps):
-        """(agrees, worst loss error over its limit, each leaf's error
-        over its limit, the worst leaves)."""
-        loss_worst = max(
-            abs(s["loss"] - o["loss"]) / (TP_LOSS_RTOL * abs(o["loss"]))
-            for s, o in zip(steps, one_steps))
-        ok, over, leaves = loss_worst <= 1.0, {}, {}
-        for (path, a), t, d, s in zip(tree_paths(params), tree_leaves(truth),
-                                      base, scales):
-            err = distance(a, t)
-            over[path] = err / (2 * d + BF16_ULP_ATOL * s)
-            ok = ok and over[path] <= 1.0 and bool(torch.isfinite(a).all())
-            leaves[path] = {"err_over_limit": over[path],
-                            "tp_vs_fp32_max": err, "one_card_vs_fp32_max": d}
-        worst = sorted(leaves.items(), key=lambda kv: -kv[1]["err_over_limit"])
-        return ok, loss_worst, over, worst[:4]
-
-    ok, loss_worst, over, worst = held(got, reports[0]["steps"])
-    c_ok, c_loss, c_over, _ = held(control, reports[0]["control_steps"])
+    ok, loss_worst, over, worst = held_to_references(
+        refs, [got], reports[0]["steps"])
+    c_ok, c_loss, c_over, _ = held_to_references(
+        refs, [control], reports[0]["control_steps"])
     timed = [np.mean([s["step_ms"] for s in r["steps"][1:]])
              for r in reports]
     out = {
@@ -2625,21 +2705,12 @@ def phase_train_tp(seed: int) -> dict:
     return out
 
 
-def phase_serve_tp(seed: int) -> dict:
-    """Mixtral-8x7B at full width and 8 of its 32 layers split over
-    "model" (32 -> 16 query heads and 8 -> 4 KV heads a rank, D = 128,
-    window 4096, experts along F 14336 -> 7168), two ranks sharing the card
-    over gloo. First the one-card path in this process: a prefill of 2
-    prompts of 8192 tokens and 8 greedy decode steps, and the float32
-    forward (torch ops, each bf16 weight cast where used) at those
-    positions; all kept on the host and the card freed. Then the ranks
-    feed the one-card path's tokens (teacher-forced, so a bf16 tie cannot
-    cascade). Held by ``phase_serve_check``'s MoE rule: the median over
-    (request, position) of each position's largest error against the
-    float32 forward at most twice the one-card path's plus 1e-4; the
-    control in which rank 0 keeps its own partial sum after ``wo`` must be
-    refused by it."""
-    t0 = time.perf_counter()
+def mixtral_serve_references(seed: int) -> dict:
+    """``serve_tp``'s one-card path in this process (Mixtral-8x7B at full
+    width and TP_SERVE_CFG's 8 layers): a prefill of 2 prompts of 8192
+    tokens and 8 greedy decode steps, and the float32 forward (torch ops,
+    each bf16 weight cast where used) at those positions; the prompts, the
+    fed tokens and both logits kept on the host and the card freed."""
     cfg = TP_SERVE_CFG
     b, prompt, max_len, steps = TP_SERVE
     params = serve_params(cfg, seed)
@@ -2674,20 +2745,44 @@ def phase_serve_tp(seed: int) -> dict:
     with torch.inference_mode():
         truth, _ = model.forward(cfg32, params, {"tokens": seq}, remat=False)
     truth = truth[:, prompt - 1:prompt + steps].float().cpu()
-    one = one.cpu()
-    del params, seq
+    out = {"one": one.cpu(), "truth": truth, "prompt": toks.cpu(),
+           "fed": fed.cpu(), "one_prefill_s": one_prefill_s,
+           "one_step_ms": one_step_ms}
+    del params, seq, toks, fed, one
     torch.cuda.empty_cache()
+    return out
+
+
+def serve_median_err(x, truth) -> float:
+    """The median over (request, position) of each position's largest
+    error against ``truth``."""
+    return float((x - truth).abs().amax(dim=-1).flatten().median())
+
+
+def phase_serve_tp(seed: int, refs: dict) -> dict:
+    """Mixtral-8x7B at full width and 8 of its 32 layers split over
+    "model" (32 -> 16 query heads and 8 -> 4 KV heads a rank, D = 128,
+    window 4096, experts along F 14336 -> 7168), two ranks sharing the card
+    over gloo, against ``mixtral_serve_references``. The ranks feed the
+    one-card path's tokens (teacher-forced, so a bf16 tie cannot
+    cascade). Held by ``phase_serve_check``'s MoE rule: the median over
+    (request, position) of each position's largest error against the
+    float32 forward at most twice the one-card path's plus 1e-4; the
+    control in which rank 0 keeps its own partial sum after ``wo`` must be
+    refused by it."""
+    t0 = time.perf_counter()
+    cfg = TP_SERVE_CFG
+    b, prompt, max_len, steps = TP_SERVE
+    one, truth = refs["one"], refs["truth"]
     work = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
-    torch.save({"prompt": toks.cpu(), "fed": fed.cpu()},
+    torch.save({"prompt": refs["prompt"], "fed": refs["fed"]},
                os.path.join(work, "inputs.pt"))
-    del toks, fed
-    torch.cuda.empty_cache()
     reports = run_tp_ranks("serve_tp", work, seed)
     got = torch.load(os.path.join(work, "logits.pt"))
     control = torch.load(os.path.join(work, "control_logits.pt"))
 
     def median_err(x):
-        return float((x - truth).abs().amax(dim=-1).flatten().median())
+        return serve_median_err(x, truth)
 
     limit = 2 * median_err(one) + FP32_ORDER_ATOL
     out = {
@@ -2697,9 +2792,9 @@ def phase_serve_tp(seed: int) -> dict:
         "transport": "two ranks sharing one card over host-staged gloo: a "
                      "check of values, not of TP speed",
         "batch": b, "prompt": prompt, "decode_steps": steps,
-        "one_card_prefill_seconds": one_prefill_s,
+        "one_card_prefill_seconds": refs["one_prefill_s"],
         "one_card_decode_step_ms_mean_after_first":
-            float(np.mean(one_step_ms[1:])),
+            float(np.mean(refs["one_step_ms"][1:])),
         "prefill_seconds_by_rank": [r["prefill_seconds"] for r in reports],
         "decode_step_ms_mean_after_first_by_rank": [
             float(np.mean(r["decode_step_ms"][1:])) for r in reports],
@@ -2728,6 +2823,385 @@ def phase_serve_tp(seed: int) -> dict:
     return out
 
 
+def pod_train_config():
+    return dataclasses.replace(get_train_config("mixtral-8x7b"),
+                               agent_layout="pod", microbatch=1,
+                               moe_aux_weight=POD_AUX)
+
+
+def in_turn(mesh, fn):
+    """``fn()`` on each rank of ``mesh`` in turn (a whole draw of the
+    weights at a time on the card), the card's cache freed after each."""
+    out = None
+    for turn in range(torch.distributed.get_world_size()):
+        if turn == torch.distributed.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return out
+
+
+def keep_own_part(fctx, grad):
+    """FSDP's backward that keeps the rank's own part of the gradient
+    without the sum over the "data" ranks (the control of ``train_pod``)."""
+    n = grad.shape[fctx.dim] // fctx.dp.size
+    return (grad.narrow(fctx.dim, fctx.dp.index * n, n).contiguous(),
+            None, None)
+
+
+def wrong_owner_exchange(real):
+    """``sharding_hints._exchange`` with rank 0's dispatch blocks sent to
+    the owners in reverse order (the all-to-all is still joined, so the
+    other ranks do not wait): the control of ``serve_2d``."""
+    def exchange(x, split, cat, ctx):
+        if torch.distributed.get_rank() == 0 and split == 1:
+            x = torch.cat(list(x.chunk(ctx.size, dim=split))[::-1],
+                          dim=split)
+        return real(x, split, cat, ctx)
+    return exchange
+
+
+POD_TRAIN_CONTROLS = ("fsdp_own_part", "per_rank_me")
+
+
+def pod_rank_train(mesh, rank: int, work: str, seed: int) -> dict:
+    """One rank of train_pod: the launcher's ``pod`` layout step on the
+    ``DeviceMesh`` (its FSDP x TP part of every leaf, the experts split
+    along E over "data"; its data rank's row of every microbatch), then the
+    sparse gossip over "pod" at W = [1] (one combine launch a local leaf);
+    then each control from the same start. Each rank saves its own part of
+    the parameters of every run."""
+    cfg, tcfg = POD_TRAIN_CFG, pod_train_config()
+    art = train.build_train_artifacts(cfg, tcfg, POD_TRAIN_SHAPE, mesh,
+                                      np.eye(1))
+    batches = tp_batches(cfg, art)
+    schedule = gossip.build_schedule(np.eye(1))
+
+    def run():
+        state = in_turn(mesh, lambda: art.init_state(seed))
+        steps, counts = [], []
+        for batch in batches:
+            local = sharding.shard_tree(batch, art.batch_specs, mesh)
+            sharding_hints.reset_dp_count()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = art.step_fn(state, local)
+            state["params"] = gossip.mix_sparse_p2p(
+                state["params"], schedule, mesh, ("pod",))
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss,
+                          "step_ms": (time.perf_counter() - t) * 1e3})
+            counts.append({n: sharding_hints.dp_count(n) for n in (
+                "fsdp_gather", "ep_dispatch", "ep_combine")})
+        params = tree_map(lambda t: t.cpu(), state["params"])
+        del state
+        torch.cuda.empty_cache()
+        return params, steps, counts
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    params, steps, counts = run()
+    launches = {name: ops.launch_count(name) for name in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = len(tree_leaves(params))
+    want = {"mixing_sgd_combine": leaves * len(batches),
+            "flash_attention": 0, "decode_attention": 0}
+    moe_layers = cfg.num_groups * sum(k in MOE_KINDS
+                                      for k in cfg.block_pattern)
+    # one dispatch and one combine a MoE layer, forward and recompute
+    if launches != want or any(
+            c["ep_dispatch"] != 2 * moe_layers or c["ep_combine"] !=
+            2 * moe_layers or c["fsdp_gather"] < 1 for c in counts):
+        raise AssertionError(f"train_pod rank {rank}: launches {launches}, "
+                             f"not {want}; collectives {counts}")
+    torch.save(params, os.path.join(work, f"params_rank{rank}.pt"))
+    local_shapes = {path: list(p.shape) for path, p in tree_paths(params)}
+    del params
+    real_backward = sharding_hints._GatherFromFSDP.backward
+    real_mean = sharding_hints.batch_mean
+    control_steps = {}
+    for control in POD_TRAIN_CONTROLS:
+        if control == "fsdp_own_part":
+            sharding_hints._GatherFromFSDP.backward = staticmethod(
+                keep_own_part)
+        else:
+            sharding_hints.batch_mean = lambda t: t
+        params, control_steps[control], _ = run()
+        sharding_hints._GatherFromFSDP.backward = real_backward
+        sharding_hints.batch_mean = real_mean
+        torch.save(params, os.path.join(work, f"{control}_rank{rank}.pt"))
+        del params
+    return {"steps": steps, "control_steps": control_steps,
+            "launches": launches, "leaves": leaves, "peak_memory_gb": peak_gb,
+            "collectives_by_step": counts, "local_shapes": local_shapes}
+
+
+def pod_rank_serve(mesh, rank: int, work: str, seed: int) -> dict:
+    """One rank of serve_2d: its part of Mixtral's weights under the 2-D
+    rule (the ranks draw the whole tree from the one-card seed in turn and
+    keep their part: 4 of the 8 experts at F 7168, attention and the
+    embeddings over both axes), its row of the prompts, a prefill and the
+    decode steps fed the one-card path's tokens, then the control. Each
+    rank saves its row's logits and asserts its launches by design, the
+    shapes the flash kernel saw and its collectives."""
+    cfg = TP_SERVE_CFG
+    b, prompt, max_len, steps = TP_SERVE
+    arts = [serve.build_serve_artifacts(
+        cfg, ShapeConfig("serve_2d", max_len, b, kind), mesh=mesh)
+        for kind in ("prefill", "decode")]
+    over_data = sum(sharding.split_over(spec, mesh, ("data",))
+                    for _, spec in tree_paths(arts[0].param_specs))
+    params = in_turn(mesh, lambda: tree_map(
+        lambda t: t.clone(), sharding.shard_tree(
+            serve_params(cfg, seed), arts[0].param_specs, mesh)))
+    given = torch.load(os.path.join(work, "inputs.pt"))
+    toks, fed = given["prompt"].to("cuda"), given["fed"].to("cuda")
+    inputs = sharding.shard_tree({"tokens": toks}, arts[0].input_specs, mesh)
+    fed = sharding.shard_tree(fed, arts[1].input_specs, mesh)
+    seen, real_flash = [], ops.flash_attention
+
+    def spy(q, *args, **kwargs):
+        seen.append(list(q.shape))
+        return real_flash(q, *args, **kwargs)
+
+    def run():
+        sharding_hints.reset_dp_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = arts[0].prefill_fn(params, inputs)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, step_ms = [logits[:, 0].float()], []
+        for t in range(steps):
+            t1 = time.perf_counter()
+            logits, caches = arts[1].step_fn(params, caches,
+                                             fed[:, t:t + 1])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            out.append(logits[:, 0].float())
+        kv_heads = {key: c["k"].shape[3] for key, c in caches.items()}
+        del caches
+        counts = {n: sharding_hints.dp_count(n) for n in (
+            "fsdp_gather", "ep_dispatch", "ep_combine")}
+        return torch.stack(out, dim=1), prefill_s, step_ms, kv_heads, counts
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    ops.flash_attention = spy
+    logits, prefill_s, step_ms, kv_heads, counts = run()
+    ops.flash_attention = real_flash
+    launches = {name: ops.launch_count(name) for name in KERNELS}
+    flash_designs = flash_mod.launch_count_by_design()
+    decode_designs = decode_mod.launch_count_by_design()
+    layers = attention_layers(cfg)
+    rows = b // RANK_MESHES["serve_2d"][0][0]
+    local_q = [rows, cfg.num_heads // TP_MESH[1], prompt,
+               cfg.resolved_head_dim]
+    calls = 1 + steps
+    if seen != [local_q] * layers or flash_designs != launches_by_design(
+            flash_mod.DESIGNS, "wgmma", layers) or \
+            decode_designs != launches_by_design(
+                decode_mod.DESIGNS, "mma", layers * steps) or \
+            launches["mixing_sgd_combine"] or \
+            counts["ep_dispatch"] != layers * calls or \
+            counts["ep_combine"] != layers * calls or not over_data:
+        raise AssertionError(
+            f"serve_2d rank {rank}: flash saw {seen}, designs "
+            f"{flash_designs} / {decode_designs}, launches {launches}, "
+            f"collectives {counts}, {over_data} leaves over data")
+    if set(kv_heads.values()) != {cfg.num_kv_heads // TP_MESH[1]}:
+        raise AssertionError(f"serve_2d rank {rank}: cache heads {kv_heads}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(logits.cpu(), os.path.join(work, f"logits_rank{rank}.pt"))
+    real_exchange = sharding_hints._exchange
+    sharding_hints._exchange = wrong_owner_exchange(real_exchange)
+    control = run()[0]
+    sharding_hints._exchange = real_exchange
+    torch.save(control.cpu(), os.path.join(work, f"control_rank{rank}.pt"))
+    local_experts = params["blocks"]["b0_swa_moe"]["ffn"]["gate"].shape
+    return {"prefill_seconds": prefill_s, "decode_step_ms": step_ms,
+            "launches": launches, "flash_by_design": flash_designs,
+            "decode_by_design": decode_designs, "flash_q": seen[0],
+            "cache_kv_heads": cfg.num_kv_heads // TP_MESH[1],
+            "collectives": counts, "leaves_over_data": int(over_data),
+            "local_expert_leaf": list(local_experts),
+            "peak_memory_gb": peak_gb}
+
+
+def phase_train_pod(seed: int) -> dict:
+    """Mixtral-8x7B at full width and 2 of its 32 layers in the ``pod``
+    layout on a (pod 1, data 2, model 2) mesh, four ranks sharing the card
+    over gloo: FSDP over "data" (attention, the router and the embeddings
+    gathered at their use, their gradients reduce-scattered), the 8 experts
+    4 a data rank (EP, all-to-all there and back) at F 14336 -> 7168 over
+    "model", 32 -> 16 query heads and 8 -> 4 KV heads a model rank; one
+    agent, microbatch 1 of 2 x 512 tokens, a row a data rank; the
+    load-balance loss at weight 1. Against ``one_card_train_references``
+    (run first, the card freed before the ranks start) on the same
+    batches: 1 warm-up + 2 timed steps, each followed on the ranks by the
+    sparse gossip at W = [1]. Held by ``train_tp``'s rules, each rank's
+    part against the same part of the float32 run; each control (FSDP's
+    backward keeping the rank's own part unsummed; the load-balance loss's
+    top-1 share over the rank's own row) must be refused by the same
+    comparison."""
+    t0 = time.perf_counter()
+    cfg, tcfg = POD_TRAIN_CFG, pod_train_config()
+    refs = one_card_train_references(cfg, tcfg, POD_TRAIN_SHAPE, seed)
+    ref_seconds = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_pod_")
+    reports = run_tp_ranks("train_pod", work, seed)
+    shape, axes = RANK_MESHES["train_pod"]
+    desc = launch_mesh.make_test_mesh(shape, axes)
+    specs = sharding.param_specs_train(
+        train._stacked_state_shapes(cfg, 1)["params"], desc, "pod")
+    slicers = [functools.partial(sharding.shard_tree, specs=specs, mesh=desc,
+                                 coords=r["coords"]) for r in reports]
+
+    def parts(name):
+        """Each rank's saved part of a run's parameters (the files are
+        removed once read)."""
+        out = []
+        for r in range(len(reports)):
+            path = os.path.join(work, f"{name}_rank{r}.pt")
+            out.append(torch.load(path))
+            os.remove(path)
+        return out
+
+    ok, loss_worst, over, worst = held_to_references(
+        refs, parts("params"), reports[0]["steps"], slicers)
+    controls = {}
+    for control in POD_TRAIN_CONTROLS:
+        c_ok, c_loss, c_over, _ = held_to_references(
+            refs, parts(control), reports[0]["control_steps"][control],
+            slicers)
+        controls[control] = {"agrees": c_ok, "loss_err_over_limit": c_loss,
+                             "params_err_over_limit": max(c_over.values())}
+    timed = [np.mean([s["step_ms"] for s in r["steps"][1:]])
+             for r in reports]
+    out = {
+        "config": cfg.name, "layers": cfg.num_layers,
+        "layout": tcfg.agent_layout, "mesh": list(shape),
+        "backend": reports[0]["backend"],
+        "transport": "four ranks sharing one card over host-staged gloo: a "
+                     "check of values, not of FSDP's or TP's speed",
+        "moe_aux_weight": tcfg.moe_aux_weight,
+        "steps_by_rank": [r["steps"] for r in reports],
+        "one_card_steps": refs["one_steps"],
+        "fp32_steps": refs["fp32_steps"],
+        "one_card_and_fp32_peak_memory_gb": refs["peak_memory_gb"],
+        "references_seconds": ref_seconds,
+        "step_ms_mean_timed_by_rank": timed,
+        "launches_by_rank": [r["launches"] for r in reports],
+        "collectives_by_step_rank0": reports[0]["collectives_by_step"],
+        "leaves_a_rank": reports[0]["leaves"],
+        "local_shapes_rank0": {k: v for k, v in reports[0][
+            "local_shapes"].items() if k.endswith(("wq/kernel", "ffn/gate",
+                                                   "embed/table"))},
+        "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in reports],
+        "loss_err_over_limit": loss_worst,
+        "params_err_over_limit": max(over.values()),
+        "params_rule": "max over ranks of max|rank's part - fp32's| <= 2 x "
+                       "max|one card - fp32| + 1e-4 x the leaf's initial "
+                       "scale, each leaf",
+        "params_worst_leaves": worst,
+        "controls": controls,
+        "seconds": time.perf_counter() - t0,
+    }
+    emit("train_pod", **out)
+    out["local_shapes_rank0_all"] = reports[0]["local_shapes"]
+    if not ok:
+        raise AssertionError("train_pod: the ranks' losses or parameters "
+                             "are beyond their limits")
+    for control, held in controls.items():
+        if held["agrees"]:
+            raise AssertionError(f"train_pod: the check cannot tell the "
+                                 f"control {control} apart")
+    return out
+
+
+def phase_serve_2d(seed: int, refs: dict) -> dict:
+    """``serve_tp``'s Mixtral (full width, 8 layers, capacity 4.0), prompts
+    and fed tokens under serving's 2-D tensor parallelism on a (data 2,
+    model 2) mesh, four ranks sharing the card over gloo: each rank holds
+    4 of the 8 experts at F 7168 (the dispatch buffer's blocks to their
+    owners and back by all-to-all over "data"), attention and the
+    embeddings split over both axes (gathered over "data" at their use),
+    and 1 of the 2 rows. Held against ``mixtral_serve_references`` by
+    ``serve_tp``'s median-position rule; the control in which rank 0 sends
+    each expert owner another owner's block must be refused by it."""
+    t0 = time.perf_counter()
+    cfg = TP_SERVE_CFG
+    b, prompt, max_len, steps = TP_SERVE
+    one, truth = refs["one"], refs["truth"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_2d_")
+    torch.save({"prompt": refs["prompt"], "fed": refs["fed"]},
+               os.path.join(work, "inputs.pt"))
+    reports = run_tp_ranks("serve_2d", work, seed)
+
+    def rows(name):
+        """The logits of every data rank's row at model coordinate 0."""
+        by_row = {r["coords"]["data"]: torch.load(
+            os.path.join(work, f"{name}_rank{i}.pt"))
+            for i, r in enumerate(reports) if r["coords"]["model"] == 0}
+        return torch.cat([by_row[d] for d in sorted(by_row)], dim=0)
+
+    got, control = rows("logits"), rows("control")
+    limit = 2 * serve_median_err(one, truth) + FP32_ORDER_ATOL
+    out = {
+        "config": cfg.name, "layers": cfg.num_layers,
+        "capacity_factor": cfg.capacity_factor,
+        "mesh": list(RANK_MESHES["serve_2d"][0]),
+        "backend": reports[0]["backend"],
+        "transport": "four ranks sharing one card over host-staged gloo: a "
+                     "check of values, not of 2-D TP's speed",
+        "batch": b, "prompt": prompt, "decode_steps": steps,
+        "one_card_prefill_seconds": refs["one_prefill_s"],
+        "one_card_decode_step_ms_mean_after_first":
+            float(np.mean(refs["one_step_ms"][1:])),
+        "prefill_seconds_by_rank": [r["prefill_seconds"] for r in reports],
+        "decode_step_ms_mean_after_first_by_rank": [
+            float(np.mean(r["decode_step_ms"][1:])) for r in reports],
+        "launches_by_rank": [r["launches"] for r in reports],
+        "flash_by_design_by_rank": [r["flash_by_design"] for r in reports],
+        "decode_by_design_by_rank": [r["decode_by_design"] for r in reports],
+        "collectives_by_rank": [r["collectives"] for r in reports],
+        "leaves_over_data": reports[0]["leaves_over_data"],
+        "local_expert_leaf": reports[0]["local_expert_leaf"],
+        "flash_q": reports[0]["flash_q"],
+        "cache_kv_heads_a_rank": reports[0]["cache_kv_heads"],
+        "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in reports],
+        "two_d_vs_fp32_median": serve_median_err(got, truth),
+        "one_card_vs_fp32_median": serve_median_err(one, truth),
+        "control_vs_fp32_median": serve_median_err(control, truth),
+        "two_d_vs_one_card_max": float((got - one).abs().max()),
+        "rule": "two_d_vs_fp32_median <= 2 x one_card_vs_fp32_median + 1e-4",
+    }
+    if not (bool(torch.isfinite(got).all()) and got.shape == one.shape
+            and out["two_d_vs_fp32_median"] <= limit):
+        raise AssertionError(f"serve_2d: {out}")
+    if out["control_vs_fp32_median"] <= limit:
+        raise AssertionError(f"serve_2d: the check cannot tell the control "
+                             f"(rank 0's blocks to the wrong owners) apart: "
+                             f"{out}")
+    out["seconds"] = time.perf_counter() - t0
+    emit("serve_2d", **out)
+    return out
+
+
+def pod_local_combine(seed: int, reports_shape) -> dict:
+    """The per-agent combine (``gossip.mix_sparse_p2p``'s launch) at
+    ``train_pod``'s largest local leaf, ``reports_shape``, with one
+    received row at W's row (0.625, 0.375): ``hold_per_agent_combine``."""
+    n = math.prod(reports_shape)
+    out = hold_per_agent_combine(seed + 29, n, [0.625, 0.375],
+                                 "per-agent combine at train_pod's largest "
+                                 "local leaf")
+    out["leaf_shape"] = list(reports_shape)
+    emit("pod_local_combine", **out)
+    return out
+
+
 def tp_local_attention_kernels(seed: int) -> dict:
     """Both attention kernels alone at the TP-local shapes of the two
     phases (a rank's heads at model = 2), held to their plain versions at
@@ -2736,23 +3210,42 @@ def tp_local_attention_kernels(seed: int) -> dict:
     [2, 4, 8192, 128], window 4096; its decode step q [2, 16, 1, 128]
     against the [2, 4, 4096, 128] ring; Qwen2-0.5B's layer q [32, 7, 8192,
     64], k/v [32, 1, 8192, 64], causal."""
-    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    return local_attention_kernels(seed + 27, 2, True, "tp_local_attention")
+
+
+def pod_local_attention_kernels(seed: int) -> dict:
+    """The same at ``serve_2d``'s local shapes (a rank's heads at model = 2
+    and its one row at data = 2): Mixtral's prefill layer q [1, 16, 8192,
+    128], k/v [1, 4, 8192, 128], window 4096, and its decode step q [1,
+    16, 1, 128] against the [1, 4, 4096, 128] ring."""
+    return local_attention_kernels(seed + 28, 1, False,
+                                   "pod_local_attention")
+
+
+def local_attention_kernels(seed: int, rows: int, with_qwen: bool,
+                            tag: str) -> dict:
+    """Mixtral's flash layer and decode step at ``rows`` requests and a
+    rank's heads at model = 2 (and Qwen2-0.5B's layer at model 2
+    ``with_qwen``), each held to its plain version at the data-scaled limit
+    with its faulty controls refused, and timed beside its bound, its plain
+    version and SDPA; emitted as ``tag``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16, flash, refused = torch.bfloat16, [], []
     mix, qwen = TP_SERVE_CFG, qwen2_0_5b.CONFIG
     t = TP_MESH[1]
     cases = (
-        ("Mixtral-8x7B prefill layer at model 2 (window 4096)", 2,
+        ("Mixtral-8x7B prefill layer at model 2 (window 4096)", rows,
          mix.num_heads // t, mix.num_kv_heads // t, mix.resolved_head_dim,
          mix.sliding_window),
-        ("Qwen2-0.5B layer at model 2", 32, qwen.num_heads // t,
-         qwen.num_kv_heads // t, qwen.resolved_head_dim, None),
-    )
+    ) + ((("Qwen2-0.5B layer at model 2", 32, qwen.num_heads // t,
+           qwen.num_kv_heads // t, qwen.resolved_head_dim, None),)
+         if with_qwen else ())
     for name, b, h, kv, d, window in cases:
         q, k, v = attn_inputs(gen, b, h, kv, SERVE_PROMPT, SERVE_PROMPT, d,
                               bf16)
         res, refusals = hold_flash_layer(
             f"flash {name} q={list(q.shape)} k={list(k.shape)} bf16", q, k,
-            v, requests=(0, b - 1), window=window)
+            v, requests=tuple(sorted({0, b - 1})), window=window)
         refused += refusals
         if res["design"] != "wgmma":
             raise AssertionError(f"{res['case']} ran {res['design']}")
@@ -2795,15 +3288,16 @@ def tp_local_attention_kernels(seed: int) -> dict:
         })
         del q, k, v, library
         torch.cuda.empty_cache()
-    q, k, v = attn_inputs(gen, 2, mix.num_heads // t, mix.num_kv_heads // t,
-                          1, mix.sliding_window, mix.resolved_head_dim, bf16)
+    q, k, v = attn_inputs(gen, rows, mix.num_heads // t,
+                          mix.num_kv_heads // t, 1, mix.sliding_window,
+                          mix.resolved_head_dim, bf16)
     _, refusals, decode = hold_decode_step(
         "Mixtral-8x7B step at model 2 (4096-slot ring)", q, k, v,
         mix.sliding_window, decode_mod.tile_slots(bf16, mix.resolved_head_dim))
     refused += refusals
     del q, k, v
     torch.cuda.empty_cache()
-    emit("tp_local_attention", flash=flash, decode=decode, refused=refused)
+    emit(tag, flash=flash, decode=decode, refused=refused)
     return {"flash_attention": flash, "decode_attention": [decode]}
 
 
@@ -5007,7 +5501,8 @@ def main(argv=None) -> int:
                     help="profile one extra rollout batch, one extra "
                          "training step and one extra decode step of "
                          "Qwen2-0.5B and of Mixtral-8x7B with torch.profiler")
-    # one rank process of train_tp / serve_tp, started by run_tp_ranks
+    # one rank process of train_tp / serve_tp / train_pod / serve_2d,
+    # started by run_tp_ranks
     ap.add_argument("--tp-rank", nargs=3, metavar=("PHASE", "RANK", "DIR"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5060,10 +5555,24 @@ def main(argv=None) -> int:
     served_mesh = phase_serve_mesh(args.seed, mesh)
     torch.distributed.destroy_process_group()
     trained_tp = phase_train_tp(args.seed)
-    served_tp = phase_serve_tp(args.seed)
+    serve_refs = mixtral_serve_references(args.seed)
+    served_tp = phase_serve_tp(args.seed, serve_refs)
     tp_local = tp_local_attention_kernels(args.seed)
+    trained_pod = phase_train_pod(args.seed)
+    served_2d = phase_serve_2d(args.seed, serve_refs)
+    del serve_refs
+    pod_local = pod_local_attention_kernels(args.seed)
+    pod_combine = pod_local_combine(args.seed, max(
+        trained_pod["local_shapes_rank0_all"].values(), key=math.prod))
     kernels[0]["launches_train_tp_by_rank"] = [
         r["mixing_sgd_combine"] for r in trained_tp["launches_by_rank"]]
+    kernels[0]["launches_train_pod_by_rank"] = [
+        r["mixing_sgd_combine"] for r in trained_pod["launches_by_rank"]]
+    kernels[0]["pod_local_leaf"] = {
+        k: pod_combine[k] for k in (
+            "leaf_shape", "form", "n", "neighbours", "dtype", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_call",
+            "max_abs_err", "dropped_row_refused_err_over_limit")}
     kernels[0]["per_agent_flat"] = {
         **{k: flat[k] for k in ("form", "n", "neighbours", "dtype", "ms",
                                 "plain_ms", "bound_ms", "bound_by",
@@ -5089,7 +5598,8 @@ def main(argv=None) -> int:
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"], designed["gate_max_abs_err"],
         designed["full_width_max_abs_err"], kernels[0]["no_g"]["max_abs_err"],
-        elastic["max_abs_err"], flat["max_abs_err"])
+        elastic["max_abs_err"], flat["max_abs_err"],
+        pod_combine["max_abs_err"])
     checks = {cfg.name: phase_serve_check(args.seed, cfg, b, s)
               for cfg, b, s in SERVE_CHECKS}
     serve_run = phase_serve(args.seed, args.profile)
@@ -5110,6 +5620,9 @@ def main(argv=None) -> int:
         kernel["launches_serve_tp_by_rank"] = [
             r[kernel["name"]] for r in served_tp["launches_by_rank"]]
         kernel["tp_local_shapes"] = tp_local[kernel["name"]]
+        kernel["launches_serve_2d_by_rank"] = [
+            r[kernel["name"]] for r in served_2d["launches_by_rank"]]
+        kernel["pod_local_shapes"] = pod_local[kernel["name"]]
     ffma = phase_ffma_times(args.seed, checks)
     kernels[1]["ffma"] = ffma["flash_attention"]
     kernels[2]["ffma"] = ffma["decode_attention"]

@@ -2,4 +2,5 @@
 description for one card, or a ``DeviceMesh`` across ranks) and a
 fabric's designed W (``fabric``), the partition specs (``sharding``), and
 serving (``serve``), with tensor parallelism over "model" inside an
-agent. FSDP and EP over "data" wait in ROADMAP item A7b(ii)."""
+agent, and FSDP and expert parallelism over "data" (the ``pod`` layout,
+serving's 2-D tensor parallelism)."""

@@ -16,8 +16,8 @@ Counterpart of the JAX package's ``launch/mesh.py``. Two kinds of mesh:
 
 ``axis_sizes`` reads either kind as ``{axis name: size}`` (the reference's
 ``mesh.shape[name]``); ``coordinate``, ``agent_index``, ``axis_ranks``,
-``axis_group``, ``all_gather`` and ``all_reduce`` read a ``DeviceMesh``
-for the calling rank; ``group_all_reduce``, ``all_gather_into`` and
+``axis_group``, ``all_gather``, ``all_reduce``, ``reduce_scatter`` and
+``all_to_all`` read a ``DeviceMesh`` for the calling rank; ``group_all_reduce``, ``all_gather_into`` and
 ``exchange`` act on a process group.
 
 Gloo moves host memory. Where a group's backend is gloo and a tensor lies
@@ -295,3 +295,56 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh,
     parts = [torch.empty_like(x) for _ in ranks]
     dist.all_gather(parts, x.contiguous(), group=group)
     return [parts[order.index(r)] for r in ranks]
+
+
+def _group_order(mesh: DeviceMesh, axes: tuple[str, ...]):
+    """(the group over ``axes``, the position in ``agent_index`` order of
+    each of its ranks in group order: a group's ranks ascend)."""
+    ranks = axis_ranks(mesh, axes)
+    return axis_group(mesh, axes), [ranks.index(r) for r in sorted(ranks)]
+
+
+def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...],
+                   dim: int) -> torch.Tensor:
+    """The calling rank's part along ``dim`` of ``x`` summed over the ranks
+    along ``axes``: ``x`` is cut into as many equal parts along ``dim`` as
+    the group has ranks, and the rank at index i over ``axes`` gets the
+    sum of every rank's part i (``dist.reduce_scatter_tensor``);
+    collective over the group."""
+    group, order = _group_order(mesh, axes)
+    n = len(order)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim of {x.shape[dim]} over {n} ranks")
+    parts = x.movedim(dim, 0).chunk(n)
+    wire = torch.cat([parts[i] for i in order]).contiguous()
+    out = torch.empty(parts[0].shape, dtype=x.dtype, device=x.device)
+    if _staged(x, group):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.reduce_scatter_tensor(host, _host(wire), group=group)
+        out.copy_(host)
+    else:
+        dist.reduce_scatter_tensor(out, wire, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_to_all(parts: list, mesh: DeviceMesh,
+               axes: tuple[str, ...]) -> list[torch.Tensor]:
+    """``parts[i]`` sent to the rank at index i over ``axes``; returns what
+    each rank sent this one, in ``agent_index`` order. The parts have one
+    shape and dtype (``dist.all_to_all_single`` on their stack: gloo
+    carries no list form); collective over the group."""
+    group, order = _group_order(mesh, axes)
+    if len(parts) != len(order):
+        raise ValueError(f"{len(parts)} parts for {len(order)} ranks")
+    wire = torch.stack([parts[i] for i in order])
+    if _staged(wire, group):
+        host = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
+        dist.all_to_all_single(host, _host(wire), group=group)
+        got = host.to(wire.device)
+    else:
+        got = torch.empty_like(wire)
+        dist.all_to_all_single(got, wire, group=group)
+    out: list = [None] * len(order)
+    for j, i in enumerate(order):
+        out[i] = got[j]
+    return out

@@ -32,8 +32,14 @@ rank's KV heads and its block of Mamba's d_inner. ``input_specs``,
 ``param_specs`` and ``cache_specs`` say which part each rank holds (under
 tensor parallelism ``cache_specs`` covers the batch dim only: a rank's
 heads are not always a block of the whole, ``attention.head_plan``).
-Weights split over ``data`` of size > 1 (serving's 2-D tensor
-parallelism) are ROADMAP item A7b(ii) and raise ``NotImplementedError``.
+Where the rule picks 2-D tensor parallelism (weights over 8 GB a
+``model`` rank), the leaves are split over ``data`` too: each group's
+FSDP-split leaves are gathered whole over ``data`` as the group starts,
+and the experts split along E over ``data`` stay with their owner, which
+runs them on every ``data`` rank's rows (all-to-all there and back,
+``models/moe.py``). The caches hold the rank's rows and KV heads, where
+the reference's ``cache_specs_serve`` would also spread the sequence
+over ``data`` when B does not divide.
 """
 
 from __future__ import annotations
@@ -68,16 +74,18 @@ class ServeArtifacts:
 
 def _mesh_specs(cfg, b: int, mesh: DeviceMesh, param_shapes, cache_shapes,
                 input_shapes):
-    """``(role_axes, param_specs, cache_specs, input_specs)`` of the mesh
-    path; raises for weights split over ``data``/``pod`` (2-D TP)."""
+    """``(role_axes, FSDP plan, param_specs, cache_specs, input_specs)`` of
+    the mesh path."""
     sizes = mesh_lib.axis_sizes(mesh)
     param_specs = sharding.param_specs_serve(param_shapes, mesh, cfg)
-    sharding.require_whole_over(param_specs, mesh)
     batch_axes = mesh_lib.agent_axes(mesh, "data")   # ("pod",) "data"
     bsz = int(np.prod([sizes[a] for a in batch_axes]))
     split = b % bsz == 0 and b >= bsz
     role_axes = {"batch": batch_axes if split else (), "tp": ("model",),
                  "seq": ("model",)}
+    serve_roles = sharding._role_axes_serve(mesh, cfg)
+    role_axes.update(fsdp=serve_roles["fsdp"], ep=serve_roles["ep"])
+    plan = sharding.fsdp_plan(param_specs, mesh, serve_roles["fsdp"])
     entry = (batch_axes if len(batch_axes) > 1 else batch_axes[0]) \
         if split else None
 
@@ -97,7 +105,8 @@ def _mesh_specs(cfg, b: int, mesh: DeviceMesh, param_shapes, cache_shapes,
     else:
         cache_specs = tree_map(
             lambda t: sharding.P(*([None] * t.dim())), cache_shapes)
-    return role_axes, param_specs, cache_specs, tree_map(rows, input_shapes)
+    return (role_axes, plan, param_specs, cache_specs,
+            tree_map(rows, input_shapes))
 
 
 def build_serve_artifacts(
@@ -134,17 +143,18 @@ def build_serve_artifacts(
     input_keys = ("tokens", "patch_embeds") if vision else ("tokens",)
     specs = (None, None, None)
     role_axes: dict = {}
+    plan = None
     if mesh is not None:
-        role_axes, *specs = _mesh_specs(
+        role_axes, plan, *specs = _mesh_specs(
             cfg, b, mesh, param_shapes, cache_shapes, input_shapes)
 
     def prefill_fn(params, inputs):
-        with torch.inference_mode(), hints(role_axes, mesh):
+        with torch.inference_mode(), hints(role_axes, mesh, plan):
             moved = {key: inputs[key].to(dev) for key in input_keys}
             return model.prefill(cfg, params, moved, max_len=s)
 
     def step_fn(params, caches, token):
-        with torch.inference_mode(), hints(role_axes, mesh):
+        with torch.inference_mode(), hints(role_axes, mesh, plan):
             return model.decode_step(cfg, params, caches, token.to(dev))
 
     return ServeArtifacts(

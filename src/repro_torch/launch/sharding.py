@@ -26,13 +26,14 @@ batch over ("pod","data") and sequence over "model".
 The rules are divisibility-safe: an axis is only assigned if the dim
 divides evenly, else dropped.
 
-The port acts on specs whose inner dimensions lie on "model" or on axes
-of size 1: ``shard_tree`` slices a replicated tree to the calling rank's
-local leaves with no communication, ``gather_tree`` gathers them back,
-and the model runs on the local leaves under tensor parallelism
-(``models/sharding_hints.py``). ``require_whole_over`` refuses a split
-over the ``data``/``pod`` axes: FSDP and EP inside an agent, and serving's
-2-D tensor parallelism at ``data`` > 1, are ROADMAP item A7b(ii).
+The port acts on these specs with explicit local tensors: ``shard_tree``
+slices a replicated tree to the calling rank's local leaves with no
+communication, ``gather_tree`` gathers them back, and the model runs on
+the local leaves (``models/sharding_hints.py``): tensor parallelism over
+"model", and where a rule splits a leaf over "data" (the ``pod`` layout,
+serving's 2-D tensor parallelism), FSDP — the leaf gathered whole at its
+use, ``fsdp_plan`` says along which dim — or expert parallelism, the
+experts staying with their owner.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.tree import tree_map, tree_map_with_path, tree_paths
+from repro_torch.tree import tree_map, tree_map_with_path
 
 
 class P(tuple):
@@ -304,6 +305,10 @@ def _axes_of(entry) -> tuple[str, ...]:
 def _part(leaf, spec: P, mesh, coords: dict[str, int]):
     if len(spec) != len(leaf.shape):
         raise ValueError(f"spec {spec} for a leaf of shape {tuple(leaf.shape)}")
+    named = [a for entry in spec for a in _axes_of(entry)]
+    for a in named:
+        if named.count(a) > 1:
+            raise ValueError(f"spec {spec} uses the axis {a!r} twice")
     index = []
     for dim, entry in zip(leaf.shape, spec):
         axes = _axes_of(entry)
@@ -315,22 +320,35 @@ def _part(leaf, spec: P, mesh, coords: dict[str, int]):
     return leaf[tuple(index)]
 
 
-def require_whole_over(specs: Any, mesh, axes: tuple[str, ...] = (
-        "pod", "data"), from_dim: int = 0) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP A7b(ii)) where a spec puts a
-    dim at or after ``from_dim`` on one of ``axes`` of size > 1: the
-    port's mesh paths split leaves along "model" (tensor parallelism) and
-    hold them whole over the other axes."""
+def fsdp_plan(specs: Any, mesh, axes: tuple[str, ...] = ("data",),
+              lead: int = 0) -> Any:
+    """Per leaf, the dim (counted after ``lead`` leading dims) that its
+    spec splits over one of ``axes`` of size > 1, or None: where no dim
+    is, and for an expert leaf split along its experts (the "ep" role),
+    which is not gathered but served by its owner."""
     sizes = mesh_lib.axis_sizes(mesh)
-    for path, spec in tree_paths(specs):
-        for entry in spec[from_dim:]:
-            over = [a for a in _axes_of(entry)
-                    if a in axes and sizes.get(a, 1) > 1]
-            if over:
-                raise NotImplementedError(
-                    f"{path}: spec {spec} splits a dim over {tuple(over)}; "
-                    "FSDP and EP over 'data' inside an agent, and serving's "
-                    "2-D tensor parallelism, are ROADMAP item A7b(ii)")
+
+    def dim_of(path, spec):
+        inner = spec[lead:]
+        roles = _rules_for(path) or ()
+        for d, entry in enumerate(inner):
+            if not any(a in axes and sizes.get(a, 1) > 1
+                       for a in _axes_of(entry)):
+                continue
+            k = len(roles) - (len(inner) - d)
+            if 0 <= k < len(roles) and "ep" in roles[k]:
+                return None
+            return d
+        return None
+
+    return tree_map_with_path(dim_of, specs)
+
+
+def split_over(spec: P, mesh, axes: tuple[str, ...]) -> bool:
+    """Whether ``spec`` splits a dim over one of ``axes`` of size > 1."""
+    sizes = mesh_lib.axis_sizes(mesh)
+    return any(a in axes and sizes.get(a, 1) > 1
+               for entry in spec for a in _axes_of(entry))
 
 
 def shard_tree(tree: Any, specs: Any, mesh,

@@ -27,12 +27,18 @@ Counterpart of the JAX package's ``launch/train.py``. One step per agent
   over the ``model`` group; the agent's whole microbatch on each of its
   ``model`` ranks under ``data``, whose replicated leaves (norms, the
   router) get the same gradient on every rank through the conjugate pair.
-  The sparse gossip crosses ranks by point-to-point exchanges
+  Under ``pod`` one agent spans a pod's ``data`` × ``model`` ranks: each
+  holds its FSDP × TP part of every leaf (experts split along E over
+  ``data`` where E divides: expert parallelism) and its ``data`` share of
+  every microbatch (all of it where the microbatch does not divide), its
+  loss weighted 1/|data|; the FSDP leaves' gradients are summed by their
+  gather's reduce-scatter, the experts' by the all-to-all back to their
+  owner, and only the leaves whole over ``data`` are all-reduced over it
+  (float32). The sparse gossip crosses ranks by point-to-point exchanges
   (``gossip.mix_sparse_flat`` under ``data_dp``, ``gossip.mix_sparse_p2p``
-  under ``data``, each ``model`` coordinate gossiping its part of every
-  leaf); the loss in the metrics is the mean over every rank. FSDP and EP
-  over ``data`` inside an agent (the ``pod`` layout) raise
-  ``NotImplementedError`` (ROADMAP item A7b(ii)).
+  under ``data`` and ``pod``, each coordinate off the agent axes
+  gossiping its part of every leaf); the loss in the metrics is the mean
+  over every rank.
 
 State: ``{"params": [A, ...], "opt": {"momentum": [A, ...]}, "step": int}``
 — A agents stacked (A = 1 on a rank); the step counter is a Python int on
@@ -147,8 +153,9 @@ def _batch_specs(batch_shapes: dict, mesh, layout: str) -> dict:
 
 
 def _reduce_gradients(grads, group) -> None:
-    """Sum every gradient leaf over ``group`` in place (the ``model``
-    group under ``data_dp``)."""
+    """Sum every gradient leaf of ``grads`` (a tree or a list) over
+    ``group`` in place (the ``model`` group under ``data_dp``; the leaves
+    whole over ``data`` under ``pod``)."""
     for g in tree_leaves(grads):
         mesh_lib.group_all_reduce(g, group)
 
@@ -184,12 +191,6 @@ def build_train_artifacts(
         state_shapes["params"], mesh, layout)
     batch_specs = _batch_specs(batch_shapes, mesh, layout)
     on_ranks = isinstance(mesh, DeviceMesh)
-    if on_ranks:
-        if layout == "pod":
-            raise NotImplementedError(
-                "the 'pod' layout (FSDP and EP over 'data' + TP inside one "
-                "agent) is ROADMAP item A7b(ii)")
-        sharding.require_whole_over(param_specs, mesh, from_dim=1)
     mode, w_arr = resolve_gossip(tcfg.gossip, mixing_matrix, m)
     plan = dpsgd.mixing_plan(w_arr, dev) if w_arr is not None else None
     lr_fn = learning_rate or (lambda step: tcfg.learning_rate)
@@ -216,7 +217,11 @@ def build_train_artifacts(
         for a in range(n_agents):
             p_a = [p[a].detach().requires_grad_(True) for p in leaves]
             tree_a = tree_unflatten(params, p_a)
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in p_a]
+            # float32 gradients accumulate in place in their output row;
+            # bf16 ones in float32 buffers, cast once at the end
+            acc = [out[a].zero_() if grad_dtype == torch.float32 else
+                   torch.zeros_like(p, dtype=torch.float32)
+                   for out, p in zip(grads, p_a)]
             loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(k):
                 loss, _ = model.loss(
@@ -235,8 +240,9 @@ def build_train_artifacts(
                             buf.add_(gi / k)
                 del loss, g
             with torch.no_grad():
-                for out, buf in zip(grads, acc):
-                    out[a].copy_(buf)
+                if grad_dtype != torch.float32:
+                    for out, buf in zip(grads, acc):
+                        out[a].copy_(buf)
                 losses[a] = loss_acc
             del acc, p_a, tree_a
         return losses, tree_unflatten(params, grads)
@@ -267,15 +273,15 @@ def build_train_artifacts(
 
     if on_ranks:
         step_fn = _mesh_step(
-            mesh, layout, mode, w_arr, plan, batch_specs, grads_fn, lr_fn,
-            tcfg.momentum, dev)
+            mesh, layout, mode, w_arr, plan, batch_specs, param_specs,
+            grads_fn, lr_fn, tcfg.momentum, dev)
     agents_here = 1 if on_ranks else m
 
     def init_state(seed: int) -> dict:
         """Identical init across agents (standard D-PSGD start): one
         ``model.init`` from ``seed``, stacked for the agents held here
         (all m on one card, this rank's one on a ``DeviceMesh``, at its
-        ``model`` part of each leaf)."""
+        part of each leaf)."""
         params = dpsgd.replicate_for_agents(
             model.init(cfg, seed, device=dev), agents_here)
         if on_ranks:
@@ -297,24 +303,41 @@ def build_train_artifacts(
     )
 
 
-def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, grads_fn,
-               lr_fn, momentum, dev) -> Callable:
+def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, param_specs,
+               grads_fn, lr_fn, momentum, dev) -> Callable:
     """The step of one rank of a ``DeviceMesh`` (module docstring)."""
     agent_axes = mesh_lib.agent_axes(mesh, layout)
     sizes = mesh_lib.axis_sizes(mesh)
-    # data_dp: each "model" rank holds 1/M of every microbatch and the
-    # gradients are summed over the "model" group; unsplit, none is.
-    split = batch_specs["tokens"][2]
-    share, reduce_group = 1.0, None
-    if split is not None:
+    # per leaf: is its gradient summed over ``reduce_group`` here?
+    reduced = tree_map(lambda _: True, param_specs)
+    share, reduce_group, fsdp = 1.0, None, None
+    if layout == "pod":
+        # Each data rank's loss weighs 1/|data| (its share of the rows, or
+        # one of |data| copies of them); only the leaves whole over "data"
+        # are summed over it here.
+        share = 1.0 / sizes["data"]
+        if sizes["data"] > 1:
+            reduce_group = mesh_lib.axis_group(mesh, ("data",))
+            reduced = tree_map(
+                lambda s: not sharding.split_over(s, mesh, ("data",)),
+                param_specs)
+            fsdp = sharding.fsdp_plan(param_specs, mesh, ("data",), lead=1)
+    elif batch_specs["tokens"][2] is not None:
+        # data_dp: each "model" rank holds 1/M of every microbatch and the
+        # gradients are summed over the "model" group.
+        split = batch_specs["tokens"][2]
         share = 1.0 / sizes[split]
         reduce_group = mesh_lib.axis_group(mesh, (split,))
     schedule = gossip.build_schedule(w_arr) if mode == "sparse" else None
-    # The reference's activation hints per layout: the batch role on the
-    # repurposed "model" axis (data_dp) or nowhere (data).
-    role_axes = {"batch": ("model",) if layout == "data_dp" else (),
+    # The reference's activation hints per layout: the batch role on
+    # "data" (pod), on the repurposed "model" axis (data_dp) or nowhere
+    # (data); FSDP and EP over "data" under pod.
+    role_axes = {"batch": {"pod": ("data",), "data_dp": ("model",),
+                           "data": ()}[layout],
                  "tp": () if layout == "data_dp" else ("model",),
                  "seq": () if layout == "data_dp" else ("model",)}
+    if layout == "pod":
+        role_axes.update(fsdp=("data",), ep=("data",))
     world = dist.get_world_size()
 
     def mix_fn(params):
@@ -337,10 +360,13 @@ def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, grads_fn,
         """``batch`` is this rank's part of the global batch."""
         params, opt, step = state["params"], state["opt"], state["step"]
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        with hints(role_axes, mesh):
+        with hints(role_axes, mesh, fsdp):
             loss, grads = grads_fn(params, batch, share)
         if reduce_group is not None:
-            _reduce_gradients(grads, reduce_group)
+            # ``reduced`` in the gradients' leaf order (matched by key)
+            keep = tree_leaves(tree_map(lambda _, r: r, grads, reduced))
+            _reduce_gradients([g for g, r in zip(tree_leaves(grads), keep)
+                               if r], reduce_group)
         lr = sgd.host_lr(lr_fn(step))
         new_params, new_opt = sgd.update(
             grads, opt, params, lr, momentum=momentum

@@ -27,7 +27,11 @@ with the other ids masked and sums over the ranks; ``loss`` is a
 vocabulary-parallel cross-entropy on the local logits (the max, the sum
 of exponentials and the label's logit summed over the ranks, never the
 whole ``[B, S, V]``); ``forward``, ``prefill`` and ``decode_step`` return
-the whole logits, gathered once over the vocabulary.
+the whole logits, gathered once over the vocabulary. Under FSDP
+(``sharding_hints.dp()``) each group's leaves are gathered whole over
+"data" as the group starts (inside the recomputed region, so backward
+gathers them again and reduce-scatters their gradients), and the
+embedding tables and ``patch_proj`` where they are used.
 """
 
 from __future__ import annotations
@@ -100,7 +104,8 @@ def init(
 
 def _embed_tokens(cfg: ModelConfig, params, tokens) -> torch.Tensor:
     cdt = compat.dtype_of(cfg.compute_dtype)
-    table = params["embed"]["table"]
+    embed = sh.gather_fsdp(params["embed"], "embed")
+    table = embed["table"]
     v0, v1, partial = sh.local_range(table.shape[0], cfg.vocab_size)
     if partial:
         ids = tokens.to(torch.int64)
@@ -108,7 +113,7 @@ def _embed_tokens(cfg: ModelConfig, params, tokens) -> torch.Tensor:
         x = table.to(cdt)[torch.where(inside, ids - v0, 0)]
         x = sh.reduce_from_tp(torch.where(inside[..., None], x, 0))
     else:
-        x = layers.embed_apply(params["embed"], tokens, cdt)
+        x = layers.embed_apply(embed, tokens, cdt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
     return x
@@ -120,8 +125,9 @@ def _embed_inputs(cfg: ModelConfig, params, inputs) -> torch.Tensor:
     if cfg.frontend == "vision_patches":
         cdt = compat.dtype_of(cfg.compute_dtype)
         d = cfg.d_model
-        proj = {"kernel": sh.take(params["patch_proj"]["kernel"], -1, 0, d,
-                                  d, False, "frontend/patch_proj")}
+        kernel = sh.gather_fsdp(params["patch_proj"], "patch_proj")["kernel"]
+        proj = {"kernel": sh.take(kernel, -1, 0, d, d, False,
+                                  "frontend/patch_proj")}
         patches = layers.dense_apply(
             proj, inputs["patch_embeds"].to(cdt), cdt
         )
@@ -146,6 +152,9 @@ def _loop_groups(cfg: ModelConfig, params, x, remat: bool = True):
     def group_body(x, gp):
         # Group boundaries are batch-pinned only, as in the reference.
         x = constrain(x, ("batch", None, None))
+        # FSDP: the group's leaves whole over "data" (gathered again by
+        # the recompute, freed after the group)
+        gp = sh.gather_fsdp(gp, "blocks", lead=1)
         aux_tot = blocks.no_aux(x.device)
         for i, kind in enumerate(pattern):
             x, aux = blocks.apply_train(gp[f"b{i}_{kind}"], x, cfg, kind)
@@ -170,7 +179,8 @@ def _local_logits(cfg: ModelConfig, params, x):
     logits, whether they are this rank's block of the vocabulary)."""
     cdt = compat.dtype_of(cfg.compute_dtype)
     x = layers.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps, cdt)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    table = sh.gather_fsdp(params[name], name)
     partial = sh.local_range(table["table"].shape[0], cfg.vocab_size)[2]
     if partial:
         x = sh.copy_to_tp(x)
@@ -284,6 +294,7 @@ def prefill(cfg: ModelConfig, params, inputs, max_len: int):
     x = _embed_inputs(cfg, params, inputs)
     caches = init_caches(cfg, x.shape[0], max_len, x.device, params)
     for gi, gp in enumerate(_group_params(cfg, params)):
+        gp = sh.gather_fsdp(gp, "blocks", lead=1)
         gc = _group_caches(caches, gi)
         for i, kind in enumerate(cfg.block_pattern):
             key = f"b{i}_{kind}"
@@ -297,6 +308,7 @@ def decode_step(cfg: ModelConfig, params, caches, token):
     read back to the host."""
     x = _embed_tokens(cfg, params, token)
     for gi, gp in enumerate(_group_params(cfg, params)):
+        gp = sh.gather_fsdp(gp, "blocks", lead=1)
         gc = _group_caches(caches, gi)
         for i, kind in enumerate(cfg.block_pattern):
             key = f"b{i}_{kind}"

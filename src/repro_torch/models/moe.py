@@ -27,6 +27,17 @@ drops alike from the same input, feeds the dispatched rows through
 ``copy_to_tp`` to its F block, and sums the experts' outputs with
 ``reduce_from_tp`` right after ``down``, before the gates weigh them (so
 the router's gradient is whole on every rank).
+
+Expert parallelism (the ``pod`` layout, serving's 2-D tensor
+parallelism) splits the experts along E over the "ep" axes: a rank holding
+E/n of them sends each owner its experts' block of the dispatch buffer
+(``ep_dispatch``, an all-to-all), runs its experts on every rank's rows
+and sends the outputs back (``ep_combine``) before the combine gather.
+Routing stays per row, so nothing else crosses ranks. Where the rows of a
+microbatch are split over ranks, the top-1 share of tokens ``me`` of the
+load-balance loss is averaged over them (``batch_mean``) before it
+weighs the rank's mean probabilities, as the reference's loss is one
+product over the whole microbatch.
 """
 
 from __future__ import annotations
@@ -149,6 +160,9 @@ def apply(
     partial = sh.local_range(params["down"].shape[-2], spec.d_ff)[2]
     if partial:
         xin = sh.copy_to_tp(xin)
+    owners = sh.ep_size(params["down"].shape[-3], e)
+    if owners > 1:
+        xin = sh.ep_dispatch(xin)               # [owners·b, E/owners, C, d]
 
     # ---- expert SwiGLU ---------------------------------------------------
     # Each weight is cast to the compute dtype where it is used, so at most
@@ -161,7 +175,7 @@ def apply(
         yout = torch.stack([
             (F.silu(xin[:, i] @ w("gate", i)) * (xin[:, i] @ w("up", i)))
             @ w("down", i)
-            for i in range(e)
+            for i in range(xin.shape[1])
         ], dim=1)                                             # [b, e, cap, d]
     else:
         # one expression: only the product stays alive for the last einsum
@@ -171,6 +185,8 @@ def apply(
 
     if partial:
         yout = sh.reduce_from_tp(yout)
+    if owners > 1:
+        yout = sh.ep_combine(yout)
     yout = constrain(yout.reshape(b, e * cap, d), ("batch", None, None))
 
     # ---- combine gather ---------------------------------------------------
@@ -183,7 +199,8 @@ def apply(
     if not with_aux:
         return y, None
     # ---- aux losses --------------------------------------------------------
-    me = F.one_hot(expert_idx[..., 0], e).to(torch.float32).mean(dim=(0, 1))
+    me = sh.batch_mean(
+        F.one_hot(expert_idx[..., 0], e).to(torch.float32).mean(dim=(0, 1)))
     ce = probs.mean(dim=(0, 1))
     aux = {
         "load_balance_loss": e * torch.sum(me * ce),

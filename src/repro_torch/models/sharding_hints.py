@@ -34,6 +34,27 @@ what it needs (``take``); GSPMD reshards such leaves silently.
 ``GATHERED_LEAVES`` names every such leaf, and ``gather_count`` counts
 the gathers. Without hints (or at T = 1) every function here returns its
 input itself, so the one-card paths run exactly the ops they ran before.
+
+Data parallelism inside an agent. When the installed hints split the
+microbatch's rows over "batch" axes, or name "fsdp" / "ep" axes (the
+``pod`` layout and serving's 2-D tensor parallelism: both "data"), of a
+size above 1 on a ``DeviceMesh``, ``dp()`` is that context, and with it
+``plan``: each parameter leaf's dim split over the FSDP axes (None for a
+leaf whole over them, or one split along its experts, which stays with
+its owner: expert parallelism). Then
+
+* ``gather_fsdp`` — a subtree's FSDP-split leaves gathered whole over the
+  axes at their use (``gather_from_fsdp``: all-gather forward,
+  reduce-scatter of the gradient backward, so every data rank's
+  contribution lands once in each part);
+* ``ep_dispatch`` / ``ep_combine`` — the MoE dispatch buffer's expert
+  blocks sent to their owners and the experts' outputs sent back
+  (all-to-all over the axes, each the other's backward);
+* ``batch_mean`` — a detached mean over the batch axes, for a statistic
+  of the whole microbatch (the MoE's top-1 share of tokens).
+
+``dp_count`` counts those collectives. Without the context they return
+their input itself.
 """
 
 from __future__ import annotations
@@ -41,6 +62,7 @@ from __future__ import annotations
 import collections
 import contextvars
 import dataclasses
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -48,12 +70,16 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.sharding import P
+from repro_torch.tree import tree_map
 
 _HINTS: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "sharding_hints", default=None
 )
 _TP: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None
+)
+_DP: contextvars.ContextVar = contextvars.ContextVar(
+    "data_parallel", default=None
 )
 
 # Leaves gathered whole at their use under tensor parallelism, and why.
@@ -68,6 +94,9 @@ GATHERED_LEAVES = {
                 "is concatenated with the three unsplit gates",
 }
 _GATHERS: collections.Counter = collections.Counter()
+# Collectives over the data-parallel axes: "fsdp_gather", "ep_dispatch",
+# "ep_combine" (forward calls, the recompute's included).
+_DP_CALLS: collections.Counter = collections.Counter()
 
 
 def gather_count(name: str | None = None) -> int:
@@ -77,6 +106,16 @@ def gather_count(name: str | None = None) -> int:
 
 def reset_gather_count() -> None:
     _GATHERS.clear()
+
+
+def dp_count(name: str | None = None) -> int:
+    """Data-parallel collectives since the last reset (of ``name``, or of
+    all)."""
+    return sum(_DP_CALLS.values()) if name is None else _DP_CALLS[name]
+
+
+def reset_dp_count() -> None:
+    _DP_CALLS.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,37 +128,74 @@ class TensorParallel:
     index: int
 
 
+def _size_of(sizes: dict, axes: tuple[str, ...]) -> int:
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
 def _tensor_parallel(role_axes: dict, mesh) -> TensorParallel | None:
     axes = tuple(role_axes.get("tp", ()))
     if not axes or not isinstance(mesh, DeviceMesh):
         return None
-    sizes = mesh_lib.axis_sizes(mesh)
-    size = 1
-    for a in axes:
-        size *= sizes[a]
+    size = _size_of(mesh_lib.axis_sizes(mesh), axes)
     if size <= 1:
         return None
     return TensorParallel(mesh, axes, size, mesh_lib.agent_index(mesh, axes))
 
 
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """The data-parallel context: the microbatch's rows split over
+    ``batch`` (``batch_size`` ranks), parameters split over ``axes``
+    (``size`` ranks, this one at ``index``) as ``plan`` says."""
+    mesh: DeviceMesh
+    batch: tuple[str, ...]
+    batch_size: int
+    axes: tuple[str, ...]
+    size: int
+    index: int
+    plan: Any
+
+
+def _data_parallel(role_axes: dict, mesh, plan) -> DataParallel | None:
+    if not isinstance(mesh, DeviceMesh):
+        return None
+    batch = tuple(role_axes.get("batch", ()))
+    # FSDP and EP share their axes ("data"), as in the reference's rules
+    axes = tuple(role_axes.get("fsdp") or role_axes.get("ep") or ())
+    sizes = mesh_lib.axis_sizes(mesh)
+    batch_size, size = _size_of(sizes, batch), _size_of(sizes, axes)
+    if batch_size <= 1 and size <= 1:
+        return None
+    index = mesh_lib.agent_index(mesh, axes) if size > 1 else 0
+    return DataParallel(mesh, batch, batch_size, axes, size, index, plan)
+
+
 class hints:
     """``with hints({"batch": ("data",), "tp": ("model",)}, mesh):``
     installs the role→axes map (and, on a ``DeviceMesh`` whose "tp" axes
-    are larger than 1, the tensor-parallel context) until the block exits
-    (nested blocks restore the outer map)."""
+    are larger than 1, the tensor-parallel context; where the batch or
+    "fsdp" / "ep" axes are, the data-parallel one with ``plan``) until the
+    block exits (nested blocks restore the outer map)."""
 
-    def __init__(self, role_axes: dict, mesh=None):
+    def __init__(self, role_axes: dict, mesh=None, plan=None):
         self._role_axes = dict(role_axes)
         self._mesh = mesh
+        self._plan = plan
         self._tokens: list = []
 
     def __enter__(self):
-        ctx = _tensor_parallel(self._role_axes, self._mesh)
-        self._tokens.append((_HINTS.set(self._role_axes), _TP.set(ctx)))
+        tp_ctx = _tensor_parallel(self._role_axes, self._mesh)
+        dp_ctx = _data_parallel(self._role_axes, self._mesh, self._plan)
+        self._tokens.append((_HINTS.set(self._role_axes), _TP.set(tp_ctx),
+                             _DP.set(dp_ctx)))
         return self
 
     def __exit__(self, *exc):
-        role_token, tp_token = self._tokens.pop()
+        role_token, tp_token, dp_token = self._tokens.pop()
+        _DP.reset(dp_token)
         _TP.reset(tp_token)
         _HINTS.reset(role_token)
         return False
@@ -131,18 +207,25 @@ def tp() -> TensorParallel | None:
     return _TP.get()
 
 
+def dp() -> DataParallel | None:
+    """The installed data-parallel context, or None (no hints, no mesh,
+    or batch and "fsdp" / "ep" axes of size 1)."""
+    return _DP.get()
+
+
 def carry(fn):
     """``fn`` with the hints installed now re-installed around each call:
     for a function called later on another thread (the recompute of
     ``torch.utils.checkpoint``, which runs in autograd's device thread on
     CUDA, where this context is not set)."""
-    role_axes, ctx = _HINTS.get(), _TP.get()
+    role_axes, ctx, dp_ctx = _HINTS.get(), _TP.get(), _DP.get()
     if role_axes is None:
         return fn
 
     def run(*args, **kwargs):
-        tokens = _HINTS.set(role_axes), _TP.set(ctx)
+        tokens = _HINTS.set(role_axes), _TP.set(ctx), _DP.set(dp_ctx)
         out = fn(*args, **kwargs)
+        _DP.reset(tokens[2])
         _TP.reset(tokens[1])
         _HINTS.reset(tokens[0])
         return out
@@ -308,3 +391,110 @@ def local_range(local: int, full: int) -> tuple[int, int, bool]:
         raise ValueError(f"a local dim of {local} of {full} over "
                          f"{ctx.size} ranks")
     return ctx.index * local, (ctx.index + 1) * local, True
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: FSDP's gather, EP's all-to-all, the batch mean
+# ---------------------------------------------------------------------------
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch axes' ranks of a tensor outside autograd
+    (each rank holds an equal share of the microbatch's rows); ``x``
+    itself without a data-parallel context or where the rows are not
+    split."""
+    ctx = dp()
+    if ctx is None or ctx.batch_size <= 1:
+        return x
+    total = mesh_lib.all_reduce(
+        x.detach().clone(memory_format=torch.contiguous_format), ctx.mesh,
+        ctx.batch)
+    return total / ctx.batch_size
+
+
+class _GatherFromFSDP(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.dp, fctx.dim = ctx, dim
+        return torch.cat(mesh_lib.all_gather(x, ctx.mesh, ctx.axes), dim=dim)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return mesh_lib.reduce_scatter(
+            grad.contiguous(), fctx.dp.mesh, fctx.dp.axes, fctx.dim), \
+            None, None
+
+
+def gather_from_fsdp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The FSDP ranks' ``x`` concatenated along ``dim`` forward; backward,
+    the gradient summed over those ranks and cut to this rank's part
+    (reduce-scatter). ``x`` itself without FSDP axes larger than 1."""
+    ctx = dp()
+    if ctx is None or ctx.size <= 1:
+        return x
+    _DP_CALLS["fsdp_gather"] += 1
+    return _GatherFromFSDP.apply(x, dim % x.dim(), ctx)
+
+
+def gather_fsdp(tree, *keys: str, lead: int = 0):
+    """``tree`` — the subtree of the parameters at ``keys`` — with each
+    leaf that the plan splits over the FSDP axes gathered whole
+    (``gather_from_fsdp``); ``lead`` leading dims of the plan's leaves are
+    not in ``tree``'s (a group's leaves, unstacked from G). ``tree``
+    itself without FSDP."""
+    ctx = dp()
+    if ctx is None or ctx.size <= 1 or ctx.plan is None:
+        return tree
+    plan = ctx.plan
+    for k in keys:
+        plan = plan[k]
+    return tree_map(
+        lambda leaf, dim: leaf if dim is None
+        else gather_from_fsdp(leaf, dim - lead), tree, plan)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``x`` cut along ``split`` into one part per rank, the parts
+    exchanged, what came back concatenated along ``cat``; the backward is
+    the same with ``split`` and ``cat`` swapped."""
+
+    @staticmethod
+    def forward(fctx, x, split, cat, ctx):
+        fctx.dp, fctx.split, fctx.cat = ctx, split, cat
+        return _exchange(x, split, cat, ctx)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return _exchange(grad, fctx.cat, fctx.split, fctx.dp), \
+            None, None, None
+
+
+def _exchange(x, split, cat, ctx: DataParallel) -> torch.Tensor:
+    parts = [p.contiguous() for p in x.chunk(ctx.size, dim=split)]
+    return torch.cat(mesh_lib.all_to_all(parts, ctx.mesh, ctx.axes), dim=cat)
+
+
+def ep_size(local: int, full: int) -> int:
+    """How many ranks share ``full`` experts of which this rank holds
+    ``local``: 1 when it holds them all, else the EP axes' size."""
+    if local == full:
+        return 1
+    ctx = dp()
+    if ctx is None or local * ctx.size != full:
+        raise ValueError(f"{local} of {full} experts on this rank")
+    return ctx.size
+
+
+def ep_dispatch(x: torch.Tensor) -> torch.Tensor:
+    """The dispatch buffer ``[b, E, C, D]`` → ``[n·b, E/n, C, D]``: each
+    rank's slots of this rank's E/n experts, rows of rank 0 first (n EP
+    ranks, rank i owning experts ``[i·E/n, (i+1)·E/n)``)."""
+    _DP_CALLS["ep_dispatch"] += 1
+    return _AllToAll.apply(x, 1, 0, dp())
+
+
+def ep_combine(y: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``ep_dispatch``: the owners' outputs ``[n·b, E/n, C,
+    D]`` → this rank's rows for every expert ``[b, E, C, D]``."""
+    _DP_CALLS["ep_combine"] += 1
+    return _AllToAll.apply(y, 0, 1, dp())

@@ -5,13 +5,19 @@
 
 CASE is `gossip` (a (2, 2, 2) mesh), `train_data` (a (4, 1) mesh, the
 `data` layout in the sparse, dense and allreduce modes), `train_data_dp`
-(a (4, 2) mesh, `data_dp`/sparse), `serve` (a (4, 1) mesh), `world1`
+(a (4, 2) mesh, `data_dp`/sparse), `train_data_dp_moe` (the same for
+smoke Mixtral with the load-balance loss at weight 1), `serve` (a (4, 1)
+mesh), `world1`
 (a (1, 1) mesh: the mesh paths against the one-card paths, which is all
 one card can run over NCCL), `tp_train` (a (4, 2) mesh, the `data` layout
 with each leaf split over "model", for smoke Qwen2, Mixtral and Jamba),
 `tp_serve` (meshes (1, 4) and (2, 2), serving's 1-D tensor parallelism)
-or `tp_units` (a (1, 2) mesh: the conjugate pair, the
-vocabulary-parallel cross-entropy and the MoE's routing). INPUTS is
+`tp_units` (a (1, 2) mesh: the conjugate pair, the
+vocabulary-parallel cross-entropy and the MoE's routing), `pod_train` (a
+(2, 2, 2) mesh, the `pod` layout: FSDP and EP over "data", TP over
+"model", one agent a pod), `pod_serve` (a (2, 2) mesh, serving's 2-D
+tensor parallelism) or `pod_units` (a (2, 1) mesh: FSDP's gather, EP's
+all-to-all pair and the load-balance loss over split rows). INPUTS is
 the test's `npz` (the reference's initial parameters, tokens, W). The rank
 writes what it holds to `OUT_DIR/rank{RANK}.npz`. Each FAULT named reruns
 the case with one fault put in by this script, never by the package, and
@@ -22,7 +28,13 @@ writes that run's results under `fault/<FAULT>/`:
 * `wrong_rows` — rank 0 given the next agent's (or rank's) rows;
 * `naive_uz` — Mamba's split `in_proj` used as the `[u | z]` it is not;
 * `own_wo_partial` — rank 0 keeps its own partial sum after `wo` (it
-  still joins the all-reduce, so the other ranks do not wait forever).
+  still joins the all-reduce, so the other ranks do not wait forever);
+* `ep_wrong_rows` — rank 0 sends each expert owner another owner's block
+  of its dispatch buffer (the all-to-all is still joined);
+* `fsdp_own_part` — FSDP's backward keeps the rank's own part of the
+  gradient without the sum over the "data" ranks;
+* `per_rank_me` — the load-balance loss's top-1 share of tokens taken
+  over the rank's own rows (the mean over the ranks left out).
 """
 
 import dataclasses
@@ -41,7 +53,7 @@ import torch.distributed.nn  # noqa: E402
 
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.configs import gemma2_2b, jamba_1_5_large_398b  # noqa: E402
-from repro_torch.configs import mixtral_8x7b  # noqa: E402
+from repro_torch.configs import llava_next_34b, mixtral_8x7b  # noqa: E402
 from repro_torch.configs.qwen2_0_5b import SMOKE_CONFIG as CFG  # noqa: E402
 from repro_torch.core import dpsgd, gossip  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
@@ -63,14 +75,23 @@ MESHES = {
     "tp_train": ((4, 2), ("data", "model")),
     "tp_serve": ((1, 4), ("data", "model")),
     "tp_units": ((1, 2), ("data", "model")),
+    "train_data_dp_moe": ((4, 2), ("data", "model")),
+    "pod_train": ((2, 2, 2), ("pod", "data", "model")),
+    "pod_serve": ((2, 2), ("data", "model")),
+    "pod_units": ((2, 1), ("data", "model")),
 }
 TRAIN_MODES = {  # case -> [(mode name, gossip asked, W key)]
     "train_data": [("sparse", "sparse", "w_ring"), ("dense", "dense", "w_ring"),
                    ("allreduce", "allreduce", "w_j")],
     "train_data_dp": [("sparse", "sparse", "w_ring")],
+    "train_data_dp_moe": [("sparse", "sparse", "w_ring")],
 }
 TRAIN_SHAPES = {"train_data": ("train_data", 16, 8, "train"),
-                "train_data_dp": ("train_data_dp", 16, 16, "train")}
+                "train_data_dp": ("train_data_dp", 16, 16, "train"),
+                "train_data_dp_moe": ("train_data_dp_moe", 16, 16, "train")}
+TRAIN_CFGS = {"train_data": CFG, "train_data_dp": CFG,
+              "train_data_dp_moe": mixtral_8x7b.SMOKE_CONFIG}
+TRAIN_AUX = {"train_data_dp_moe": 1.0}   # the load-balance loss's weight
 SERVE_BATCHES = (4, 2)   # 4 splits over "data", 2 does not
 SERVE_PROMPT, SERVE_MAX_LEN = 8, 8 + DECODE_STEPS   # the last fed token fills it
 TP_CFGS = {"qwen2": CFG, "mixtral": mixtral_8x7b.SMOKE_CONFIG,
@@ -80,6 +101,16 @@ TP_TRAIN_ARCHS = ("qwen2", "mixtral", "jamba")
 TP_TRAIN_SHAPE = ("tp", 16, 8)       # name, seq_len, global batch (4 agents)
 TP_SERVE_RUNS = ("qwen2:1:4", "gemma2:2:2", "mixtral:2:2")  # arch:data:model
 TP_SERVE_BATCH = 2                   # splits over "data" at (2, 2)
+POD_CFGS = {"mixtral": mixtral_8x7b.SMOKE_CONFIG,
+            "jamba": jamba_1_5_large_398b.SMOKE_CONFIG,
+            "llava": llava_next_34b.SMOKE_CONFIG}
+# arch:global batch — 2 agents x 2 microbatches of 2 rows (split over
+# "data") or of 1 row (every data rank holds it)
+POD_TRAIN_RUNS = ("mixtral:8", "jamba:8", "llava:8", "mixtral:4")
+POD_TRAIN_SEQ = 16
+POD_AUX = 1.0                        # the load-balance loss's weight
+POD_SERVE_RUNS = ("mixtral:2", "mixtral:1", "jamba:2", "jamba:1")  # arch:B
+TWO_D_PARAMS = 10**12   # parameter_count reported, so 2-D is picked
 
 
 def nest(flat: dict) -> dict:
@@ -160,16 +191,19 @@ def run_gossip(mesh, inputs, out, key, fault):
 
 def run_train(case, mesh, inputs, out, key, fault):
     coords = mesh_lib.coordinate(mesh)
-    agent0 = nest(section(inputs, "init/"))
+    cfg = TRAIN_CFGS[case]
+    agent0 = nest(section(inputs, "init_moe/" if cfg is not CFG
+                          else "init/"))
     shape = base.ShapeConfig(*TRAIN_SHAPES[case])
     layout = "data" if case == "train_data" else "data_dp"
     for name, asked, w_key in TRAIN_MODES[case]:
         tcfg = base.TrainConfig(agent_layout=layout, gossip=asked,
-                                microbatch=2, learning_rate=0.05)
+                                microbatch=2, learning_rate=0.05,
+                                moe_aux_weight=TRAIN_AUX.get(case, 1e-2))
         art = train.build_train_artifacts(
-            CFG, tcfg, shape, mesh, inputs[w_key], device="cpu")
+            cfg, tcfg, shape, mesh, inputs[w_key], device="cpu")
         params = dpsgd.replicate_for_agents(
-            convert.params_from_jax(agent0, CFG, "cpu"), 1)
+            convert.params_from_jax(agent0, cfg, "cpu"), 1)
         state = {"params": params, "opt": sgd.init(params), "step": 0}
         batch_coords = coords
         if fault == "wrong_rows":
@@ -190,35 +224,46 @@ def run_train(case, mesh, inputs, out, key, fault):
             out[f"{key}{name}/momentum/{path}"] = leaf
     out[f"{key}agent"] = np.asarray(mesh_lib.agent_index(mesh, ("data",)))
     if fault is None and case == "train_data_dp":
-        # what A7b(ii) still has to port: the pod layout; serving's 2-D
-        # TP on a (2, 4) mesh (Mixtral-8x7B's weights are over 8 GB a
-        # model rank, so its rule splits them over "data" too); a
-        # data-layout leaf split over "data" at model 2
+        # what the parent refused as unported now builds: the pod layout;
+        # serving's 2-D TP on a (2, 4) mesh (Mixtral-8x7B's weights are
+        # over 8 GB a model rank, so its rule splits them over "data"
+        # too); a spec naming one axis twice is refused
         tcfg = base.TrainConfig(agent_layout="pod", gossip="sparse",
                                 microbatch=2)
-        refused = [_raises(lambda: train.build_train_artifacts(
-            CFG, tcfg, shape, mesh, None, device="cpu"))]
+        pod = train.build_train_artifacts(CFG, tcfg, shape, mesh, None,
+                                          device="cpu")
         wide = mesh_lib.init_mesh((2, 4), ("data", "model"), "cpu")
-        refused.append(_raises(lambda: serve.build_serve_artifacts(
+        served = serve.build_serve_artifacts(
             mixtral_8x7b.CONFIG, base.ShapeConfig("s", 12, 4, "prefill"),
-            "cpu", wide)))
+            "cpu", wide)
+        built = [_built(pod.param_specs, mesh),
+                 _built(served.param_specs, wide)]
         tcfg = base.TrainConfig(agent_layout="data", gossip="sparse",
                                 microbatch=2)
         art = train.build_train_artifacts(CFG, tcfg, shape, mesh,
                                           inputs["w_ring"], device="cpu")
         specs = dict(art.param_specs)
         specs["final_norm"] = {"scale": sharding.P("data", "data")}
-        refused.append(_raises(lambda: sharding.require_whole_over(
-            specs, mesh, from_dim=1)))
-        out["unported_raise"] = np.asarray(refused)
+        leaves = dict(art.state_shapes["params"])
+        built.append(_refused(lambda: sharding.shard_tree(
+            leaves, specs, mesh)))
+        out["unported_raise"] = np.asarray(built)
 
 
-def _raises(fn) -> str:
-    """The message of the ``NotImplementedError`` that ``fn`` raises, or
-    '' when it returns."""
+def _built(specs, mesh) -> str:
+    """What a build's specs split over "data": 'built, N leaves over
+    data'."""
+    n = sum(sharding.split_over(s, mesh, ("data",))
+            for _, s in tree_paths(specs))
+    return f"built, {n} leaves over data"
+
+
+def _refused(fn) -> str:
+    """The message of the ``ValueError`` that ``fn`` raises, or '' when
+    it returns."""
     try:
         fn()
-    except NotImplementedError as err:
+    except ValueError as err:
         return str(err)
     return ""
 
@@ -433,6 +478,199 @@ def run_tp_units(mesh, inputs, out, key, fault):
     out["moe/experts"] = np.concatenate(experts)
 
 
+def _dp_counts() -> dict:
+    return {n: sh.dp_count(n) for n in ("fsdp_gather", "ep_dispatch",
+                                        "ep_combine")}
+
+
+def run_pod_train(mesh, inputs, out, key, fault):
+    """3 steps of the ``pod`` layout at (2, 2, 2) for each
+    ``POD_TRAIN_RUNS`` entry (with a fault, smoke Mixtral's first run
+    only): the whole trees gathered back, the data-parallel collectives
+    of the first step."""
+    for run in POD_TRAIN_RUNS:
+        if fault is not None and run != POD_TRAIN_RUNS[0]:
+            continue
+        arch, gb = run.split(":")
+        cfg = POD_CFGS[arch]
+        tcfg = base.TrainConfig(agent_layout="pod", gossip="sparse",
+                                microbatch=2, learning_rate=0.05,
+                                moe_aux_weight=POD_AUX)
+        art = train.build_train_artifacts(
+            cfg, tcfg, base.ShapeConfig("pod", POD_TRAIN_SEQ, int(gb),
+                                        "train"), mesh, inputs["w_pair"],
+            device="cpu")
+        whole = convert.params_from_jax(
+            nest(section(inputs, f"init/{arch}/")), cfg, "cpu")
+        stacked = dpsgd.replicate_for_agents(whole, art.num_agents)
+        params = tree_map(lambda p: p.clone(), sharding.shard_tree(
+            stacked, art.param_specs, mesh))
+        state = {"params": params, "opt": sgd.init(params), "step": 0}
+        losses = []
+        for k in range(STEPS):
+            batch = {"tokens": inputs[f"tokens/{run}/{k}"]}
+            if f"patches/{run}/{k}" in inputs:
+                batch["patch_embeds"] = inputs[f"patches/{run}/{k}"]
+            sh.reset_dp_count()
+            state, met = art.step_fn(
+                state, sharding.shard_tree(batch, art.batch_specs, mesh))
+            if k == 0:
+                counts = _dp_counts()
+            losses.append(float(met["loss"]))
+        out[f"{key}{run}/resolved"] = np.asarray(art.gossip)
+        out[f"{key}{run}/losses"] = np.asarray(losses)
+        out[f"{key}{run}/split"] = np.asarray(
+            art.batch_specs["tokens"][2] is not None)
+        out[f"{key}{run}/dp_counts"] = np.asarray(
+            [counts[n] for n in sorted(counts)])
+        for part, tree in (("params", state["params"]),
+                           ("momentum", state["opt"]["momentum"])):
+            whole = sharding.gather_tree(tree, art.param_specs, mesh)
+            for path, leaf in tree_paths(convert.params_to_jax(whole)):
+                out[f"{key}{run}/{part}/{path}"] = leaf
+
+
+def run_pod_serve(mesh, inputs, out, key, fault):
+    """A prefill and DECODE_STEPS decode steps of each ``POD_SERVE_RUNS``
+    entry at (2, 2) with ``parameter_count`` reporting TWO_D_PARAMS, so
+    the rule splits the weights over "data" too (with a fault, the first
+    run only)."""
+    real_count = model.parameter_count
+    model.parameter_count = lambda cfg, params=None: TWO_D_PARAMS
+    for run in POD_SERVE_RUNS:
+        if fault is not None and run != POD_SERVE_RUNS[0]:
+            continue
+        arch, b = run.split(":")
+        cfg = POD_CFGS[arch]
+        arts = [serve.build_serve_artifacts(
+            cfg, base.ShapeConfig("serve", SERVE_MAX_LEN, int(b), kind),
+            "cpu", mesh) for kind in ("prefill", "decode")]
+        whole = convert.params_from_jax(
+            nest(section(inputs, f"init/{arch}/")), cfg, "cpu")
+        params = sharding.shard_tree(whole, arts[0].param_specs, mesh)
+        tokens = torch.from_numpy(inputs[f"serve/tokens/{run}"])
+        prompt = sharding.shard_tree({"tokens": tokens[:, :SERVE_PROMPT]},
+                                     arts[0].input_specs, mesh)
+        sh.reset_dp_count()
+        logits, caches = arts[0].prefill_fn(params, prompt)
+        steps = [logits.numpy()]
+        for t in range(DECODE_STEPS):
+            nxt = tokens[:, SERVE_PROMPT + t:SERVE_PROMPT + t + 1]
+            logits, caches = arts[1].step_fn(
+                params, caches,
+                sharding.shard_tree(nxt, arts[1].input_specs, mesh))
+            steps.append(logits.numpy())
+        counts = _dp_counts()
+        out[f"{key}{run}/logits"] = np.stack(steps)
+        coords = mesh_lib.coordinate(mesh)
+        out[f"{key}{run}/coords"] = np.asarray([coords["data"],
+                                                 coords["model"]])
+        out[f"{key}{run}/split"] = np.asarray(
+            arts[0].input_specs["tokens"][0] is not None)
+        out[f"{key}{run}/dp_counts"] = np.asarray(
+            [counts[n] for n in sorted(counts)])
+        out[f"{key}{run}/over_data"] = np.asarray(sum(
+            sharding.split_over(spec, mesh, ("data",))
+            for _, spec in tree_paths(arts[0].param_specs)))
+    model.parameter_count = real_count
+
+
+def run_pod_units(mesh, inputs, out, key, fault):
+    """At 2 ranks over "data", each against the whole computation in this
+    process: FSDP's gather (its backward a reduce-scatter), EP's
+    dispatch / combine pair, and the load-balance loss with the router's
+    gradient over split rows."""
+    i = mesh_lib.coordinate(mesh)["data"]
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn((4, 6), generator=gen), torch.randn((6, 5),
+                                                             generator=gen)
+    c = torch.randn((2, 4, 5), generator=gen)       # each rank's upstream
+    xw = x.clone().requires_grad_(True)
+    y = xw @ w
+    whole = torch.autograd.grad((y * c[0]).sum() + (y * c[1]).sum(), xw)[0]
+    out["fsdp_whole/grad"] = whole[2 * i:2 * (i + 1)].numpy()
+    role_axes = {"batch": ("data",), "fsdp": ("data",), "ep": ("data",)}
+    with sh.hints(role_axes, mesh):
+        xp = x[2 * i:2 * (i + 1)].clone().requires_grad_(True)
+        y = sh.gather_from_fsdp(xp, 0) @ w
+        out["fsdp/y"] = y.detach().numpy()
+        out["fsdp/grad"] = torch.autograd.grad((y * c[i]).sum(), xp)[0] \
+            .numpy()
+    out["fsdp_whole/y"] = (x @ w).numpy()
+
+    # EP: 4 experts, 2 a rank; each rank's buffer [b 2, E 4, C 3, D 5]
+    xin = torch.randn((2, 2, 4, 3, 5), generator=gen)     # [rank, ...]
+    we = torch.randn((4, 5, 5), generator=gen)
+    ce = torch.randn((2, 2, 4, 3, 5), generator=gen)
+    xa = xin.clone().requires_grad_(True)
+    wa = we.clone().requires_grad_(True)
+    ya = torch.einsum("rbecd,edf->rbecf", xa, wa)
+    gx, gw = torch.autograd.grad((ya * ce).sum(), (xa, wa))
+    out["ep_whole/y"] = ya[i].detach().numpy()
+    out["ep_whole/grad_x"] = gx[i].numpy()
+    out["ep_whole/grad_w"] = gw[2 * i:2 * (i + 1)].numpy()
+    with sh.hints(role_axes, mesh):
+        xr = xin[i].clone().requires_grad_(True)
+        wr = we[2 * i:2 * (i + 1)].clone().requires_grad_(True)
+        owned = sh.ep_dispatch(xr)                       # [2·2, 2, 3, 5]
+        yr = sh.ep_combine(torch.einsum("becd,edf->becf", owned, wr))
+        gx, gw = torch.autograd.grad((yr * ce[i]).sum(), (xr, wr))
+    out["ep/y"] = yr.detach().numpy()
+    out["ep/grad_x"] = gx.numpy()
+    out["ep/grad_w"] = gw.numpy()
+
+    # the load-balance loss over rows split in two, and the router's
+    # gradient (each rank's loss weighted 1/2, the gradients summed)
+    spec = moe.MoESpec(16, 32, 4, 2, capacity_factor=8.0)
+    params = moe.init(gen, spec, torch.float32, "cpu")
+    xs = torch.randn((4, 6, 16), generator=gen)
+    router = params["router"]["kernel"]
+
+    def balance(rows, hinted):
+        r = router.clone().requires_grad_(True)
+        p = {**params, "router": {"kernel": r}}
+        if hinted:
+            with sh.hints({"batch": ("data",)}, mesh):
+                aux = moe.apply(p, rows, spec, torch.float32)[1]
+        else:
+            aux = moe.apply(p, rows, spec, torch.float32)[1]
+        lb = aux["load_balance_loss"]
+        return lb.detach(), torch.autograd.grad(lb, r)[0]
+
+    lb, g = balance(xs, False)
+    out["balance_whole/loss"], out["balance_whole/grad"] = lb.numpy(), \
+        g.numpy()
+    for name in ("balance", "fault/per_rank_me/balance"):
+        real = sh.batch_mean
+        if name.startswith("fault"):
+            sh.batch_mean = lambda t: t
+        lb, g = balance(xs[2 * i:2 * (i + 1)], True)
+        sh.batch_mean = real
+        group = mesh_lib.axis_group(mesh, ("data",))
+        mesh_lib.group_all_reduce(lb, group)
+        mesh_lib.group_all_reduce(g, group)
+        out[f"{name}/loss"], out[f"{name}/grad"] = (lb / 2).numpy(), \
+            (g / 2).numpy()
+
+
+def ep_wrong_rows(real_exchange):
+    """``sharding_hints._exchange`` with rank 0's dispatch parts sent to
+    the owners in reverse order (the all-to-all still joined)."""
+    def exchange(x, split, cat, ctx):
+        if torch.distributed.get_rank() == 0 and split == 1:
+            x = torch.cat(list(x.chunk(ctx.size, dim=split))[::-1],
+                          dim=split)
+        return real_exchange(x, split, cat, ctx)
+    return exchange
+
+
+def fsdp_own_part(fctx, grad):
+    """FSDP's backward cut to the rank's own part, unsummed."""
+    n = grad.shape[fctx.dim] // fctx.dp.size
+    return grad.narrow(fctx.dim, fctx.dp.index * n, n).contiguous(), None, \
+        None
+
+
 def run_world1(mesh, inputs, out, key, fault):
     """Three ``data_dp`` steps and a prefill + decode steps on the (1, 1)
     mesh and on the one-card path from the same state: equal bitwise?"""
@@ -503,11 +741,21 @@ def main(argv):
     out: dict = {}
     real_reduce, real_schedule = train._reduce_gradients, gossip.build_schedule
     real_local, real_layers = ssm._mamba_local, attention.layers
+    real_exchange, real_mean = sh._exchange, sh.batch_mean
+    real_backward = sh._GatherFromFSDP.backward
     for fault in [None, *faults]:
         key = "" if fault is None else f"fault/{fault}/"
         train._reduce_gradients, gossip.build_schedule = (
             real_reduce, real_schedule)
         ssm._mamba_local, attention.layers = real_local, real_layers
+        sh._exchange, sh.batch_mean = real_exchange, real_mean
+        sh._GatherFromFSDP.backward = real_backward
+        if fault == "ep_wrong_rows":
+            sh._exchange = ep_wrong_rows(real_exchange)
+        if fault == "fsdp_own_part":
+            sh._GatherFromFSDP.backward = staticmethod(fsdp_own_part)
+        if fault == "per_rank_me":
+            sh.batch_mean = lambda t: t
         if fault == "dropped_round":
             gossip.build_schedule = (
                 lambda w, atol=1e-12: drop_last_round(real_schedule(w, atol)))
@@ -529,6 +777,12 @@ def main(argv):
             run_tp_serve(mesh, inputs, out, key, fault)
         elif case == "tp_units":
             run_tp_units(mesh, inputs, out, key, fault)
+        elif case == "pod_train":
+            run_pod_train(mesh, inputs, out, key, fault)
+        elif case == "pod_serve":
+            run_pod_serve(mesh, inputs, out, key, fault)
+        elif case == "pod_units":
+            run_pod_units(mesh, inputs, out, key, fault)
         else:
             run_train(case, mesh, inputs, out, key, fault)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

@@ -14,7 +14,9 @@ run):
 * (b) 3 launcher steps on a (4, 1) mesh in the `data` layout, in the
   `sparse`, `dense` and `allreduce` modes;
 * (c) 3 steps on a (4, 2) mesh in `data_dp`/`sparse` (`mix_sparse_flat`
-  at 2 slices);
+  at 2 slices), for smoke Qwen2 and for smoke Mixtral with the
+  load-balance loss at weight 1 (its top-1 share of tokens is a mean over
+  the microbatch's rows, which `model` splits);
 * (d) the (4, 1) serve mesh path: a prefill and 4 decode steps, at a batch
   that splits over "data" and at one that does not;
 * at world size 1 (what one card runs over NCCL), the mesh paths against
@@ -25,8 +27,10 @@ losses rtol 1e-4 and parameters / momentum atol 1e-4 after 3 steps, plus one
 bf16 ulp of the gradients under `data_dp` (`tests/test_torch_train.py`);
 serving 1e-4 (`tests/test_torch_serve.py`). Each faulty run of the rank
 script (a dropped round, the `model` gradient sum skipped, one rank given
-another agent's rows) must be refused by the same comparison, and the
-layouts left to ROADMAP A7b(ii) must raise `NotImplementedError`.
+another agent's rows, the load-balance loss over a rank's own rows) must
+be refused by the same comparison. The `pod` layout and serving's 2-D
+tensor parallelism build (`tests/test_torch_multirank_pod.py` runs them),
+and a spec naming one axis twice is refused.
 """
 
 import contextlib
@@ -40,6 +44,7 @@ import numpy as np
 import pytest
 
 from repro.configs import base as jbase
+from repro.configs.mixtral_8x7b import SMOKE_CONFIG as JMOE_CFG
 from repro.configs.qwen2_0_5b import SMOKE_CONFIG as JCFG
 from repro.core.weight_opt import optimize_weights
 from repro.data.pipeline import make_batch_fn
@@ -63,6 +68,7 @@ CASES = {
     "gossip": (8, ("dropped_round",)),
     "train_data": (4, ("dropped_round", "wrong_rows")),
     "train_data_dp": (8, ("dropped_round", "no_model_reduce", "wrong_rows")),
+    "train_data_dp_moe": (8, ("per_rank_me",)),
     "serve": (4, ("wrong_rows",)),
     "world1": (1, ()),
 }
@@ -75,6 +81,7 @@ import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 from repro import compat
 from repro.configs.base import ShapeConfig, TrainConfig
+from repro.configs.mixtral_8x7b import SMOKE_CONFIG as moe_cfg
 from repro.configs.qwen2_0_5b import SMOKE_CONFIG as cfg
 from repro.core import gossip
 from repro.launch.mesh import make_test_mesh
@@ -118,20 +125,22 @@ for name in ("w_opt", "w_skew"):
 
 # (b), (c) the launcher's steps
 runs = {
-    "train_data": ((4, 1), "data", (16, 8),
+    "train_data": ((4, 1), "data", (16, 8), cfg, 1e-2,
                    [("sparse", "sparse", "w_ring"), ("dense", "dense", "w_ring"),
                     ("allreduce", "allreduce", "w_j")]),
-    "train_data_dp": ((4, 2), "data_dp", (16, 16),
+    "train_data_dp": ((4, 2), "data_dp", (16, 16), cfg, 1e-2,
                       [("sparse", "sparse", "w_ring")]),
+    "train_data_dp_moe": ((4, 2), "data_dp", (16, 16), moe_cfg, 1.0,
+                          [("sparse", "sparse", "w_ring")]),
 }
-for case, (mshape, layout, (seq, gb), modes) in runs.items():
+for case, (mshape, layout, (seq, gb), c, aux, modes) in runs.items():
     mesh = make_test_mesh(mshape)
     shape = ShapeConfig(case, seq, gb, "train")
     for name, asked, w_key in modes:
         tcfg = TrainConfig(agent_layout=layout, gossip=asked, microbatch=2,
-                           learning_rate=0.05)
+                           learning_rate=0.05, moe_aux_weight=aux)
         with compat.set_mesh(mesh):
-            art = build_train_artifacts(cfg, tcfg, shape, mesh, inputs[w_key])
+            art = build_train_artifacts(c, tcfg, shape, mesh, inputs[w_key])
             step = art.jit(donate=False)
             state = art.init_state(jax.random.key(0))
             for p, a in paths(state["params"]):
@@ -208,12 +217,16 @@ def _make_inputs(path: pathlib.Path) -> dict:
     key = jax.random.split(jax.random.key(0), m)[0]
     for p, a in tree_paths(jax.tree.map(np.asarray, jmodel.init(JCFG, key))):
         out[f"init/{p}"] = a
-    stream = SyntheticTokenStream(DataConfig(
-        vocab_size=JCFG.vocab_size, seq_len=16, num_agents=m, seed=1))
+    for p, a in tree_paths(jax.tree.map(np.asarray,
+                                        jmodel.init(JMOE_CFG, key))):
+        out[f"init_moe/{p}"] = a
     for case, (_, _, gb, _) in rank_script.TRAIN_SHAPES.items():
+        c = JMOE_CFG if case == "train_data_dp_moe" else JCFG
+        stream = SyntheticTokenStream(DataConfig(
+            vocab_size=c.vocab_size, seq_len=16, num_agents=m, seed=1))
         shapes = jtrain._batch_shapes(
-            JCFG, jbase.ShapeConfig(case, 16, gb, "train"), m, 2)
-        batch_fn = make_batch_fn(stream, shapes, JCFG.vocab_size)
+            c, jbase.ShapeConfig(case, 16, gb, "train"), m, 2)
+        batch_fn = make_batch_fn(stream, shapes, c.vocab_size)
         for k in range(rank_script.STEPS):
             out[f"tokens/{case}/{k}"] = batch_fn(k)["tokens"]
     for b in rank_script.SERVE_BATCHES:
@@ -338,7 +351,7 @@ def _train_errors(ref: dict, ranks: list, case: str, name: str,
             assert w.keys() == g.keys()
             for k in w:
                 limit = STATE_ATOL
-                if case == "train_data_dp" and part == "momentum":
+                if case.startswith("train_data_dp") and part == "momentum":
                     # one bf16 ulp of the leaf's largest gradient more
                     limit += 2.0**-7 * float(np.abs(w[k][a]).max())
                 errs[part] = max(errs[part], float(
@@ -347,13 +360,15 @@ def _train_errors(ref: dict, ranks: list, case: str, name: str,
 
 
 TRAIN_RUNS = [("train_data", "sparse"), ("train_data", "dense"),
-              ("train_data", "allreduce"), ("train_data_dp", "sparse")]
+              ("train_data", "allreduce"), ("train_data_dp", "sparse"),
+              ("train_data_dp_moe", "sparse")]
 
 
 @pytest.mark.parametrize("case,name", TRAIN_RUNS)
 def test_train_mesh_matches_jax(runs, case, name):
     given, ref, ranks = runs
-    for k, v in _section(given, "init/").items():   # the same start
+    init = "init_moe/" if case == "train_data_dp_moe" else "init/"
+    for k, v in _section(given, init).items():   # the same start
         np.testing.assert_array_equal(ref[f"{case}/{name}/init/{k}"], v)
     for out in ranks[case]:
         assert str(out[f"{name}/resolved"]) == name
@@ -364,7 +379,8 @@ def test_train_mesh_matches_jax(runs, case, name):
 
 
 TRAIN_FAULTS = [(case, "sparse", fault) for case in ("train_data",
-                                                     "train_data_dp")
+                                                     "train_data_dp",
+                                                     "train_data_dp_moe")
                 for fault in CASES[case][1]]
 
 
@@ -381,12 +397,21 @@ UNPORTED = ["pod", "serve 2-D at data 2",
 
 @pytest.mark.parametrize("what", UNPORTED)
 def test_unported_layouts_raise(runs, what):
-    """What ROADMAP A7b(ii) has still to port raises naming it (the data
-    layout and serving at model 2 run: tests/test_torch_multirank_tp.py)."""
+    """What the parent refused as ROADMAP A7b(ii) now builds on a
+    ``DeviceMesh`` — the ``pod`` layout at (4, 2) and serving's 2-D
+    tensor parallelism for Mixtral-8x7B at (2, 4), each with leaves over
+    "data" — and a spec naming "data" twice is refused by ``shard_tree``
+    with a ``ValueError`` naming the axis (the runs themselves:
+    tests/test_torch_multirank_pod.py)."""
     _, _, ranks = runs
     i = UNPORTED.index(what)
     for out in ranks["train_data_dp"]:
-        assert "A7b(ii)" in str(out["unported_raise"][i])
+        got = str(out["unported_raise"][i])
+        if i < 2:
+            assert got.startswith("built, ") and not got.startswith(
+                "built, 0 "), got
+        else:
+            assert "uses the axis 'data' twice" in got, got
 
 
 # ---------------------------------------------------------------------------

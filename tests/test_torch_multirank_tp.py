@@ -435,18 +435,24 @@ def test_unit_expert_choices_agree_across_ranks(runs):
 
 @pytest.mark.parametrize("fn", ["copy_to_tp", "reduce_from_tp",
                                 "gather_from_tp", "reduce_max_from_tp",
-                                "take", "carry"])
+                                "take", "carry", "gather_from_fsdp",
+                                "gather_fsdp", "batch_mean"])
 def test_without_hints_the_tp_functions_return_their_input(fn):
     x = torch.randn(4, 6, requires_grad=True)
     if fn == "gather_from_tp":
         assert sh.gather_from_tp(x, -1) is x
+    elif fn == "gather_from_fsdp":
+        assert sh.gather_from_fsdp(x, 0) is x
+    elif fn == "gather_fsdp":
+        tree = {"kernel": x}
+        assert sh.gather_fsdp(tree, "blocks", lead=1) is tree
     elif fn == "take":
         assert sh.take(x, -1, 0, 6, 6, True) is x
     elif fn == "carry":
         assert sh.carry(len) is len
     else:
         assert getattr(sh, fn)(x) is x
-    assert sh.tp() is None
+    assert sh.tp() is None and sh.dp() is None
 
 
 @pytest.mark.parametrize("what", ["loss", "grads", "prefill", "decode"])

@@ -13,6 +13,7 @@ reference's `constrain` with its `with_sharding_constraint` recorded),
 """
 
 import functools
+import itertools
 
 import jax
 import numpy as np
@@ -124,7 +125,7 @@ def test_cache_specs_match(arch, mesh_name, shape):
 
 
 # ---------------------------------------------------------------------------
-# require_whole_over: "model" splits pass, "data"/"pod" splits raise
+# Splits over "data": what each build splits, and the parts tiling it
 # ---------------------------------------------------------------------------
 
 
@@ -137,34 +138,49 @@ def _over_data(specs, tm, from_dim: int) -> bool:
         if a is not None)
 
 
+def _assert_tiled(tree, specs, tm) -> None:
+    """The parts ``shard_tree`` gives every coordinate of ``tm`` tile each
+    leaf: as many distinct blocks (by storage offset) as the product of
+    the axes its spec names, all of one shape, covering it exactly."""
+    names, sizes = mesh.axis_names(tm), mesh.axis_sizes(tm)
+    parts: dict = {}
+    for fixed in itertools.product(*(range(sizes[a]) for a in names)):
+        local = sharding.shard_tree(tree, specs, tm, dict(zip(names, fixed)))
+        for path, leaf in tree_paths(local):
+            parts.setdefault(path, set()).add(
+                (leaf.storage_offset(), tuple(leaf.shape)))
+    for (path, leaf), (_, spec) in zip(tree_paths(tree), tree_paths(specs)):
+        n = int(np.prod([sizes[a] for e in spec if e is not None
+                         for a in (e if isinstance(e, tuple) else (e,))]))
+        shapes = {shape for _, shape in parts[path]}
+        assert len(parts[path]) == n and len(shapes) == 1, (path, spec)
+        assert int(np.prod(shapes.pop())) * n == leaf.numel(), (path, spec)
+
+
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("kind", ["data", "pod", "serve"])
 @pytest.mark.parametrize("arch", base.ARCH_IDS)
 def test_require_whole_over(arch, kind, mesh_name):
-    """The ``data`` layout splits inner dims over "model" alone and
-    passes; the ``pod`` layout (FSDP over "data") raises naming A7b(ii);
-    serving passes for 1-D tensor parallelism and raises for the 2-D form
-    on a ``data`` axis larger than 1."""
+    """What each build splits over "data"/"pod" past the agent dim: the
+    ``data`` layout nothing (inner dims over "model" alone), the ``pod``
+    layout always (FSDP and EP), serving only where its rule picks 2-D
+    tensor parallelism (bf16 weights over 8 GB a "model" rank); and the
+    local parts ``shard_tree`` gives every coordinate tile each leaf."""
     _, tm = _meshes(mesh_name)
+    cfg, sizes = base.get_config(arch), mesh.axis_sizes(tm)
     if kind == "serve":
-        specs = sharding.param_specs_serve(_serve_shapes(arch)[1], tm,
-                                           base.get_config(arch))
+        tree = _serve_shapes(arch)[1]
+        specs = sharding.param_specs_serve(tree, tm, cfg)
         from_dim = 0
+        want = model.parameter_count(cfg) * 2 / sizes["model"] > 8e9
     else:
         m = mesh.num_agents(tm, kind)
-        specs = sharding.param_specs_train(_train_shapes(arch, m)[1], tm,
-                                           kind)
+        tree = _train_shapes(arch, m)[1]
+        specs = sharding.param_specs_train(tree, tm, kind)
         from_dim = 1
-    over = _over_data(specs, tm, from_dim)
-    if kind == "data":
-        assert not over
-    if kind == "pod":
-        assert over
-    if over:
-        with pytest.raises(NotImplementedError, match=r"A7b\(ii\)"):
-            sharding.require_whole_over(specs, tm, from_dim=from_dim)
-    else:
-        sharding.require_whole_over(specs, tm, from_dim=from_dim)
+        want = kind == "pod"
+    assert _over_data(specs, tm, from_dim) == want
+    _assert_tiled(tree, specs, tm)
 
 
 # ---------------------------------------------------------------------------
