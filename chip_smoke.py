@@ -60,6 +60,19 @@ points a user calls:
   re-mapped on the card by ``shrink_state``/``grow_state``; the trail held
   to the JAX service's, int8 and top-k compression of one agent held to
   the CPU's, the kernel held at every membership;
+* the paper's trainer example — ``examples/train_dfl_torch.py`` run as a
+  user runs it (8 agents at its default width, 40 steps, agent 2 failing
+  at step 20, every round priced by stochastic rollouts on the card): the
+  log's wall-clock the running sum of τ, the redesign at m = 7 with ρ < 1,
+  one combine launch a parameter leaf a step;
+* the dry run — ``launch/dryrun.run_cell`` on fake CUDA tensors over a
+  fake process group of 256 ranks for Qwen2-0.5B and Mixtral-8x7B's
+  training cells and Mixtral's decode cell (traced in a process started
+  after the build on a core of its own, beside the other phases), then
+  rank 0's step of two of them for real on the card under the same fake
+  group: its peak memory, kernel launches and collective bytes held to the
+  fake pass's, and its peak when every op passes through Python's
+  dispatch (as in the fake pass) held closer;
 * design — the paper instance designed by the port's designer on the
   card (clique, ring, prim, FMMD-WP, SCA; every weight optimization in
   float64 on the card), held to the JAX designer's supports and τ; the
@@ -110,7 +123,8 @@ Output: one JSON object per phase (``device``, ``build``,
 MusicGen ``served_attention`` (not xLSTM), ``serve_check`` (Jamba float32
 at 2 layers), ``serve_<model>``, ``serve_<model>_step``, ``serve_check``
 and ``serve_<model>_total``,
-``attention_main_shapes``, ``ffma_times``), then the
+``attention_main_shapes``, ``ffma_times``, ``example``, ``dryrun``), then
+the
 line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
 then
@@ -123,6 +137,7 @@ version's time and one library call's), and last ``{"ok": true,
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import datetime
 import functools
@@ -130,6 +145,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -140,6 +156,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import compat
 from repro_torch.configs import (
@@ -179,6 +196,7 @@ from repro_torch.data.synthetic import DataConfig, SyntheticTokenStream
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import mixing_combine as mixing_mod
 from repro_torch.launch import fabric, serve, sharding, train
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import (
@@ -211,17 +229,19 @@ from repro_torch.optim import sgd
 from repro_torch.paper import fig5_training
 from repro_torch.paper import priced_training as paper_gate
 from repro_torch.paper import scenario as paper
+from repro_torch.roofline import analysis as roofline
 from repro_torch.runtime import compression, design_service
 from repro_torch.runtime.events import AgentJoin, AgentLeave, LinkStateChange
 from repro_torch.runtime.fault_tolerance import grow_state, shrink_state
 from repro_torch.runtime.faultinject import FaultInjector, FaultPlan
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): the roofline the
-# kernels' bounds are stated against.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+# Published peaks of one H100 SXM (NVIDIA's data sheet, as the roofline
+# model holds them: roofline.analysis.H100): the roofline the kernels'
+# bounds are stated against.
+PEAK_BYTES_PER_S = roofline.H100.hbm_bytes_per_s
+PEAK_FP32_FLOPS = roofline.H100_FP32_FLOPS
+PEAK_BF16_FLOPS = roofline.H100.flops
 # Results a clock of one SM's MUFU, the unit that computes ex2 and tanh:
 # 16 on compute capability 9.0 (the CUDA C++ Programming Guide's table of
 # arithmetic instruction throughput, "32-bit floating-point reciprocal,
@@ -1581,10 +1601,8 @@ def combine_times(x: torch.Tensor, g: torch.Tensor, plan, lr: float) -> dict:
     library_ms = time_cuda(
         lambda: torch.addmm(g, w_dense, x, beta=-lr), reps=TIMING_REPS)
     r = plan.idx.shape[1]
-    moved = (x.numel() * x.element_size() + g.numel() * g.element_size()
-             + x.numel() * x.element_size()
-             + plan.idx.numel() * 4 + plan.weights.numel() * 4)
-    flops = x.numel() * (2 * (r + 1) + 1)
+    work = mixing_mod.stacked_work(x, plan.idx, plan.weights, g)
+    moved, flops = work["bytes"], work["flops"]
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return {
@@ -1739,9 +1757,8 @@ def no_g_times(leaf: torch.Tensor, plan) -> dict:
     # One PyTorch call for the same mix with a dense W: a yardstick only.
     library_ms = time_cuda(lambda: torch.mm(w_dense, x), reps=TIMING_REPS)
     r = plan.idx.shape[1]
-    moved = (2 * x.numel() * x.element_size()      # x read once, out written
-             + plan.idx.numel() * 4 + plan.weights.numel() * 4)
-    flops = x.numel() * 2 * (r + 1)
+    work = mixing_mod.stacked_work(x, plan.idx, plan.weights, None)
+    moved, flops = work["bytes"], work["flops"]
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return {
@@ -2040,8 +2057,8 @@ def hold_per_agent_combine(seed: int, n: int, w_row, what: str) -> dict:
     library_ms = time_cuda(
         lambda: torch.addmm(x_row, w_bf[None, 1:], recv, beta=w0),
         reps=TIMING_REPS)
-    moved = (r + 2) * n * x.element_size() + weights.numel() * 4
-    flops = 2 * (r + 1) * n
+    work = mixing_mod.work(x, r, False)
+    moved, flops = work["bytes"], work["flops"]
     t_bytes = moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     out = {
@@ -4826,18 +4843,6 @@ def library_attention(q, k, v, causal: bool):
         )
 
 
-def live_pairs(q, window=None) -> int:
-    """Live causal (window) (query, key) pairs of ``q [B,H,Sq,D]`` with
-    Sk == Sq, over every batch entry and head."""
-    b, h, sq, _ = q.shape
-    return b * h * sum(min(i + 1, window or i + 1) for i in range(sq))
-
-
-def flash_flops(q, window=None) -> int:
-    """4·D flops per live causal (window) (query, key) pair."""
-    return 4 * q.shape[-1] * live_pairs(q, window)
-
-
 @functools.lru_cache(maxsize=None)
 def mufu_per_s() -> float:
     """MUFU results a second of torch's device 0: MUFU_PER_CLOCK_PER_SM x
@@ -4884,15 +4889,15 @@ def flash_bound(q, k, window=None, softcap=None) -> dict:
     the memory rate (``"bytes"``). ``bound_by`` is "operations" or
     "bytes", ``bound_unit`` the one of the three that binds; all three are
     in ``bound_ms_by``."""
-    pairs = live_pairs(q, window)
+    work = flash_mod.work(q, k, True, window)
     bf16 = q.dtype == torch.bfloat16
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     times = {
         "tensor" if bf16 else "ffma":
-            4 * q.shape[-1] * pairs
-            / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) * 1e3,
-        "mufu_ex2_f32": pairs * (2 if softcap else 1) / mufu_per_s() * 1e3,
-        "bytes": moved / PEAK_BYTES_PER_S * 1e3,
+            work["flops"] / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+            * 1e3,
+        "mufu_ex2_f32":
+            work["pairs"] * (2 if softcap else 1) / mufu_per_s() * 1e3,
+        "bytes": work["bytes"] / PEAK_BYTES_PER_S * 1e3,
     }
     unit = max(times, key=times.get)
     return {"bound_ms": times[unit],
@@ -4910,9 +4915,8 @@ def bound_shares(bound: dict, ms: float) -> dict:
 
 def decode_bound(q, k, length: int) -> tuple[float, str]:
     """Least ms: K and V up to ``length`` plus q and o moved once."""
-    b, kv, _, d = k.shape
-    moved = (2 * b * kv * length * d + 2 * q.numel()) * q.element_size()
-    return moved / PEAK_BYTES_PER_S * 1e3, "bytes"
+    return (decode_mod.work(q, k, length)["bytes"] / PEAK_BYTES_PER_S * 1e3,
+            "bytes")
 
 
 def tile_dropped_plain(q, k, v, length: int, start: int,
@@ -5145,7 +5149,9 @@ def time_flash_layer(q, k, v, window=None, softcap=None) -> dict:
                    reps=TIMING_REPS)
     bound = flash_bound(q, k, window, softcap)
     return {"ms": ms, **bound, **bound_shares(bound, ms),
-            "live_tflops_per_s": flash_flops(q, window) / (ms * 1e-3) / 1e12}
+            "live_tflops_per_s":
+                flash_mod.work(q, k, True, window)["flops"] / (ms * 1e-3)
+                / 1e12}
 
 
 def gemma2_inputs(gen, batch: int):
@@ -5238,7 +5244,8 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
         "library_call": "scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), flash backend",
         "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": "bf16"},
-        "live_tflops_per_s": flash_flops(q) / (flash_ms * 1e-3) / 1e12,
+        "live_tflops_per_s":
+            flash_mod.work(q, k)["flops"] / (flash_ms * 1e-3) / 1e12,
         "ms_over_library_ms": flash_ms / flash_lib_ms,
         "plain_note": f"plain version run request by request, {SERVE_BATCH} calls",
     }
@@ -5267,7 +5274,8 @@ def phase_attention_kernels(seed: int, serve_run: dict | None = None,
         "max_abs_err": res["max_abs_err"], "ms": ms128,
         "library_ms": lib128, **bound128,
         **bound_shares(bound128, ms128),
-        "live_tflops_per_s": flash_flops(q) / (ms128 * 1e-3) / 1e12,
+        "live_tflops_per_s":
+            flash_mod.work(q, k)["flops"] / (ms128 * 1e-3) / 1e12,
         "ms_over_library_ms": ms128 / lib128,
     }]
     del q, k, v
@@ -5492,6 +5500,328 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
     return out
 
 
+# The dry run on the card: rank 0 of the 16 x 16 mesh over a fake process
+# group, on fake CUDA tensors (launch/dryrun.py), for three cells; the
+# cells whose fake peak is under DRYRUN_REAL_UNDER also run rank 0's step
+# for real on the card under the same fake group.
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("mixtral-8x7b", "train_4k"),
+                ("mixtral-8x7b", "decode_32k"))
+DRYRUN_REAL = (("qwen2-0.5b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+DRYRUN_REAL_UNDER = 60e9         # bytes of fake peak a real step may take
+DRYRUN_PEAK_RATIO = (0.8, 1.25)  # real max_memory_allocated / fake peak
+# the same, the real step run under PassThrough (every op through Python)
+DRYRUN_MODE_PEAK_RATIO = (0.95, 1.05)
+DRYRUN_TIMEOUT_S = 1200     # the whole script's limit
+# examples/train_dfl_torch.py on the card: 8 agents at the default width
+EXAMPLE_ARGS = ("--steps", "40", "--fail-agent-at", "20", "--ckpt-every",
+                "10", "--pricing", "stochastic", "--engine", "torch")
+EXAMPLE_TIMEOUT_S = 600
+
+
+class PassThrough(TorchDispatchMode):
+    """Every op through Python's dispatch and on unchanged. A fake pass
+    runs under such modes (``FakeTensorMode``, ``dryrun.StepCount``), and
+    under one autograd sums the gradients of a tensor used more than once
+    out of place: the real step run under this mode has the memory that
+    the fake pass counts."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def reserve_core() -> int | None:
+    """Keep the last CPU this process may run on for the ``dryrun``
+    phase's worker: every thread of this process, and so every process it
+    starts later, runs on the others, and the worker's fake passes share
+    no core with the phases timed on the host clock meanwhile. None on a
+    host with one CPU."""
+    cpus = sorted(os.sched_getaffinity(0))
+    if len(cpus) < 2:
+        return None
+    for tid in os.listdir("/proc/self/task"):
+        os.sched_setaffinity(int(tid), cpus[:-1])
+    return cpus[-1]
+
+
+def dryrun_worker(work: str, seed: int) -> None:
+    """The ``dryrun`` phase's process (``--dryrun-worker DIR``, started by
+    ``start_dryrun`` after the build on the core ``reserve_core`` kept,
+    on the host while the other phases run): the fake passes of ``DRYRUN_CELLS`` first (``fake.json``);
+    then, once ``DIR/go`` exists, rank 0's step of each ``DRYRUN_REAL``
+    cell for real on the card (``real.json``), each new local shape of an
+    attention kernel held once against its plain version (decode with
+    N(0, 1) values in the cache's layout and every slot valid). Leaves
+    when its parent does."""
+    from repro_torch.launch import dryrun
+
+    parent = os.getppid()
+    records = [dryrun.run_cell(arch, shape, False)
+               for arch, shape in DRYRUN_CELLS]
+    with open(os.path.join(work, "fake.json"), "w") as f:
+        json.dump(records, f)
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    while not os.path.exists(os.path.join(work, "go")):
+        if os.getppid() != parent or time.monotonic() > deadline:
+            raise SystemExit("dryrun worker: no go from chip_smoke.py")
+        time.sleep(0.5)
+    real, held = {}, []
+    for rec in records:
+        if (rec["arch"], rec["shape"]) not in DRYRUN_REAL or \
+                rec["status"] != "ok" or \
+                rec["memory"]["peak"] >= DRYRUN_REAL_UNDER:
+            continue
+        dm = dryrun.open_mesh(False)
+        cell = dryrun.build_cell(rec["arch"], rec["shape"], False, dm)
+        seen = {}
+        spies = {name: getattr(ops, name)
+                 for name in ("flash_attention", "decode_attention")}
+
+        def spy(name):
+            def call(q, k, v, *args, **kwargs):
+                key = (name, tuple(q.shape), tuple(k.shape), str(q.dtype))
+                if key not in seen:
+                    seen[key] = (q.clone(), k.clone(), v.clone(), [
+                        a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args], kwargs)
+                return spies[name](q, k, v, *args, **kwargs)
+            return call
+
+        for name in spies:
+            setattr(ops, name, spy(name))
+        got = dryrun.real_pass(cell, seed)
+        for name, fn in spies.items():
+            setattr(ops, name, fn)
+        with PassThrough():
+            got["peak_pass_through"] = dryrun.real_pass(cell, seed)["peak"]
+        torch.distributed.destroy_process_group()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for (name, qs, ks, dt), (q, k, v, args, kwargs) in seen.items():
+            what = f"dryrun {rec['arch']} {rec['shape']} {name} q={list(qs)}"
+            if name == "decode_attention":
+                # the step's caches were empty: held with N(0, 1) values in
+                # its layouts, every slot of the cache valid
+                q, k, v = (torch.empty_like(t).normal_(generator=gen)
+                           for t in (q, k, v))
+                what += f" length={k.shape[2]}"
+                res, _ = check_decode(what, q, k, v, k.shape[2],
+                                      scaled=True, **kwargs)
+            else:
+                res, _ = check_flash(what, q, k, v,
+                                     requests=(0, q.shape[0] - 1), **kwargs)
+            held.append({"kernel": name, "case": what, "q": list(qs),
+                         "k": list(ks), "dtype": dt, **res})
+        del seen
+        real[f"{rec['arch']} x {rec['shape']}"] = got
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, "real.json"), "w") as f:
+        json.dump({"real": real, "held": held,
+                   "cpus": sorted(os.sched_getaffinity(0))}, f)
+
+
+def start_dryrun(seed: int, core: int | None):
+    """Start the ``dryrun`` phase's process, on ``core`` alone where one
+    was kept for it; ``phase_dryrun`` finishes it. It is killed when this
+    script exits."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    log = open(os.path.join(work, "worker.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-worker", work,
+         "--seed", str(seed)], stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    if core is not None:
+        # the interpreter is still starting: the threads it makes later
+        # inherit its main thread's CPUs
+        os.sched_setaffinity(proc.pid, {core})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, work
+
+
+def phase_dryrun(started) -> dict:
+    """``launch/dryrun.run_cell`` on fake CUDA tensors for
+    ``DRYRUN_CELLS`` at 256 ranks (each must end ``ok``); then rank 0's
+    step for real on the card for ``DRYRUN_REAL``: its peak within
+    ``DRYRUN_PEAK_RATIO`` of the fake pass's, its kernel launches by
+    design and collective bytes by kind equal to the fake pass's."""
+    proc, work = started
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "go"), "w"):
+        pass
+    try_until = time.monotonic() + DRYRUN_TIMEOUT_S
+    while proc.poll() is None and time.monotonic() < try_until:
+        time.sleep(0.5)
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    with open(os.path.join(work, "worker.log")) as f:
+        log = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the worker exited {proc.returncode}"
+                             f"\n{log[-4000:]}")
+    with open(os.path.join(work, "fake.json")) as f:
+        records = json.load(f)
+    with open(os.path.join(work, "real.json")) as f:
+        got = json.load(f)
+    shutil.rmtree(work, ignore_errors=True)
+    for rec in records:
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {rec['arch']} x {rec['shape']}: "
+                                 f"{rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')}")
+    cells = {}
+    for rec in records:
+        key = f"{rec['arch']} x {rec['shape']}"
+        cell = {"trace_s": rec["trace_s"], "memory": rec["memory"],
+                "cost_flops": rec["cost_flops"],
+                "kernel_flops": rec["kernel_flops"],
+                "collectives": rec["collectives"],
+                "launches": rec["launches"],
+                "roofline": {k: rec["roofline"][k] for k in (
+                    "compute_s", "memory_s", "collective_s", "dominant",
+                    "bound_s", "roofline_fraction",
+                    "collective_bytes_per_chip")}}
+        if (rec["arch"], rec["shape"]) in DRYRUN_REAL:
+            real = got["real"].get(key)
+            if real is None:
+                raise AssertionError(f"dryrun {key}: no real rank-0 run "
+                                     f"(fake peak {rec['memory']['peak']})")
+            ratio = real["peak"] / rec["memory"]["peak"]
+            if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+                raise AssertionError(
+                    f"dryrun {key}: real peak {real['peak']} over fake "
+                    f"{rec['memory']['peak']} = {ratio}")
+            if real["launches"] != rec["launches"] or \
+                    real["collectives"] != rec["collectives"]:
+                raise AssertionError(
+                    f"dryrun {key}: real {real['launches']} "
+                    f"{real['collectives']} vs fake {rec['launches']} "
+                    f"{rec['collectives']}")
+            if real["parameters"] != rec["memory"]["parameters"]:
+                raise AssertionError(f"dryrun {key}: parameter bytes")
+            through = real["peak_pass_through"] / rec["memory"]["peak"]
+            if not DRYRUN_MODE_PEAK_RATIO[0] <= through <= \
+                    DRYRUN_MODE_PEAK_RATIO[1]:
+                raise AssertionError(
+                    f"dryrun {key}: real peak under PassThrough "
+                    f"{real['peak_pass_through']} over fake "
+                    f"{rec['memory']['peak']} = {through}")
+            cell["real"] = {"peak": real["peak"], "peak_ratio": ratio,
+                            "peak_pass_through": real["peak_pass_through"],
+                            "peak_pass_through_ratio": through,
+                            "step_seconds": real["seconds"]}
+        cells[key] = cell
+    seconds = time.perf_counter() - t0
+    emit("dryrun", seconds_after_go=seconds, cells=cells,
+         held=got["held"], worker_cpus=got["cpus"],
+         smoke_cpus=sorted(os.sched_getaffinity(0)))
+    return {"cells": cells, "held": got["held"]}
+
+
+_EXAMPLE_HOOK = """
+import json, runpy, sys, time
+import torch
+from repro_torch import core
+from repro_torch.core import mixing
+from repro_torch.kernels import ops
+from repro_torch.runtime import fault_tolerance
+from repro_torch.tree import tree_leaves
+script, report, *args = sys.argv[1:]
+out = {"step_ms": [], "leaves": [], "redesigns": []}
+real_make = core.make_dpsgd_step
+real_handle = fault_tolerance.FaultToleranceController.handle_failures
+
+
+def make(*a, **k):
+    step = real_make(*a, **k)
+
+    def timed(params, batch, plan, i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = step(params, batch, plan, i)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["leaves"].append(len(tree_leaves(params)))
+        return got
+    return timed
+
+
+def handle(self, *a, **k):
+    got = real_handle(self, *a, **k)
+    out["redesigns"].append({"m": int(got[1].shape[0]),
+                             "rho": float(mixing.rho(got[1]))})
+    return got
+
+
+core.make_dpsgd_step = make
+fault_tolerance.FaultToleranceController.handle_failures = handle
+sys.argv = [script, *args]
+runpy.run_path(script, run_name="__main__")
+out["launches"] = ops.launch_count("mixing_sgd_combine")
+with open(report, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def phase_example() -> dict:
+    """``examples/train_dfl_torch.py`` on the card as a user runs it
+    (``EXAMPLE_ARGS``: 8 agents at the default width, agent 2 failing at
+    step 20, priced by stochastic rollouts on the card), its step timed
+    and its redesign and launches read by a hook around the script: the
+    log's wall-clock the running sum of τ, bitwise; the redesign at m = 7
+    with ρ < 1; one ``mixing_sgd_combine`` launch a parameter leaf a
+    step."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        report, log = os.path.join(work, "hook.json"), os.path.join(
+            work, "log.json")
+        env = {**os.environ, "TMPDIR": work, "PYTHONPATH": os.path.join(
+            root, "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _EXAMPLE_HOOK,
+             os.path.join(root, "examples", "train_dfl_torch.py"), report,
+             *EXAMPLE_ARGS, "--log-json", log],
+            capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S,
+            env=env, cwd=root)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"example exited {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        with open(report) as f:
+            hook = json.load(f)
+        with open(log) as f:
+            records = json.load(f)["records"]
+    steps = int(EXAMPLE_ARGS[EXAMPLE_ARGS.index("--steps") + 1])
+    wall = 0.0
+    for r in records:
+        wall += r["tau"]
+        if r["wall_clock"] != wall:
+            raise AssertionError(f"example: round {r['step']} wall-clock "
+                                 f"{r['wall_clock']} != running sum {wall}")
+    redesign = hook["redesigns"]
+    if [d["m"] for d in redesign] != [7] or not redesign[0]["rho"] < 1:
+        raise AssertionError(f"example: redesigns {redesign}")
+    if len(records) != steps or hook["launches"] != sum(hook["leaves"]) or \
+            len(hook["leaves"]) != steps:
+        raise AssertionError(
+            f"example: {hook['launches']} launches for leaves "
+            f"{hook['leaves']} over {len(records)} rounds")
+    if not all(math.isfinite(r["loss"]) for r in records):
+        raise AssertionError("example: a loss is not finite")
+    out = {"seconds": seconds, "step_ms": hook["step_ms"],
+           "step_ms_median": float(np.median(hook["step_ms"][1:])),
+           "loss_step0": records[0]["loss"],
+           "loss_last": records[-1]["loss"],
+           "launches": hook["launches"], "leaves_per_step": hook["leaves"][0],
+           "redesign": redesign[0],
+           "designs": sorted({r["design"] for r in records}),
+           "modeled_wall_s": records[-1]["wall_clock"],
+           "stdout_tail": proc.stdout.strip().splitlines()[-6:]}
+    emit("example", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5505,6 +5835,8 @@ def main(argv=None) -> int:
     # started by run_tp_ranks
     ap.add_argument("--tp-rank", nargs=3, metavar=("PHASE", "RANK", "DIR"),
                     help=argparse.SUPPRESS)
+    # the dryrun phase's process, started by start_dryrun
+    ap.add_argument("--dryrun-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5515,10 +5847,15 @@ def main(argv=None) -> int:
         phase, rank, work = args.tp_rank
         tp_rank_main(phase, int(rank), work, args.seed)
         return 0
+    if args.dryrun_worker is not None:
+        dryrun_worker(args.dryrun_worker, args.seed)
+        return 0
 
     t_start = time.perf_counter()
+    dryrun_core = reserve_core()
     smi = phase_device()
     phase_build()
+    dryrun_started = start_dryrun(args.seed, dryrun_core)
     checked = phase_kernel_check(args.seed)
     phase_attention_check(args.seed)
     phase_small_reference(args.seed)
@@ -5626,6 +5963,13 @@ def main(argv=None) -> int:
     ffma = phase_ffma_times(args.seed, checks)
     kernels[1]["ffma"] = ffma["flash_attention"]
     kernels[2]["ffma"] = ffma["decode_attention"]
+    phase_example()
+    dry = phase_dryrun(dryrun_started)
+    for held in dry["held"]:
+        entry = kernels[1] if held["kernel"] == "flash_attention" \
+            else kernels[2]
+        entry.setdefault("shapes", []).append(held)
+        entry["max_abs_err"] = max(entry["max_abs_err"], held["max_abs_err"])
     for kernel in kernels:
         if kernel["launches"] < 1:
             raise AssertionError(

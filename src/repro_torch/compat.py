@@ -9,6 +9,7 @@ package's ``core/dpsgd.py``), and TF32 keeps about three decimal digits.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -41,6 +42,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensor`` (``FakeTensorMode``: shapes,
+    dtypes and devices, no data), as the dry run (``launch/dryrun.py``)
+    hands the kernel wrappers: they give it the kernel path's output
+    layout, count the launch and launch nothing."""
+    return isinstance(t, FakeTensor)
 
 
 def dtype_of(name: str | torch.dtype) -> torch.dtype:

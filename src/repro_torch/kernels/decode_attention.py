@@ -37,7 +37,11 @@ The output is ``[B, H, 1, D]``, laid out as ``[B, 1, H, D]``.
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
 CUDA tensor launches the design's kernel or raises (also when the build
 fails). Every call on the card adds one to ``launch_count()`` and to its
-design's entry of ``launch_count_by_design()``.
+design's entry of ``launch_count_by_design()``. A fake CUDA tensor
+(``compat.is_fake``, the dry run) gets the kernel's output layout and
+launches nothing, since it holds no data: the call adds one to
+``fake_calls_by_design()`` under the design a real call would launch, and
+its FLOPs (``work``) to ``fake_flops()``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import math
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS,
@@ -69,6 +74,9 @@ FFMA_TILE, FFMA_TILE_D16 = 32, 64
 WAVE_FILL = 0.95   # split_plan: the least share of its last wave a plan fills
 
 _launches = dict.fromkeys(DESIGNS, 0)
+# Calls on fake tensors (the dry run), by the design a real call would
+# launch, and the FLOPs they stand for; none of them launched anything.
+_fake = {"calls": dict.fromkeys(DESIGNS, 0), "flops": 0}
 _bound: dict[str, tuple] = {}
 _sm_counts: dict[int, int] = {}
 _resident: dict[tuple, int] = {}
@@ -88,6 +96,39 @@ def launch_count_by_design() -> dict[str, int]:
 def reset_launch_count() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def fake_calls_by_design() -> dict[str, int]:
+    """Calls on fake tensors so far (``compat.is_fake``), none of which
+    launched, by the design a real call would have launched."""
+    return dict(_fake["calls"])
+
+
+def fake_flops() -> int:
+    """The FLOPs (``work``) that those calls stand for."""
+    return _fake["flops"]
+
+
+def reset_fake_calls() -> None:
+    for name in _fake["calls"]:
+        _fake["calls"][name] = 0
+    _fake["flops"] = 0
+
+
+def _fake_call(name: str, flops: int) -> None:
+    _fake["calls"][name] += 1
+    _fake["flops"] += flops
+
+
+def work(q: torch.Tensor, k: torch.Tensor, length: int) -> dict:
+    """``{"flops", "bytes"}`` of one launch on ``q [B,H,1,D]`` against
+    ``k``/``v [B,KV,S,D]`` up to ``length`` slots: 4·D FLOPs a (head,
+    slot) pair (Q·Kᵀ and P·V), and K and V up to ``length`` plus q and o
+    moved once."""
+    b, kv, _, d = k.shape
+    return {"flops": 4 * d * q.shape[1] * b * length,
+            "bytes": (2 * b * kv * length * d + 2 * q.numel())
+            * q.element_size()}
 
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
@@ -257,6 +298,9 @@ def decode_attention(
         return ref.decode_attention_ref(q, k, v, length, softcap=softcap)
     if b * kv > MAX_GRID_Y:
         raise ValueError(f"B*KV = {b * kv} exceeds the grid limit {MAX_GRID_Y}")
+    # A fake call's FLOPs at the cache's depth where length is a tensor
+    # (it holds no value to read).
+    depth = s if isinstance(length, torch.Tensor) else length
     if not isinstance(length, torch.Tensor):
         length = torch.full((), length, dtype=torch.int32, device=q.device)
     len_stride = length.stride(0) if length.dim() == 1 and b > 1 else 0
@@ -265,6 +309,9 @@ def decode_attention(
     if out.numel() == 0:
         return out
     name = design(q.dtype, d)
+    if compat.is_fake(q):
+        _fake_call(name, work(q, k, depth)["flops"])
+        return out
     tile = tile_slots(q.dtype, d)
     tiles, splits = split_plan(
         b, kv, s, _sm_count(q.device),

@@ -26,7 +26,11 @@ transposed view of a contiguous tensor) so that the model reshapes it to
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
 CUDA tensor launches the design's kernel or raises (also when the build
 fails). Every launch adds one to ``launch_count()`` and to its design's
-entry of ``launch_count_by_design()``.
+entry of ``launch_count_by_design()``. A fake CUDA tensor
+(``compat.is_fake``, the dry run) gets the kernel's output layout and
+launches nothing, since it holds no data: the call adds one to
+``fake_calls_by_design()`` under the design a real call would launch, and
+its FLOPs (``work``) to ``fake_flops()``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -64,6 +69,9 @@ FFMA_PAD_KV, FFMA_PAD_P = 4, 8
 FFMA_SLOTS_D256, FFMA_SLOTS = 2, 4
 
 _launches = dict.fromkeys(DESIGNS, 0)
+# Calls on fake tensors (the dry run), by the design a real call would
+# launch, and the FLOPs they stand for; none of them launched anything.
+_fake = {"calls": dict.fromkeys(DESIGNS, 0), "flops": 0}
 _bound: dict[str, object] = {}
 
 
@@ -80,6 +88,58 @@ def launch_count_by_design() -> dict[str, int]:
 def reset_launch_count() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def fake_calls_by_design() -> dict[str, int]:
+    """Calls on fake tensors so far (``compat.is_fake``), none of which
+    launched, by the design a real call would have launched."""
+    return dict(_fake["calls"])
+
+
+def fake_flops() -> int:
+    """The FLOPs (``work``) that those calls stand for."""
+    return _fake["flops"]
+
+
+def reset_fake_calls() -> None:
+    for name in _fake["calls"]:
+        _fake["calls"][name] = 0
+    _fake["flops"] = 0
+
+
+def _fake_call(name: str, flops: int) -> None:
+    _fake["calls"][name] += 1
+    _fake["flops"] += flops
+
+
+def _tri(n: int) -> int:
+    return n * (n + 1) // 2 if n > 0 else 0
+
+
+def live_pairs(sq: int, sk: int, causal: bool = True,
+               window: int | None = None) -> int:
+    """(query, key) pairs of one (batch entry, head) that the mask keeps:
+    key j for query i when ``j ≤ i`` (causal) and ``j > i − window``;
+    the sum over i of ``max(0, hi(i) − lo(i))`` in closed form."""
+    t = min(sq, sk)
+    total = _tri(t) + (sq - t) * sk if causal else sq * sk
+    if window is None:
+        return total
+    # less the keys before each window, plus the rows whose window starts
+    # past the last key (where that difference went below 0)
+    return total - _tri(sq - window) + _tri(sq - sk - window)
+
+
+def work(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+         window: int | None = None) -> dict:
+    """``{"pairs", "flops", "bytes"}`` of one launch on ``q [B,H,Sq,D]``
+    and ``k``/``v [B,KV,Sk,D]``: the live (query, key) pairs over every
+    batch entry and head, 4·D FLOPs a pair (Q·Kᵀ and P·V), and q, k, v
+    read and o written once."""
+    b, h, sq, d = q.shape
+    pairs = b * h * live_pairs(sq, k.shape[2], causal, window)
+    return {"pairs": pairs, "flops": 4 * d * pairs,
+            "bytes": (2 * q.numel() + 2 * k.numel()) * q.element_size()}
 
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
@@ -284,8 +344,11 @@ def flash_attention(
     out = out.transpose(1, 2)
     if out.numel() == 0:
         return out
-    strides = kernel_strides(q, k, v, out)
     name = design(q.dtype, d)
+    if compat.is_fake(q):
+        _fake_call(name, work(q, k, causal, window)["flops"])
+        return out
+    strides = kernel_strides(q, k, v, out)
     if name == "wgmma":
         tma = [st for t in (q, k, v) for st in tensor_map_strides(t)]
         args = [(ctypes.c_longlong * 9)(*tma),

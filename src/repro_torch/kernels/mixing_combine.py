@@ -25,7 +25,11 @@ Two entry points over one CUDA kernel (``csrc/mixing_combine.cu``):
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``; a
 CUDA tensor launches the kernel or raises (also when the build fails).
-Every launch adds one to ``launch_count()``.
+Every launch adds one to ``launch_count()``. A fake CUDA tensor
+(``compat.is_fake``, the dry run) gets the kernel's output and launches
+nothing, since it holds no data: the call adds one to
+``fake_call_count()`` and its FLOPs (``work`` / ``stacked_work``: the
+FLOPs a launch does and the bytes it must move) to ``fake_flops()``.
 """
 
 from __future__ import annotations
@@ -34,12 +38,16 @@ import ctypes
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NO_G = -1  # g_dtype of the launch without a gradient term (g is NULL)
 
 _launches = 0
+# Calls on fake tensors (the dry run) and the FLOPs they stand for; none
+# of them launched anything.
+_fake = {"calls": 0, "flops": 0}
 _bound = None
 
 
@@ -51,6 +59,45 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def fake_call_count() -> int:
+    """Calls on fake tensors so far (``compat.is_fake``): none launched."""
+    return _fake["calls"]
+
+
+def fake_flops() -> int:
+    """The FLOPs (``work`` / ``stacked_work``) that those calls stand for."""
+    return _fake["flops"]
+
+
+def reset_fake_calls() -> None:
+    _fake.update(calls=0, flops=0)
+
+
+def work(x: torch.Tensor, r: int, with_momentum: bool) -> dict:
+    """``{"flops", "bytes"}`` of one per-agent launch on ``x [N]`` with
+    ``r`` received rows: 2 FLOPs a weighted row element, one more for the
+    momentum term; x, the r rows, the momentum and the float32 weights
+    read once and the output written once."""
+    n, esize = x.numel(), x.element_size()
+    return {"flops": n * (2 * (r + 1) + int(with_momentum)),
+            "bytes": (r + 2 + int(with_momentum)) * n * esize + (r + 1) * 4}
+
+
+def stacked_work(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
+                 g: torch.Tensor | None) -> dict:
+    """``{"flops", "bytes"}`` of one stacked launch on ``x [A, N]``: 2
+    FLOPs a weighted row element, one more for the gradient term; x, g,
+    the neighbour table and the weights read once, the output written
+    once."""
+    r = idx.shape[1]
+    moved = (2 * x.numel() * x.element_size()
+             + idx.numel() * idx.element_size() + weights.numel() * 4)
+    if g is not None:
+        moved += g.numel() * g.element_size()
+    return {"flops": x.numel() * (2 * (r + 1) + int(g is not None)),
+            "bytes": moved}
 
 
 def _library():
@@ -106,6 +153,16 @@ def _check_operands(x, others: dict, g_name: str, g) -> None:
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _fake_call(x, counted: dict):
+    """The kernel's output for a fake ``x``, the call counted with the
+    FLOPs of ``counted`` (a ``work`` count); nothing launched."""
+    out = torch.empty_like(x)
+    if x.numel():
+        _fake["calls"] += 1
+        _fake["flops"] += counted["flops"]
+    return out
 
 
 def _launch(x, nbr, idx, weights, g, rows: int, n: int, r: int, lr: float):
@@ -172,6 +229,8 @@ def mixing_sgd_combine(
     )
     if x.device.type == "cpu":
         return ref.mixing_sgd_combine_ref(x, recv, weights, momentum, lr=lr)
+    if compat.is_fake(x):
+        return _fake_call(x, work(x, r, momentum is not None))
     w32 = weights.to(torch.float32)
     return _launch(x, recv, None, w32, momentum, 1, n, r, lr)
 
@@ -212,6 +271,8 @@ def mixing_sgd_combine_stacked(
         if r and not bool(((idx >= 0) & (idx < a)).all()):
             raise ValueError(f"idx entries must lie in [0, {a})")
         return ref.mixing_sgd_combine_stacked_ref(x, idx, weights, g, lr=lr)
+    if compat.is_fake(x):
+        return _fake_call(x, stacked_work(x, idx, weights, g))
     # The range of idx is checked where the table is built, on the host
     # (gossip.neighbor_table); reading it back here would synchronise.
     return _launch(x, x, idx, weights, g, a, n, r, lr)

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``kernels/ops.py``, without its
 ``use_pallas`` switch and the TPU block sizes: a CUDA tensor always goes
 to the hand-written kernel (or the call raises), a CPU tensor to the
 plain version. ``launch_count(name)`` reads one kernel's launch counter,
-``reset_launch_count()`` sets every counter to 0.
+``reset_launch_count()`` sets every counter to 0. A fake tensor (the dry
+run) launches nothing: each kernel module counts such calls apart, and
+``fake_flops(name)`` reads the FLOPs they stand for (the module's
+``work``); ``reset_fake_calls()`` sets those counts to 0.
 """
 
 from repro_torch.kernels import decode_attention as _decode
@@ -29,6 +32,18 @@ def launch_count(kernel: str) -> int:
     return KERNELS[kernel].launch_count()
 
 
+def fake_flops(kernel: str) -> int:
+    """The FLOPs that the calls of ``kernel`` on fake tensors since its
+    last reset stand for."""
+    return KERNELS[kernel].fake_flops()
+
+
+def reset_fake_calls() -> None:
+    """Set every kernel's fake-call counts to 0."""
+    for module in KERNELS.values():
+        module.reset_fake_calls()
+
+
 def reset_launch_count() -> None:
     """Set every kernel's launch counter to 0."""
     for module in KERNELS.values():
@@ -38,9 +53,11 @@ def reset_launch_count() -> None:
 __all__ = [
     "KERNELS",
     "decode_attention",
+    "fake_flops",
     "flash_attention",
     "launch_count",
     "mixing_sgd_combine",
     "mixing_sgd_combine_stacked",
+    "reset_fake_calls",
     "reset_launch_count",
 ]

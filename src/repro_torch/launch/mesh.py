@@ -24,6 +24,17 @@ Gloo moves host memory. Where a group's backend is gloo and a tensor lies
 on CUDA, the collectives here stage it through pinned host memory: that
 is the transport the caller chose with ``backend="gloo"`` (several ranks
 sharing one card, which NCCL refuses), not a fallback.
+
+Every collective of the port goes through this module, and each call
+adds the bytes of its operand on the calling rank to a count by kind, the
+five kinds of the reference's HLO parse (``roofline.analysis``):
+``group_all_reduce`` / ``all_reduce`` the whole tensor (``all-reduce``),
+``all_gather_into`` / ``all_gather`` the local part (``all-gather``),
+``reduce_scatter`` the whole input (``reduce-scatter``), ``all_to_all``
+the stack of parts (``all-to-all``), ``exchange`` each tensor it sends
+(``collective-permute``, one call a send). The staging through host
+memory is transport and adds nothing. ``collective_stats()`` reads the
+count, ``reset_collective_stats()`` sets it to 0.
 """
 
 from __future__ import annotations
@@ -36,9 +47,31 @@ import weakref
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import compat
+from repro_torch.roofline.analysis import COLLECTIVES, CollectiveStats
+
+_sent = dict.fromkeys(COLLECTIVES, 0)
+_calls = dict.fromkeys(COLLECTIVES, 0)
+
+
+def collective_stats() -> CollectiveStats:
+    """Bytes the calling rank handed to each kind of collective, and its
+    calls of each kind, since the last reset."""
+    return CollectiveStats(dict(_sent), dict(_calls))
+
+
+def reset_collective_stats() -> None:
+    for kind in COLLECTIVES:
+        _sent[kind] = 0
+        _calls[kind] = 0
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    _sent[kind] += x.numel() * x.element_size()
+    _calls[kind] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,15 +132,20 @@ def init_mesh(
     dev = compat.resolve_device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
-    if backend not in ("nccl", "gloo") or (backend == "nccl"
-                                           and dev.type != "cuda"):
+    if backend not in ("nccl", "gloo", "fake") or (backend == "nccl"
+                                                   and dev.type != "cuda"):
         raise ValueError(f"backend {backend!r} on {dev.type}")
     if dist.is_initialized() and dist.get_backend() != backend:
         raise ValueError(
             f"the default group runs {dist.get_backend()}, not {backend}")
     if not dist.is_initialized():
         kwargs = {} if timeout is None else {"timeout": timeout}
-        if init_method is not None:
+        if backend == "fake":
+            # importing it registers the backend
+            from torch.testing._internal.distributed.fake_pg import FakeStore
+
+            kwargs.update(store=FakeStore(), rank=rank, world_size=world_size)
+        elif init_method is not None:
             kwargs.update(init_method=init_method, rank=rank,
                           world_size=world_size)
         dist.init_process_group(backend, **kwargs)
@@ -183,7 +221,12 @@ def axis_ranks(mesh: DeviceMesh, axes: tuple[str, ...],
     ``coords``'."""
     coords = coordinate(mesh) if coords is None else coords
     names = tuple(mesh.mesh_dim_names)
-    grid = mesh.mesh.permute(
+    # the rank grid read outside any FakeTensorMode (the dry run's): the
+    # DeviceMesh makes it anew under the current mode
+    with unset_fake_temporarily():
+        ranks = mesh.mesh.numpy()
+    grid = np.transpose(
+        ranks,
         [names.index(a) for a in axes]
         + [i for i, a in enumerate(names) if a not in axes])
     rest = tuple(coords[a] for a in names if a not in axes)
@@ -229,6 +272,7 @@ def group_all_reduce(x: torch.Tensor, group,
                      op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced (sum by default) over ``group`` (None: the default
     group), in place; returns ``x``. Collective over the group."""
+    _count("all-reduce", x)
     if not _staged(x, group):
         dist.all_reduce(x, op=op, group=group)
         return x
@@ -247,6 +291,7 @@ def all_reduce(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...],
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
     """``dist.all_gather_into_tensor`` over ``group``, staged for gloo."""
+    _count("all-gather", x)
     if not _staged(x, group):
         dist.all_gather_into_tensor(out, x.contiguous(), group=group)
         return
@@ -263,6 +308,9 @@ def exchange(messages: list, group) -> None:
     between them in one order."""
     if not messages:
         return
+    for kind, t, _ in messages:
+        if kind == "send":
+            _count("collective-permute", t)
     staged = _staged(messages[0][1], group)
     wire = [
         (_host(t) if kind == "send" else torch.empty(
@@ -280,21 +328,33 @@ def exchange(messages: list, group) -> None:
                 buf.copy_(host)
 
 
+def _gathered(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...]):
+    """``[n, *x.shape]``: every rank's ``x`` along ``axes`` in
+    ``agent_index`` order, in one buffer."""
+    group, order = _group_order(mesh, axes)
+    # each rank's x as one row (gloo takes the concatenated form only)
+    out = torch.empty((len(order), x.numel()), dtype=x.dtype,
+                      device=x.device)
+    all_gather_into(out, x.reshape(1, -1), group)
+    out = out.view(len(order), *x.shape)
+    # out's rows are in group order, whose ranks ascend
+    if order != sorted(order):
+        out = out[[order.index(i) for i in range(len(order))]]
+    return out
+
+
 def all_gather(x: torch.Tensor, mesh: DeviceMesh,
                axes: tuple[str, ...]) -> list[torch.Tensor]:
     """Every rank's ``x`` along ``axes`` (through the calling rank's other
     coordinates), in ``agent_index`` order; collective over the group."""
-    ranks = axis_ranks(mesh, axes)
-    group = axis_group(mesh, axes)
-    order = sorted(ranks)     # a group's ranks ascend
-    if _staged(x, group):
-        parts = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-                 for _ in ranks]
-        dist.all_gather(parts, _host(x.contiguous()), group=group)
-        return [parts[order.index(r)].to(x.device) for r in ranks]
-    parts = [torch.empty_like(x) for _ in ranks]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return [parts[order.index(r)] for r in ranks]
+    return list(_gathered(x, mesh, axes).unbind(0))
+
+
+def all_gather_cat(x: torch.Tensor, mesh: DeviceMesh,
+                   axes: tuple[str, ...], dim: int) -> torch.Tensor:
+    """``torch.cat(all_gather(x, mesh, axes), dim)`` from one buffer,
+    without a tensor per rank; collective over the group."""
+    return _gathered(x, mesh, axes).movedim(0, dim).flatten(dim, dim + 1)
 
 
 def _group_order(mesh: DeviceMesh, axes: tuple[str, ...]):
@@ -315,9 +375,14 @@ def reduce_scatter(x: torch.Tensor, mesh: DeviceMesh, axes: tuple[str, ...],
     n = len(order)
     if x.shape[dim] % n:
         raise ValueError(f"dim of {x.shape[dim]} over {n} ranks")
-    parts = x.movedim(dim, 0).chunk(n)
-    wire = torch.cat([parts[i] for i in order]).contiguous()
-    out = torch.empty(parts[0].shape, dtype=x.dtype, device=x.device)
+    wire = x.movedim(dim, 0)
+    if order != sorted(order):
+        parts = wire.chunk(n)
+        wire = torch.cat([parts[i] for i in order])
+    wire = wire.contiguous()
+    _count("reduce-scatter", wire)
+    out = torch.empty((wire.shape[0] // n, *wire.shape[1:]), dtype=x.dtype,
+                      device=x.device)
     if _staged(x, group):
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         dist.reduce_scatter_tensor(host, _host(wire), group=group)
@@ -337,6 +402,7 @@ def all_to_all(parts: list, mesh: DeviceMesh,
     if len(parts) != len(order):
         raise ValueError(f"{len(parts)} parts for {len(order)} ranks")
     wire = torch.stack([parts[i] for i in order])
+    _count("all-to-all", wire)
     if _staged(wire, group):
         host = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
         dist.all_to_all_single(host, _host(wire), group=group)

@@ -8,6 +8,7 @@ the ``meta`` device in place of ``jax.eval_shape``:
 
   prefill_fn(params, inputs)       -> (logits [B, 1, V], caches)
   step_fn(params, caches, token)   -> (logits [B, 1, V], caches)
+  init_caches(params, rows)        -> empty caches for ``rows`` sequences
 
 ``shape.global_batch`` is the batch and ``shape.seq_len`` the depth of the
 caches (``max_len``); a prompt may be shorter than that. The frontends are
@@ -70,6 +71,9 @@ class ServeArtifacts:
     param_specs: Any = None   # sharding.P trees on a DeviceMesh, else None
     cache_specs: Any = None
     input_specs: Any = None
+    # (params, rows) -> empty caches of the depth, for ``rows`` sequences
+    # at the widths of this rank's ``params``
+    init_caches: Callable = None
 
 
 def _mesh_specs(cfg, b: int, mesh: DeviceMesh, param_shapes, cache_shapes,
@@ -157,6 +161,10 @@ def build_serve_artifacts(
         with torch.inference_mode(), hints(role_axes, mesh, plan):
             return model.decode_step(cfg, params, caches, token.to(dev))
 
+    def init_caches(params, rows: int):
+        with torch.inference_mode(), hints(role_axes, mesh, plan):
+            return model.init_caches(cfg, rows, s, dev, params)
+
     return ServeArtifacts(
         prefill_fn=prefill_fn,
         step_fn=step_fn,
@@ -166,4 +174,5 @@ def build_serve_artifacts(
         param_specs=specs[0],
         cache_specs=specs[1],
         input_specs=specs[2],
+        init_caches=init_caches,
     )

@@ -367,7 +367,7 @@ def _gathered(local: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
         axes = _axes_of(entry)
         if _size(mesh, axes) > 1:
-            out = torch.cat(mesh_lib.all_gather(out, mesh, axes), dim=dim)
+            out = mesh_lib.all_gather_cat(out, mesh, axes, dim)
     return out
 
 

@@ -278,7 +278,7 @@ def _reduced(x: torch.Tensor, ctx: TensorParallel, op=dist.ReduceOp.SUM):
 
 
 def _gathered(x: torch.Tensor, dim: int, ctx: TensorParallel):
-    return torch.cat(mesh_lib.all_gather(x, ctx.mesh, ctx.axes), dim=dim)
+    return mesh_lib.all_gather_cat(x, ctx.mesh, ctx.axes, dim)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -416,7 +416,7 @@ class _GatherFromFSDP(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, dim, ctx):
         fctx.dp, fctx.dim = ctx, dim
-        return torch.cat(mesh_lib.all_gather(x, ctx.mesh, ctx.axes), dim=dim)
+        return mesh_lib.all_gather_cat(x, ctx.mesh, ctx.axes, dim)
 
     @staticmethod
     def backward(fctx, grad):

@@ -17,7 +17,12 @@ vocabulary-parallel cross-entropy and the MoE's routing), `pod_train` (a
 (2, 2, 2) mesh, the `pod` layout: FSDP and EP over "data", TP over
 "model", one agent a pod), `pod_serve` (a (2, 2) mesh, serving's 2-D
 tensor parallelism) or `pod_units` (a (2, 1) mesh: FSDP's gather, EP's
-all-to-all pair and the load-balance loss over split rows). INPUTS is
+all-to-all pair and the load-balance loss over split rows), `dryrun_pod`
+(a (2, 2, 2) mesh: one step of smoke Mixtral in the `pod` layout) or
+`dryrun_serve` (a (2, 2) mesh: a prefill and a decode step of smoke
+Mixtral under 1-D TP), each run by `launch/dryrun.py`'s `real_pass` — or,
+with INIT_METHOD `fake`, as rank RANK of a fake group of WORLD ranks on
+fake tensors (`fake_pass`). INPUTS is
 the test's `npz` (the reference's initial parameters, tokens, W). The rank
 writes what it holds to `OUT_DIR/rank{RANK}.npz`. Each FAULT named reruns
 the case with one fault put in by this script, never by the package, and
@@ -56,12 +61,15 @@ from repro_torch.configs import gemma2_2b, jamba_1_5_large_398b  # noqa: E402
 from repro_torch.configs import llava_next_34b, mixtral_8x7b  # noqa: E402
 from repro_torch.configs.qwen2_0_5b import SMOKE_CONFIG as CFG  # noqa: E402
 from repro_torch.core import dpsgd, gossip  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve, sharding, train  # noqa: E402
 from repro_torch.models import attention, convert, model, moe  # noqa: E402
 from repro_torch.models import sharding_hints as sh  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.optim import sgd  # noqa: E402
+from repro_torch.roofline.analysis import COLLECTIVES  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 STEPS = 3
@@ -79,6 +87,8 @@ MESHES = {
     "pod_train": ((2, 2, 2), ("pod", "data", "model")),
     "pod_serve": ((2, 2), ("data", "model")),
     "pod_units": ((2, 1), ("data", "model")),
+    "dryrun_pod": ((2, 2, 2), ("pod", "data", "model")),
+    "dryrun_serve": ((2, 2), ("data", "model")),
 }
 TRAIN_MODES = {  # case -> [(mode name, gossip asked, W key)]
     "train_data": [("sparse", "sparse", "w_ring"), ("dense", "dense", "w_ring"),
@@ -111,6 +121,34 @@ POD_TRAIN_SEQ = 16
 POD_AUX = 1.0                        # the load-balance loss's weight
 POD_SERVE_RUNS = ("mixtral:2", "mixtral:1", "jamba:2", "jamba:1")  # arch:B
 TWO_D_PARAMS = 10**12   # parameter_count reported, so 2-D is picked
+W_PAIR = np.asarray([[0.75, 0.25], [0.25, 0.75]])   # dryrun_pod's 2 agents
+DRYRUN_RUNS = {   # case -> [(run name, shape), ...] of smoke Mixtral
+    "dryrun_pod": [("train", base.ShapeConfig("pod", POD_TRAIN_SEQ, 8,
+                                              "train"))],
+    "dryrun_serve": [(kind, base.ShapeConfig("serve", SERVE_MAX_LEN,
+                                             TP_SERVE_BATCH, kind))
+                     for kind in ("prefill", "decode")],
+}
+
+
+def record_collectives(out: dict, key: str, launches: dict | None = None
+                       ) -> None:
+    """What this rank handed to each kind of collective since the last
+    ``mesh_lib.reset_collective_stats()`` (bytes and calls, in
+    ``COLLECTIVES`` order), and the kernel launches by kernel — or, given
+    ``launches`` in ``dryrun.launch_counts``' form, those by design."""
+    stats = mesh_lib.collective_stats()
+    out[f"{key}coll_bytes"] = np.asarray(
+        [stats.bytes_by_kind[k] for k in COLLECTIVES], np.int64)
+    out[f"{key}coll_calls"] = np.asarray(
+        [stats.count_by_kind[k] for k in COLLECTIVES], np.int64)
+    if launches is None:
+        counts = [ops.launch_count(k) for k in ops.KERNELS]
+    else:
+        counts = [n for k in ops.KERNELS for n in (
+            launches[k].values() if isinstance(launches[k], dict)
+            else [launches[k]])]
+    out[f"{key}launches"] = np.asarray(counts, np.int64)
 
 
 def nest(flat: dict) -> dict:
@@ -213,7 +251,10 @@ def run_train(case, mesh, inputs, out, key, fault):
             tokens = inputs[f"tokens/{case}/{k}"]
             local = sharding.shard_tree({"tokens": tokens}, art.batch_specs,
                                         mesh, batch_coords)
+            mesh_lib.reset_collective_stats()
             state, met = art.step_fn(state, local)
+            if k == 0:
+                record_collectives(out, f"{key}{name}/step0/")
             losses.append(float(met["loss"]))
         out[f"{key}{name}/resolved"] = np.asarray(art.gossip)
         out[f"{key}{name}/losses"] = np.asarray(losses)
@@ -335,7 +376,10 @@ def run_tp_train(mesh, inputs, out, key, fault):
             local = sharding.shard_tree(
                 {"tokens": inputs[f"tokens/{arch}/{k}"]}, art.batch_specs,
                 mesh)
+            mesh_lib.reset_collective_stats()
             state, met = art.step_fn(state, local)
+            if k == 0:
+                record_collectives(out, f"{key}{arch}/step0/")
             losses.append(float(met["loss"]))
         moe.route = real_route
         out[f"{key}{arch}/resolved"] = np.asarray(art.gossip)
@@ -590,12 +634,14 @@ def run_pod_units(mesh, inputs, out, key, fault):
     whole = torch.autograd.grad((y * c[0]).sum() + (y * c[1]).sum(), xw)[0]
     out["fsdp_whole/grad"] = whole[2 * i:2 * (i + 1)].numpy()
     role_axes = {"batch": ("data",), "fsdp": ("data",), "ep": ("data",)}
+    mesh_lib.reset_collective_stats()
     with sh.hints(role_axes, mesh):
         xp = x[2 * i:2 * (i + 1)].clone().requires_grad_(True)
         y = sh.gather_from_fsdp(xp, 0) @ w
         out["fsdp/y"] = y.detach().numpy()
         out["fsdp/grad"] = torch.autograd.grad((y * c[i]).sum(), xp)[0] \
             .numpy()
+    record_collectives(out, f"{key}fsdp/")
     out["fsdp_whole/y"] = (x @ w).numpy()
 
     # EP: 4 experts, 2 a rank; each rank's buffer [b 2, E 4, C 3, D 5]
@@ -609,12 +655,14 @@ def run_pod_units(mesh, inputs, out, key, fault):
     out["ep_whole/y"] = ya[i].detach().numpy()
     out["ep_whole/grad_x"] = gx[i].numpy()
     out["ep_whole/grad_w"] = gw[2 * i:2 * (i + 1)].numpy()
+    mesh_lib.reset_collective_stats()
     with sh.hints(role_axes, mesh):
         xr = xin[i].clone().requires_grad_(True)
         wr = we[2 * i:2 * (i + 1)].clone().requires_grad_(True)
         owned = sh.ep_dispatch(xr)                       # [2·2, 2, 3, 5]
         yr = sh.ep_combine(torch.einsum("becd,edf->becf", owned, wr))
         gx, gw = torch.autograd.grad((yr * ce[i]).sum(), (xr, wr))
+    record_collectives(out, f"{key}ep/")
     out["ep/y"] = yr.detach().numpy()
     out["ep/grad_x"] = gx.numpy()
     out["ep/grad_w"] = gw.numpy()
@@ -651,6 +699,26 @@ def run_pod_units(mesh, inputs, out, key, fault):
         mesh_lib.group_all_reduce(g, group)
         out[f"{name}/loss"], out[f"{name}/grad"] = (lb / 2).numpy(), \
             (g / 2).numpy()
+
+
+def run_dryrun(case, mesh, out, fake: bool):
+    """Each run of ``DRYRUN_RUNS[case]`` for real (``dryrun.real_pass``)
+    or on fake tensors (``dryrun.fake_pass``): its collectives, launches
+    by design (the fake pass's: the wrappers' fake calls) and the rank's
+    parameter bytes."""
+    cfg = mixtral_8x7b.SMOKE_CONFIG
+    tcfg = base.TrainConfig(agent_layout="pod", gossip="sparse",
+                            microbatch=2, moe_aux_weight=POD_AUX)
+    for name, shape in DRYRUN_RUNS[case]:
+        cell = dryrun.make_cell(cfg, shape, mesh, "cpu", tcfg, W_PAIR)
+        if fake:
+            got = dryrun.fake_pass(cell)
+            out[f"{name}/param_bytes"] = np.asarray(
+                got["memory"]["parameters"])
+        else:
+            got = dryrun.real_pass(cell)
+            out[f"{name}/param_bytes"] = np.asarray(got["parameters"])
+        record_collectives(out, f"{name}/", got["launches"])
 
 
 def ep_wrong_rows(real_exchange):
@@ -733,8 +801,10 @@ def main(argv):
     case, rank, world, init_method, inputs_path, out_dir, *faults = argv
     torch.set_num_threads(1)
     shape, axes = MESHES[case]
+    fake = init_method == "fake"
     mesh = mesh_lib.init_mesh(
-        shape, axes, "cpu", init_method=init_method, rank=int(rank),
+        shape, axes, "cpu", backend="fake" if fake else None,
+        init_method=None if fake else init_method, rank=int(rank),
         world_size=int(world), timeout=datetime.timedelta(seconds=300))
     with np.load(inputs_path) as data:
         inputs = dict(data)
@@ -765,7 +835,9 @@ def main(argv):
             ssm._mamba_local = naive_uz(real_local)
         if fault == "own_wo_partial" and int(rank) == 0:
             attention.layers = own_wo_partial(real_layers)
-        if case == "gossip":
+        if case.startswith("dryrun"):
+            run_dryrun(case, mesh, out, fake)
+        elif case == "gossip":
             run_gossip(mesh, inputs, out, key, fault)
         elif case == "world1":
             run_world1(mesh, inputs, out, key, fault)

@@ -1,4 +1,5 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
+example (`examples/train_dfl_torch.py`) import neither
 `jax`, `repro` nor `networkx`; no library attention in the port (only
 `chip_smoke.py` times one, as a yardstick), no `torch.compile`, no `try:`
 around a kernel launch; and without a GPU `device=None` raises instead of
@@ -15,7 +16,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "examples" / "train_dfl_torch.py"]
 FORBIDDEN_MODULES = ("jax", "jaxlib", "repro", "networkx")
 
 
@@ -70,7 +72,9 @@ def test_package_has_the_slices_modules():
         "repro_torch.runtime.stragglers", "repro_torch.runtime.compression",
         "repro_torch.runtime.fault_tolerance",
         "repro_torch.runtime.design_service", "repro_torch.launch.sharding",
-        "repro_torch.models.sharding_hints",
+        "repro_torch.models.sharding_hints", "repro_torch.roofline",
+        "repro_torch.roofline.analytic", "repro_torch.roofline.analysis",
+        "repro_torch.launch.dryrun",
     ):
         assert want in names
     for src in ("mixing_combine", "flash_attention_wgmma",

@@ -51,7 +51,9 @@ from repro.data.pipeline import make_batch_fn
 from repro.data.synthetic import DataConfig, SyntheticTokenStream
 from repro.launch import train as jtrain
 from repro.models import model as jmodel
-from repro_torch.tree import tree_paths
+from repro_torch.models import model
+from repro_torch.roofline.analysis import COLLECTIVES
+from repro_torch.tree import tree_leaves, tree_paths
 
 import _torch_rank as rank_script
 
@@ -294,6 +296,21 @@ def _section(tree: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in tree.items() if k.startswith(prefix)}
 
 
+def _kinds(rank: dict, key: str) -> tuple[dict, dict]:
+    """The bytes and calls by kind that a rank's run counted
+    (``_torch_rank.record_collectives``)."""
+    return (dict(zip(COLLECTIVES, rank[f"{key}coll_bytes"].tolist())),
+            dict(zip(COLLECTIVES, rank[f"{key}coll_calls"].tolist())))
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _only(**kinds) -> dict:
+    return {k: kinds.get(k.replace("-", "_"), 0) for k in COLLECTIVES}
+
+
 # ---------------------------------------------------------------------------
 # (a) the gossip
 # ---------------------------------------------------------------------------
@@ -454,3 +471,33 @@ def test_world_size_one_is_the_one_card_path(runs, what):
     and the flat gossip at W = [1] returns the parameters."""
     _, _, ranks = runs
     assert bool(ranks["world1"][0][what])
+
+
+# ---------------------------------------------------------------------------
+# (e) the collective counter against bytes computed by hand
+# ---------------------------------------------------------------------------
+
+
+def test_sparse_gossip_sends_out_degree_times_the_agent(runs):
+    """``data`` layout at (4, 1), W the 4-ring: each rank sends its whole
+    agent to each of its 2 out-neighbours (one send a leaf and edge); the
+    loss's mean is the step's one all-reduce (4 bytes). The dense mode
+    gathers every leaf once, the all-reduce mode sums a float32 copy."""
+    given, _, ranks = runs
+    params = model.init(rank_script.CFG, 0, device="meta")
+    whole, leaves = _bytes(params), len(tree_leaves(params))
+    w = given["w_ring"]
+    for r, rank in enumerate(ranks["train_data"]):
+        out_degree = int(np.count_nonzero(w[:, r]) - 1)
+        assert out_degree == 2
+        sent, calls = _kinds(rank, "sparse/step0/")
+        assert sent == _only(collective_permute=out_degree * whole,
+                             all_reduce=4)
+        assert calls == _only(collective_permute=out_degree * leaves,
+                              all_reduce=1)
+        sent, calls = _kinds(rank, "dense/step0/")
+        assert sent == _only(all_gather=whole, all_reduce=4)
+        assert calls == _only(all_gather=leaves, all_reduce=1)
+        sent, calls = _kinds(rank, "allreduce/step0/")
+        assert sent == _only(all_reduce=whole + 4)   # float32 leaves
+        assert calls == _only(all_reduce=leaves + 1)

@@ -52,7 +52,8 @@ from repro.models import model as jmodel
 from repro_torch.tree import tree_paths
 
 import _torch_rank as rank_script
-from test_torch_multirank import ROOT, TIMEOUT, _section, _x64_off
+from test_torch_multirank import (ROOT, TIMEOUT, _kinds, _only, _section,
+                                  _x64_off)
 
 LOSS_RTOL = 1e-4
 STATE_ATOL = 1e-4
@@ -393,3 +394,18 @@ def test_pod_unit_per_rank_me_is_refused(runs):
         assert not np.allclose(out["fault/per_rank_me/balance/grad"],
                                out["balance_whole/grad"], rtol=UNIT_TOL,
                                atol=UNIT_TOL)
+
+
+def test_fsdp_gather_and_ep_all_to_all_bytes(runs):
+    """The collective counter on ``pod_units`` at 2 ranks over "data":
+    FSDP's gather sends the local part ``[2, 6]`` (48 bytes), its backward
+    reduce-scatters the whole gradient ``[4, 6]`` (96 bytes); EP's
+    dispatch and combine each send the stack of parts of a ``[2, 4, 3,
+    5]`` buffer (480 bytes), forward and backward."""
+    _, _, ranks = runs
+    for rank in ranks["pod_units"]:
+        assert _kinds(rank, "fsdp/") == (
+            _only(all_gather=48, reduce_scatter=96),
+            _only(all_gather=1, reduce_scatter=1))
+        assert _kinds(rank, "ep/") == (_only(all_to_all=4 * 480),
+                                       _only(all_to_all=4))

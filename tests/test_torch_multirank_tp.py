@@ -49,12 +49,15 @@ from repro.data.synthetic import DataConfig, SyntheticTokenStream
 from repro.launch import train as jtrain
 from repro.models import model as jmodel
 from repro_torch.configs import qwen2_0_5b
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding, train
 from repro_torch.models import attention, model
 from repro_torch.models import sharding_hints as sh
 from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
 import _torch_rank as rank_script
-from test_torch_multirank import ROOT, TIMEOUT, _section, _x64_off
+from test_torch_multirank import (ROOT, TIMEOUT, _bytes, _kinds, _only,
+                                  _section, _x64_off)
 
 LOSS_RTOL = 1e-4
 STATE_ATOL = 1e-4
@@ -331,6 +334,41 @@ def test_tp_train_naive_uz_split_is_refused(runs):
     assert errs["params"] > 1.0, errs
 
 
+def test_tensor_parallel_reductions_are_all_reduces(runs):
+    """The collective counter on smoke Qwen2 in the ``data`` layout at (4,
+    2), 2 microbatches of 1 × 16 tokens, each group of one layer
+    recomputed in the backward. Each reduction of a ``[1, 16, 64]``
+    float32 activation over "model" is one all-reduce; per microbatch: the
+    vocabulary-parallel embedding's lookup (1); per layer the attention's
+    ``wo`` forward and in the recompute (2), the MLP's ``down`` forward
+    (1: the recompute stops once it has what the backward needs, before
+    that reduce), and the gradients of the attention's and the MLP's
+    inputs (2); the LM head's input gradient (1). The vocabulary-parallel
+    cross-entropy reduces its max (``[1, 16, 1]``), the label logit and
+    the exponentials' sum (``[1, 16]``); the loss's mean is 4 bytes. Each
+    "model" coordinate gossips its part of every leaf to the ring's 2
+    out-neighbours. Nothing is gathered."""
+    _, _, ranks = runs
+    cfg = rank_script.TP_CFGS["qwen2"]
+    _, seq, gb = rank_script.TP_TRAIN_SHAPE
+    mesh = mesh_lib.make_test_mesh((4, 2))
+    state = train._stacked_state_shapes(cfg, 4)["params"]
+    specs = sharding.param_specs_train(state, mesh, "data")
+    assert sharding._axes_of(specs["embed"]["table"][1]) == ("model",)
+    k, mb = 2, gb // 4 // 2
+    rows = 2 + 5 * cfg.num_layers          # activation reductions a microbatch
+    per_mb = rows * mb * seq * cfg.d_model * 4 + 3 * mb * seq * 4
+    leaves = len(tree_leaves(state))
+    for r, rank in enumerate(ranks["tp_train"]):
+        coords = {"data": r // 2, "model": r % 2}
+        local = _bytes(sharding.shard_tree(state, specs, mesh, coords))
+        sent, calls = _kinds(rank, "qwen2/step0/")
+        assert sent == _only(all_reduce=k * per_mb + 4,
+                             collective_permute=2 * local)
+        assert calls == _only(all_reduce=k * (rows + 3) + 1,
+                              collective_permute=2 * leaves)
+
+
 # ---------------------------------------------------------------------------
 # (f) serving's 1-D tensor parallelism
 # ---------------------------------------------------------------------------
@@ -460,7 +498,6 @@ def test_without_a_tp_context_the_model_is_unchanged(what):
     """Hints installed on a one-card ``Mesh`` description (no process
     group, so no TP context) and no hints at all run the same ops:
     bitwise equal loss, gradients, prefill and decode logits."""
-    from repro_torch.launch import mesh as mesh_lib
     cfg = qwen2_0_5b.SMOKE_CONFIG
     params = model.init(cfg, 0, "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 13),
