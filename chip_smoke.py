@@ -65,6 +65,20 @@ points a user calls:
   at step 20, every round priced by stochastic rollouts on the card): the
   log's wall-clock the running sum of τ, the redesign at m = 7 with ρ < 1,
   one combine launch a parameter leaf a step;
+* the other five examples — ``examples/{quickstart,topology_design,
+  dynamic_network,serve_decode,elastic_failover}_torch.py`` run at once as
+  a user runs them: the paper's Roofnet-like instance (m = 10) designed,
+  routed and priced with every weight optimization on the card, the
+  supports and τ held to the reference examples'; the smoke Gemma2 served
+  through ``flash_attention`` and ``decode_attention``; the elastic stream
+  trained through 200 ``mixing_sgd_combine`` launches, its trail held to
+  the reference's;
+* the port's checkers and the trace lint — ``python -m
+  repro_torch.analysis --all`` clean; the pricing entries of
+  ``analysis/tracelint_targets.py`` on CUDA tensors under the recording
+  dispatch mode, and the ``rollout`` phase's 220-agent star x 256 rollouts
+  uncut under it: every floating output float64, every device→host read
+  counted by ``torch_engine.sync_count()``;
 * the dry run — ``launch/dryrun.run_cell`` on fake CUDA tensors over a
   fake process group of 256 ranks for Qwen2-0.5B and Mixtral-8x7B's
   training cells and Mixtral's decode cell (traced in a process started
@@ -110,7 +124,8 @@ and ``nvcc``; there is no CPU path. Any failed phase raises and the script
 exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
-``kernel_check``, ``attention_check``, ``small_reference``, ``rollout``,
+``kernel_check``, ``attention_check``, ``small_reference``, ``analysis``,
+``rollout``, ``tracelint``,
 ``train``, ``train_launch``, ``per_agent_flat_combine``, ``mesh_init``,
 ``train_mesh``, ``serve_mesh``, ``train_tp``, ``serve_tp``,
 ``tp_local_attention``, ``train_pod``, ``serve_2d``,
@@ -123,7 +138,8 @@ Output: one JSON object per phase (``device``, ``build``,
 MusicGen ``served_attention`` (not xLSTM), ``serve_check`` (Jamba float32
 at 2 layers), ``serve_<model>``, ``serve_<model>_step``, ``serve_check``
 and ``serve_<model>_total``,
-``attention_main_shapes``, ``ffma_times``, ``example``, ``dryrun``), then
+``attention_main_shapes``, ``ffma_times``, ``example``, ``examples``,
+``dryrun``), then
 the
 line
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives,
@@ -151,6 +167,7 @@ import sys
 import tempfile
 import time
 import types
+from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -229,6 +246,8 @@ from repro_torch.optim import sgd
 from repro_torch.paper import fig5_training
 from repro_torch.paper import priced_training as paper_gate
 from repro_torch.paper import scenario as paper
+from repro_torch.analysis import tracelint
+from repro_torch.configs.base import get_config
 from repro_torch.roofline import analysis as roofline
 from repro_torch.runtime import compression, design_service
 from repro_torch.runtime.events import AgentJoin, AgentLeave, LinkStateChange
@@ -898,11 +917,12 @@ def star_scenario(tau: float) -> StochasticScenario:
     )
 
 
-def phase_rollout(with_profile: bool = False) -> None:
+def phase_rollout(with_profile: bool = False) -> dict:
     """Price 256 rollouts of the 220-agent star on the card in one pass of
     the torch engine (one warm call, one timed), hold the first 32 to the
     port's numpy engine and the quantiles to the JAX engine's, both at
-    rtol 1e-9."""
+    rtol 1e-9. Returns the pricing call, its results and its counts, which
+    the ``tracelint`` phase runs again under the dispatch mode."""
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     sol, ov = star_instance()
@@ -991,6 +1011,8 @@ def phase_rollout(with_profile: bool = False) -> None:
         cpu_lanes=ROLLOUT_CPU_LANES, cpu_lanes_bitwise_equal=cpu_bitwise,
         profile=profiled,
     )
+    return {"price": price, "priced": priced, "host_syncs_per_batch": syncs,
+            "waterfill_rounds_per_batch": rounds}
 
 
 def train_pricer(seed: int, m: int, kappa: float) -> dict:
@@ -5822,6 +5844,392 @@ def phase_example() -> dict:
     return out
 
 
+# The analysis phase: the port's checkers as a user runs them.
+ANALYSIS_TIMEOUT_S = 300
+# The tracelint phase: what a read of a CUDA tensor dispatches, as the
+# trace lint counts it (``tracelint._Recorder``).
+TRACE_PROBES = {
+    "item": {"aten._local_scalar_dense.default": 1},
+    "bool": {"aten._local_scalar_dense.default": 1},
+    "cpu": {"aten._to_copy.default": 1},
+}
+
+
+def phase_analysis() -> dict:
+    """``python -m repro_torch.analysis --all`` on this checkout as a user
+    runs it: every checker clean (the trace lint's dispatch pass runs its
+    targets on CPU tensors there; the ``tracelint`` phase runs them on the
+    card)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--all"],
+        capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S, env=env,
+        cwd=root)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis exited {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    out = {"seconds": seconds,
+           "summary": proc.stdout.strip().splitlines()[-1]}
+    emit("analysis", **out)
+    return out
+
+
+def phase_tracelint(rollout: dict) -> dict:
+    """The trace lint on the card: what ``.item()``, ``bool()`` and
+    ``.cpu()`` of a CUDA tensor dispatch (``TRACE_PROBES``); the registered
+    targets on CUDA tensors, clean; then the ``rollout`` phase's instance,
+    uncut (220-agent star x 256 rollouts), under the dispatch mode: every
+    floating output float64, the device→host reads the mode sees equal to
+    the rise of ``torch_engine.sync_count()`` and to the ``rollout``
+    phase's count, the results bitwise the ``rollout`` phase's. Emits the
+    ops a water-fill round and the mode's overhead in seconds."""
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    x = torch.arange(4, dtype=torch.float64, device=dev)
+    reads = {"item": lambda: x.sum().item(), "bool": lambda: bool(x.any()),
+             "cpu": lambda: x.cpu()}
+    probes = {name: dict(tracelint.trace(read, (), dev).host_reads)
+              for name, read in reads.items()}
+    if probes != TRACE_PROBES:
+        raise AssertionError(f"tracelint: reads of a CUDA tensor dispatch "
+                             f"{probes}, not {TRACE_PROBES}")
+    t0 = time.perf_counter()
+    findings, records = tracelint.check_targets(Path(root), dev)
+    targets_s = time.perf_counter() - t0
+    if findings:
+        raise AssertionError("tracelint on the card:\n" + "\n".join(
+            f.render() for f in findings))
+    targets = {name: [{"ops": r.total_ops, "host_reads": r.total_host_reads,
+                       "counted": r.counted, "seconds": r.seconds}
+                      for r in recs] for name, recs in records.items()}
+
+    price, want = rollout["price"], rollout["priced"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    price()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got = []
+    record, per_round = tracelint.trace_rounds(
+        lambda: got.append(price()), (), dev)
+    if record.narrow:
+        raise AssertionError(f"tracelint rollout: narrow floats "
+                             f"{dict(record.narrow)}")
+    if not record.total_host_reads == record.counted == \
+            rollout["host_syncs_per_batch"]:
+        raise AssertionError(
+            f"tracelint rollout: the mode saw {dict(record.host_reads)}, "
+            f"sync_count rose by {record.counted}, the rollout phase "
+            f"counted {rollout['host_syncs_per_batch']}")
+    if per_round["waterfill_rounds"] != \
+            rollout["waterfill_rounds_per_batch"]:
+        raise AssertionError(f"tracelint rollout: {per_round} rounds")
+    if len(got[0]) != len(want):
+        raise AssertionError(f"tracelint rollout: {len(got[0])} results")
+    for r, (a, b) in enumerate(zip(got[0], want)):
+        if a.makespan != b.makespan or \
+                a.flow_completion != b.flow_completion:
+            raise AssertionError(f"tracelint rollout: rollout {r} differs "
+                                 "under the dispatch mode")
+    out = {
+        "probes": probes, "targets": targets, "targets_seconds": targets_s,
+        "rollout": {
+            "agents": ROLLOUT_AGENTS, "rollouts": ROLLOUTS,
+            "ops": record.total_ops, "host_reads": dict(record.host_reads),
+            "host_reads_total": record.total_host_reads,
+            "sync_count_rise": record.counted,
+            "narrow_outputs": sum(record.narrow.values()), **per_round,
+            "top_ops": dict(record.ops.most_common(12)),
+            "plain_seconds": plain_s, "traced_seconds": record.seconds,
+            "overhead_seconds": record.seconds - plain_s,
+        },
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit("tracelint", **out)
+    return out
+
+
+# The examples phase: the five examples of the JAX package's
+# examples/ that train_dfl_torch.py's phase does not run, as a user runs
+# their counterparts, all at once (five processes share the card), each
+# wrapped by _EXAMPLES_HOOK. dynamic_network runs with a MILP time limit
+# no solve reaches, so no schedule depends on how fast the host solves.
+EXAMPLES = (("quickstart", ()), ("topology_design", ()),
+            ("dynamic_network", ("--milp-time-limit", "600")),
+            ("serve_decode", ()), ("elastic_failover", ()))
+EXAMPLES_TIMEOUT_S = 600
+SERVE_DECODE_ARCH, SERVE_DECODE_TOKENS = "gemma2-2b", 16
+# The designs the reference examples print, as the JAX package gives them
+# on the CPU (x64 off, as a user runs them): per example, in call order,
+# (method, tau, tau_static_sched, tau_phased) — NaN where the example
+# prices statically. SCA is left out: its support is chosen from where
+# Adam ends. Supports are JAX_DESIGN_LINKS. Held: the supports and a
+# static design's tau (the routing's closed form; a MILP's optimum). A
+# degraded design's tau_static_sched and tau_phased (and so its tau)
+# simulate the trees the MILPs return, and an optimum can have ties: which
+# of the equally optimal trees HiGHS returns depends on the installed
+# scipy (the card's host returned others for clique's static routing and
+# ring's degraded phase). So those are recorded beside the reference's,
+# and what is held of a phased schedule is each segment's optimal
+# closed-form tau and the number of re-routes (JAX_EXAMPLE_SEGMENTS).
+# Recompute (~1 min) with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import runpy, sys
+#   from repro import core; from repro.core import designer
+#   real, rte, got, seg = core.design, designer.route_time_expanded, [], []
+#   def design(m, *a, **k):
+#       o = real(m, *a, **k); got.append((m, o.design.activated_links,
+#           o.tau, o.tau_static_sched, o.tau_phased)); return o
+#   def route(*a, **k):
+#       r = rte(*a, **k); seg.append((r.metadata['segment_times'],
+#           r.metadata['reroutes'])); return r
+#   core.design, designer.route_time_expanded = design, route
+#   for name, args in (('quickstart', []), ('topology_design', []),
+#           ('dynamic_network', ['--milp-time-limit', '600'])):
+#       got.clear(); seg.clear(); sys.argv = [name, *args]
+#       runpy.run_path(f'examples/{name}.py', run_name='__main__')
+#       print(name, [g for g in got if g[0] != 'sca'], seg)"
+NAN = float("nan")
+JAX_EXAMPLE_DESIGNS = {
+    "quickstart": (("clique", 6801.84, NAN, NAN), ("ring", 1511.52, NAN, NAN),
+                   ("fmmd-wp", 755.76, NAN, NAN)),
+    "topology_design": (("clique", 8313.36, NAN, NAN),
+                        ("ring", 1511.52, NAN, NAN),
+                        ("prim", 1511.52, NAN, NAN),
+                        ("fmmd-wp", 755.76, NAN, NAN)),
+    "dynamic_network": (
+        ("ring", 1511.52, NAN, NAN),
+        ("ring", 6172.04, 18642.08, 6172.04),
+        ("clique", 6801.84, NAN, NAN),
+        ("clique", 24184.319999999996, 86251.10999999999,
+         24184.319999999996),
+        ("fmmd-wp", 755.76, NAN, NAN),
+        ("fmmd-wp", 6046.08, 13036.859999999999, 6046.08)),
+}
+JAX_EXAMPLE_SEGMENTS = {
+    "dynamic_network": (((1511.52, 1511.52), 1), ((6801.84, 6801.84), 1),
+                        ((755.76, 1511.52), 1)),
+}
+# examples/elastic_failover.py's printed lines but its final values (JAX
+# package, CPU): the start, one line an event, the trail and the tiers.
+JAX_EXAMPLE_ELASTIC_LINES = (
+    "start: m=8 rho=0.908 tau=16s",
+    "[step 40] LinkStateChange: adopt (normal) m=8 rho=0.952 tau=16s -- "
+    "tau 53.3 -> 16, transition 53.3",
+    "[step 80] AgentLeave: incumbent-keep (incumbent-keep) m=7 rho=0.959 "
+    "tau=16s retries=2 faults=3 -- redesign failed; incumbent renormalized "
+    "over 7 survivors",
+    "[step 120] AgentLeave: redesign (normal) m=6 rho=0.808 tau=32s -- "
+    "agent 5 left; transition 16",
+    "[step 160] AgentJoin: redesign (normal) m=7 rho=0.846 tau=26.7s -- "
+    "agent 8 joined on node 0; transition 32",
+    "[step 200] LinkStateChange: adopt (normal) m=7 rho=0.918 tau=16s -- "
+    "tau 24 -> 16, transition 24",
+    "decision trail: {'adopt': 2, 'incumbent-keep': 1, 'redesign': 2}",
+    "tiers hit: {'normal': 4, 'incumbent-keep': 1}",
+)
+ELASTIC_EXAMPLE_LAUNCHES = 5 * 40   # one combine launch a step
+
+_EXAMPLES_HOOK = """
+import importlib, json, runpy, sys, time
+import torch
+from repro_torch import compat, core
+from repro_torch.kernels import decode_attention, flash_attention, ops
+from repro_torch.net import routing
+script, report, *args = sys.argv[1:]
+out = {"designs": [], "optimize_weights": [], "milp_status": [],
+       "segments": []}
+designer = importlib.import_module("repro_torch.core.designer")
+real_design, real_milp = core.design, routing.route_milp
+real_rte = designer.route_time_expanded
+
+
+def design(method, *a, **k):
+    got = real_design(method, *a, **k)
+    out["designs"].append({
+        "method": method, "tau": got.tau,
+        "links": [list(l) for l in got.design.activated_links],
+        "tau_static_sched": got.tau_static_sched,
+        "tau_phased": got.tau_phased})
+    return got
+
+
+def route_milp(*a, **k):
+    sol = real_milp(*a, **k)
+    out["milp_status"].append(int(sol.metadata["milp_status"]))
+    return sol
+
+
+def route_time_expanded(*a, **k):
+    sol = real_rte(*a, **k)
+    out["segments"].append([list(sol.metadata["segment_times"]),
+                            sol.metadata["reroutes"]])
+    return sol
+
+
+def watched(real):
+    def optimize_weights(*a, **k):
+        out["optimize_weights"].append(
+            str(compat.resolve_device(k.get("device"))))
+        return real(*a, **k)
+    return optimize_weights
+
+
+core.design = design
+routing.route_milp = route_milp
+designer.route_time_expanded = route_time_expanded
+# the modules that call optimize_weights (``repro_torch.core.fmmd`` as an
+# attribute is the function of that name)
+for name in ("fmmd", "sca", "topology_baselines"):
+    mod = importlib.import_module(f"repro_torch.core.{name}")
+    mod.optimize_weights = watched(mod.optimize_weights)
+sys.argv = [script, *args]
+t0 = time.perf_counter()
+runpy.run_path(script, run_name="__main__")
+torch.cuda.synchronize()
+out["seconds"] = time.perf_counter() - t0
+out["launches"] = {k: ops.launch_count(k) for k in (
+    "mixing_sgd_combine", "flash_attention", "decode_attention")}
+out["flash_by_design"] = flash_attention.launch_count_by_design()
+out["decode_by_design"] = decode_attention.launch_count_by_design()
+import scipy
+out["scipy"] = scipy.__version__
+with open(report, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def same_float(a: float, b: float) -> bool:
+    return a == b or (math.isnan(a) and math.isnan(b))
+
+
+def check_example_designs(name: str, run: dict) -> list:
+    """The designs an example made on the card (SCA left out): supports
+    ``JAX_DESIGN_LINKS``; a static design's τ ``JAX_EXAMPLE_DESIGNS``';
+    each phased schedule's segment optima and re-routes
+    ``JAX_EXAMPLE_SEGMENTS``'. Returns each degraded design's simulated
+    τ beside the reference's."""
+    got = [d for d in run["designs"] if d["method"] != "sca"]
+    want = JAX_EXAMPLE_DESIGNS[name]
+    if [d["method"] for d in got] != [w[0] for w in want]:
+        raise AssertionError(f"example {name}: designs {got}")
+    simulated = []
+    for d, (method, tau, static, phased) in zip(got, want):
+        links = tuple(tuple(l) for l in d["links"])
+        degraded = not math.isnan(static)
+        if links != JAX_DESIGN_LINKS[method] or not (
+                degraded or same_float(d["tau"], tau)):
+            raise AssertionError(f"example {name} {method}: {d} vs the "
+                                 f"reference's {(tau, static, phased)}")
+        if degraded:
+            simulated.append({
+                "method": method, "tau_static_sched": d["tau_static_sched"],
+                "tau_phased": d["tau_phased"],
+                "reference": {"tau_static_sched": static,
+                              "tau_phased": phased}})
+    segments = [(tuple(t), n) for t, n in run["segments"]]
+    if tuple(segments) != JAX_EXAMPLE_SEGMENTS.get(name, ()):
+        raise AssertionError(f"example {name}: phased segments {segments}")
+    return simulated
+
+
+def phase_examples() -> dict:
+    """The five other examples on the card as a user runs them
+    (``EXAMPLES``, all at once), each wrapped by ``_EXAMPLES_HOOK``, which
+    reads the designs, the MILP statuses, where each weight optimization
+    ran and the kernel launches by design: every script exits 0; no MILP
+    stops at its time limit; quickstart, topology_design and
+    dynamic_network run every weight optimization on the card and design
+    the reference's supports and τ (``check_example_designs``);
+    serve_decode launches
+    ``flash_attention`` once an attention layer and ``decode_attention``
+    once an attention layer a decoded token, each by the design its dtype
+    and head_dim pick; elastic_failover launches ``mixing_sgd_combine``
+    200 times and prints the reference's trail."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        env = {**os.environ, "TMPDIR": work,
+               "PYTHONPATH": os.path.join(root, "src")}
+        procs = {}
+        for name, args in EXAMPLES:
+            report = os.path.join(work, f"{name}.json")
+            procs[name] = (report, subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLES_HOOK,
+                 os.path.join(root, "examples", f"{name}_torch.py"), report,
+                 *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env, cwd=root))
+        runs = {}
+        for name, (report, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"example {name} exited "
+                                     f"{proc.returncode}\n{stdout[-3000:]}"
+                                     f"\n{stderr[-3000:]}")
+            with open(report) as f:
+                runs[name] = {**json.load(f),
+                              "stdout": stdout.strip().splitlines()}
+    for name, run in runs.items():
+        if any(s != 0 for s in run["milp_status"]):
+            raise AssertionError(f"example {name}: MILP statuses "
+                                 f"{run['milp_status']}")
+        if name in JAX_EXAMPLE_DESIGNS:
+            run["phased"] = check_example_designs(name, run)
+            if not run["optimize_weights"] or not all(
+                    d.startswith("cuda") for d in run["optimize_weights"]):
+                raise AssertionError(f"example {name}: weight "
+                                     f"optimizations on {run['optimize_weights']}")
+        want = {"mixing_sgd_combine": 0, "flash_attention": 0,
+                "decode_attention": 0}
+        if name == "elastic_failover":
+            want["mixing_sgd_combine"] = ELASTIC_EXAMPLE_LAUNCHES
+            lines = [line for line in run["stdout"]
+                     if not line.startswith("final values")]
+            if tuple(lines) != JAX_EXAMPLE_ELASTIC_LINES:
+                raise AssertionError(f"example elastic_failover: {lines}")
+        if name == "serve_decode":
+            cfg = get_config(SERVE_DECODE_ARCH, smoke=True)
+            layers = attention_layers(cfg)
+            dt, hd = compat.dtype_of(cfg.compute_dtype), cfg.resolved_head_dim
+            steps = SERVE_DECODE_TOKENS - 1
+            want["flash_attention"] = layers
+            want["decode_attention"] = layers * steps
+            designs = (
+                launches_by_design(flash_mod.DESIGNS,
+                                   flash_mod.design(dt, hd), layers),
+                launches_by_design(decode_mod.DESIGNS,
+                                   decode_mod.design(dt, hd), layers * steps))
+            if (run["flash_by_design"], run["decode_by_design"]) != designs:
+                raise AssertionError(
+                    f"example serve_decode: designs {run['flash_by_design']}"
+                    f" / {run['decode_by_design']}, not {designs}")
+            sample = json.loads(run["stdout"][-1].split("sample: ", 1)[1])
+            if len(sample) != SERVE_DECODE_TOKENS or not all(
+                    0 <= t < cfg.vocab_size for t in sample):
+                raise AssertionError(f"example serve_decode: {sample}")
+        if run["launches"] != want:
+            raise AssertionError(f"example {name}: launches "
+                                 f"{run['launches']}, not {want}")
+    out = {
+        "seconds": time.perf_counter() - t_phase,
+        "concurrent": len(EXAMPLES),
+        "examples": {name: {
+            "seconds_in_script": run["seconds"],
+            "launches": run["launches"],
+            "flash_by_design": run["flash_by_design"],
+            "decode_by_design": run["decode_by_design"],
+            "weight_optimizations": len(run["optimize_weights"]),
+            "milps": len(run["milp_status"]),
+            "phased": run.get("phased", []), "scipy": run["scipy"],
+            "stdout": run["stdout"][-8:]} for name, run in runs.items()},
+    }
+    emit("examples", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5859,7 +6267,10 @@ def main(argv=None) -> int:
     checked = phase_kernel_check(args.seed)
     phase_attention_check(args.seed)
     phase_small_reference(args.seed)
-    phase_rollout(args.profile)
+    phase_analysis()
+    rollout = phase_rollout(args.profile)
+    phase_tracelint(rollout)
+    del rollout
     params, plan, launches, leaves = phase_train(
         args.seed, args.steps, args.seq, args.profile
     )
@@ -5964,6 +6375,17 @@ def main(argv=None) -> int:
     kernels[1]["ffma"] = ffma["flash_attention"]
     kernels[2]["ffma"] = ffma["decode_attention"]
     phase_example()
+    examples = phase_examples()
+    for kernel in kernels:
+        kernel["launches_examples"] = {
+            name: run["launches"][kernel["name"]]
+            for name, run in examples["examples"].items()}
+    kernels[1]["launches_examples_by_design"] = {
+        name: run["flash_by_design"]
+        for name, run in examples["examples"].items()}
+    kernels[2]["launches_examples_by_design"] = {
+        name: run["decode_by_design"]
+        for name, run in examples["examples"].items()}
     dry = phase_dryrun(dryrun_started)
     for held in dry["held"]:
         entry = kernels[1] if held["kernel"] == "flash_attention" \

@@ -1,8 +1,9 @@
 """Runtime CSR contracts for the incidence structures.
 
 The port's own copy of the JAX package's ``analysis/contracts.py``: the
-validators ``net/`` calls, behind the same ``REPRO_VALIDATE`` switch (the
-package's static checkers are not ported).
+validators ``net/`` calls, behind the same ``REPRO_VALIDATE`` switch
+(``contracts_static`` checks statically that each class registered in
+``VALIDATORS`` calls ``maybe_validate`` from its ``__post_init__``).
 
 The vectorized engines trust their precompiled CSR payloads blindly:
 a non-monotone ``link_ptr`` silently mis-slices, an out-of-bounds

@@ -508,7 +508,9 @@ def _run_batch(branch_table, edge_table, sizes, active0, starts, caps,
     ])
     global _syncs
     _syncs += 1
-    return packed.cpu().numpy()
+    # An explicit copy: on the CPU ``.cpu()`` would dispatch nothing, and
+    # the trace lint could not see the read it counts.
+    return packed.to("cpu", copy=True).numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The port stands alone: `repro_torch`, `chip_smoke.py` and the port's
-example (`examples/train_dfl_torch.py`) import neither
+examples (`examples/*_torch.py`) import neither
 `jax`, `repro` nor `networkx`; no library attention in the port (only
 `chip_smoke.py` times one, as a yardstick), no `torch.compile`, no `try:`
 around a kernel launch; and without a GPU `device=None` raises instead of
@@ -16,8 +16,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "examples" / "train_dfl_torch.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / f"{name}_torch.py" for name in (
+        "train_dfl", "quickstart", "topology_design", "dynamic_network",
+        "serve_decode", "elastic_failover")]
 FORBIDDEN_MODULES = ("jax", "jaxlib", "repro", "networkx")
 
 
@@ -74,9 +76,18 @@ def test_package_has_the_slices_modules():
         "repro_torch.runtime.design_service", "repro_torch.launch.sharding",
         "repro_torch.models.sharding_hints", "repro_torch.roofline",
         "repro_torch.roofline.analytic", "repro_torch.roofline.analysis",
-        "repro_torch.launch.dryrun",
+        "repro_torch.launch.dryrun", "repro_torch.analysis.common",
+        "repro_torch.analysis.determinism", "repro_torch.analysis.dtypes",
+        "repro_torch.analysis.parity",
+        "repro_torch.analysis.contracts_static",
+        "repro_torch.analysis.docs_check", "repro_torch.analysis.tracelint",
+        "repro_torch.analysis.tracelint_targets",
+        "repro_torch.analysis.__main__",
     ):
         assert want in names
+    for data in ("parity_manifest.txt", "tracelint_manifest.txt",
+                 "waivers.txt"):
+        assert (PKG / "analysis" / data).is_file()
     for src in ("mixing_combine", "flash_attention_wgmma",
                 "flash_attention_ffma", "decode_attention",
                 "decode_attention_mma"):

@@ -292,3 +292,53 @@ def test_the_routing_copy_keeps_scipy_lazy():
     assert inspect.getsource(trouting.route_milp).count(
         "from scipy") == inspect.getsource(jrouting.route_milp).count(
         "from scipy")
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_reference_implementations_hold_the_fast_paths(seed):
+    """The port's retained ground truths (registered in
+    ``src/repro_torch/analysis/parity_manifest.txt``) against its fast
+    paths, and each the JAX package's own reference: the dict-loop
+    ``_route_congestion_aware_reference`` gives ``route_congestion_aware``'s
+    trees, ``_compute_categories_reference`` its categories and
+    ``_compile_category_incidence_reference`` ``compile_category_incidence``'s
+    entry arrays, bitwise."""
+    from repro.net import categories as jcats
+    from repro_torch.net import categories as tcats
+
+    m = 3 + seed % 5
+
+    def build(net, cats_mod, routing_mod):
+        u = net.random_geometric_underlay(12, radius=0.5, seed=seed)
+        ov = net.build_overlay(u, list(u.graph.nodes)[:m])
+        rng = np.random.default_rng(seed)
+        links = [(i, j) for i in range(m) for j in range(i + 1, m)
+                 if rng.random() < 0.6] or [(0, 1)]
+        demands = net.demands_from_links(links, 1e6, m)
+        fast_cats = net.compute_categories(ov)
+        ref_cats = cats_mod._compute_categories_reference(ov)
+        return (
+            fast_cats, ref_cats,
+            net.compile_category_incidence(fast_cats, m, 1e6),
+            cats_mod._compile_category_incidence_reference(ref_cats, m, 1e6),
+            net.route_congestion_aware(demands, fast_cats, 1e6, m, rounds=2),
+            routing_mod._route_congestion_aware_reference(
+                demands, fast_cats, 1e6, m, rounds=2),
+        )
+
+    jax_side = build(jnet, jcats, jrouting)
+    port = build(tnet, tcats, trouting)
+    fast_cats, ref_cats, fast_inc, ref_inc, fast_sol, ref_sol = port
+    for what in ("members", "capacity", "edge_capacity"):
+        assert list(getattr(fast_cats, what).items()) == list(
+            getattr(ref_cats, what).items()), what
+    for name in ("capacity", "entry_link", "entry_cat", "entry_coef",
+                 "link_ptr"):
+        a, b = getattr(fast_inc, name), getattr(ref_inc, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert fast_sol.trees == ref_sol.trees
+    assert fast_sol.completion_time == ref_sol.completion_time
+    assert_same(jax_side[1], ref_cats, "reference categories")
+    assert_same(jax_side[3], ref_inc, "reference incidence")
+    assert jax_side[5].trees == ref_sol.trees
+    assert jax_side[5].completion_time == ref_sol.completion_time
