@@ -79,6 +79,13 @@ points a user calls:
   dispatch mode, and the ``rollout`` phase's 220-agent star x 256 rollouts
   uncut under it: every floating output float64, every device→host read
   counted by ``torch_engine.sync_count()``;
+* the recurrent kernels — Mamba's selective scan and sLSTM's recurrence,
+  forward and backward, each against its plain version at the case tables
+  and at Jamba's served [2, 8192, 16384] scan and xLSTM's [8, 2048, 768]
+  sLSTM (both backwards at S = 2048), with faulty controls refused; then
+  one launcher training step of xLSTM-125M and of Jamba's first layer at
+  full width (1 x 2048 tokens), whose recurrent layers launch each
+  forward twice (the recompute) and each backward once;
 * the dry run — ``launch/dryrun.run_cell`` on fake CUDA tensors over a
   fake process group of 256 ranks for Qwen2-0.5B and Mixtral-8x7B's
   training cells and Mixtral's decode cell (traced in a process started
@@ -106,25 +113,29 @@ points a user calls:
   ``serve_check`` held on the card; then the recurrent blocks and the
   frontends: Jamba-1.5-Large's first 5 layers (Mamba, Mamba + MoE of 16
   experts, NoPE attention at 64 / 8 heads) with 2 prompts of 8192 tokens,
-  xLSTM-125M (mLSTM and sLSTM, no attention) with 8 of 2048, LLaVA-NeXT-34B
+  one ``selective_scan`` launch a Mamba layer a prefill, xLSTM-125M (mLSTM
+  and sLSTM, no attention) with 8 of 2048, one ``slstm_scan`` launch a
+  sLSTM layer a prefill, LLaVA-NeXT-34B
   (576 patch positions and 3520 tokens, 4 requests) and MusicGen-large
   (multi-head attention at head_dim 64, 8 requests of 1500 codec tokens),
   each with its attention shapes and ``serve_check``.
 
 First it builds the hand-written kernels from
-``src/repro_torch/kernels/csrc`` with ``nvcc`` (five sources, one process
+``src/repro_torch/kernels/csrc`` with ``nvcc`` (seven sources, one process
 each, all at once: ``mixing_combine``; ``flash_attention`` has two,
 ``flash_attention_wgmma`` for bf16 at every head_dim and
 ``flash_attention_ffma`` for float32 at every head_dim;
 ``decode_attention`` has two, ``decode_attention_mma`` for bf16 and
-``decode_attention`` (FFMA) for float32) and holds each against its plain
+``decode_attention`` (FFMA) for float32; ``selective_scan`` and
+``slstm_scan``, each a forward and a backward) and holds each against its plain
 PyTorch version on the card, also at the shapes the paths give them, and
 shows that the checks refuse a faulty plain version. Needs a CUDA device
 and ``nvcc``; there is no CPU path. Any failed phase raises and the script
 exits non-zero.
 
 Output: one JSON object per phase (``device``, ``build``,
-``kernel_check``, ``attention_check``, ``small_reference``, ``analysis``,
+``kernel_check``, ``attention_check``, ``recurrent_kernels``,
+``small_reference``, ``analysis``,
 ``rollout``, ``tracelint``,
 ``train``, ``train_launch``, ``per_agent_flat_combine``, ``mesh_init``,
 ``train_mesh``, ``serve_mesh``, ``train_tp``, ``serve_tp``,
@@ -214,6 +225,8 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import mixing_combine as mixing_mod
+from repro_torch.kernels import selective_scan as scan_mod
+from repro_torch.kernels import slstm_scan as slstm_mod
 from repro_torch.launch import fabric, serve, sharding, train
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import (
@@ -287,10 +300,19 @@ KERNELS = {
         "flash_attention_wgmma", "src/repro/kernels/flash_attention.py:96"),
     "decode_attention": (
         "decode_attention_mma", "src/repro/kernels/decode_attention.py:73"),
+    # the recurrent kernels replace no TPU kernel: the JAX package runs
+    # these loops as XLA scans
+    "selective_scan": (
+        "selective_scan", "none: jax.lax.associative_scan at "
+        "src/repro/models/ssm.py:100"),
+    "slstm_scan": (
+        "slstm_scan", "none: jax.lax.scan at src/repro/models/ssm.py:329"),
 }
+RECURRENT = ("selective_scan", "slstm_scan")
 # Every kernel source, built at once (one nvcc process each).
 SOURCES = ("mixing_combine", "flash_attention_wgmma", "flash_attention_ffma",
-           "decode_attention", "decode_attention_mma")
+           "decode_attention", "decode_attention_mma", "selective_scan",
+           "slstm_scan")
 
 FP32_TOL = 1e-5   # the reference's own (tests/test_kernels.py)
 BF16_TOL = 2e-2   # one bf16 rounding vs. the unfused form's two
@@ -2280,7 +2302,7 @@ def phase_serve_mesh(seed: int, mesh) -> dict:
     decode_designs = decode_mod.launch_count_by_design()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"flash_attention": layers, "decode_attention": layers * steps,
-            "mixing_sgd_combine": 0}
+            "mixing_sgd_combine": 0, **dict.fromkeys(RECURRENT, 0)}
     if launches != want:
         raise AssertionError(f"serve_mesh launches {launches}, not {want}")
     if flash_designs != launches_by_design(flash_mod.DESIGNS, "wgmma",
@@ -2433,7 +2455,8 @@ def tp_rank_train(mesh, rank: int, work: str, seed: int) -> dict:
     launches = {name: ops.launch_count(name) for name in KERNELS}
     leaves = len(tree_leaves(state["params"]))
     want = {"mixing_sgd_combine": leaves * len(batches),
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0,
+            **dict.fromkeys(RECURRENT, 0)}
     if launches != want:
         raise AssertionError(f"train_tp rank {rank}: launches {launches}, "
                              f"not {want}")
@@ -2945,7 +2968,8 @@ def pod_rank_train(mesh, rank: int, work: str, seed: int) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     leaves = len(tree_leaves(params))
     want = {"mixing_sgd_combine": leaves * len(batches),
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0,
+            **dict.fromkeys(RECURRENT, 0)}
     moe_layers = cfg.num_groups * sum(k in MOE_KINDS
                                       for k in cfg.block_pattern)
     # one dispatch and one combine a MoE layer, forward and recompute
@@ -4063,6 +4087,15 @@ def attention_layers(cfg) -> int:
                                 for kind in cfg.block_pattern)
 
 
+def recurrent_layers(cfg) -> dict:
+    """Layers of ``cfg`` whose mixer is one of the recurrent kernels' (one
+    forward launch each a prefill; a decode step launches none)."""
+    return {"selective_scan": cfg.num_groups * sum(
+                kind in ("mamba", "mamba_moe") for kind in cfg.block_pattern),
+            "slstm_scan": cfg.num_groups * sum(
+                kind == "slstm" for kind in cfg.block_pattern)}
+
+
 def launches_by_design(designs, design: str, n: int) -> dict:
     """The launch counts by design when ``n`` launches all went to
     ``design``."""
@@ -4297,6 +4330,10 @@ def phase_serve(seed: int, with_profile: bool = False,
             f"{layers * steps} through mma")
     if launches["flash_attention"] != layers or launches["mixing_sgd_combine"]:
         raise AssertionError(f"serving path launch counts {launches}")
+    if {name: launches[name] for name in RECURRENT} != recurrent_layers(cfg):
+        raise AssertionError(
+            f"prefill's recurrent launches {launches}: not one a layer "
+            f"{recurrent_layers(cfg)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite decode logits")
     out = torch.cat(generated, dim=1)
@@ -4766,10 +4803,10 @@ def jamba_layer_times(params, seed: int) -> dict:
     """Where Jamba's prefill goes, by block part, at the served prompt (2 x
     8192 tokens of N(0, 1) activations in bf16) on the served weights: the
     Mamba mixer of layer 0 (``ssm.mamba_prefill``: projections, conv,
-    gates and the chunked scan's loop of 8192 steps), the MoE FFN of layer
-    1 (``moe.apply``, capacity 1.25) and the dense FFN of layer 0; each by
-    CUDA events over 2 calls after a warm-up, and the Mamba mixer also on
-    the host clock (its loop issues one launch a step)."""
+    gates and one ``selective_scan`` launch over the 8192 steps), the MoE
+    FFN of layer 1 (``moe.apply``, capacity 1.25) and the dense FFN of
+    layer 0; each by CUDA events over 2 calls after a warm-up, and the
+    Mamba mixer also on the host clock."""
     cfg, bf16 = JAMBA_CFG, torch.bfloat16
     b, s = JAMBA_SERVE[:2]
     gen = torch.Generator(device="cuda").manual_seed(seed + 16)
@@ -4802,8 +4839,9 @@ def jamba_layer_times(params, seed: int) -> dict:
 
 def phase_serve_xlstm(seed: int) -> dict:
     """xLSTM-125M whole on one card: 8 prompts of 2048 tokens and 64 greedy
-    tokens through mLSTM's parallel form and sLSTM's loop, no attention and
-    so no kernel launch asserted; ``serve_check`` in float32 and bf16."""
+    tokens through mLSTM's parallel form and sLSTM's recurrence (one
+    ``slstm_scan`` launch a sLSTM layer a prefill, asserted), no attention;
+    ``serve_check`` in float32 and bf16."""
     return serve_model(seed, "serve_xlstm", xlstm_125m.CONFIG, XLSTM_SERVE,
                        XLSTM_CHECK, forms=("float32", "bfloat16"))
 
@@ -4847,6 +4885,465 @@ def add_served(flash: dict, decode: dict, key: str, run: dict) -> None:
     flash[f"launches_{key}_by_design"] = run["flash_by_design"]
     decode[f"launches_{key}_per_step"] = run["decode_per_step"]
     decode[f"launches_{key}_by_design"] = run["decode_by_design"]
+
+
+# ---------------------------------------------------------------------------
+# The recurrent kernels (kernels/selective_scan.py, kernels/slstm_scan.py)
+# ---------------------------------------------------------------------------
+
+# Mamba's scan, (batch, S, d_inner, d_state, u's dtype): S = 1, S off the
+# 16-step chunks, channels off the 128- and 64-thread blocks, each d_state
+# the kernel is built for, bf16 inputs.
+SCAN_CASES = [
+    (1, 1, 64, 16, torch.float32), (2, 37, 130, 16, torch.float32),
+    (2, 100, 96, 4, torch.float32), (1, 50, 200, 4, torch.bfloat16),
+    (3, 300, 256, 16, torch.bfloat16)]
+# Jamba's served Mamba layer (2 x 8192 tokens, d_inner 2 x 8192, d_state
+# 16, bf16 u) and its backward at a layer's width with S cut to 2048.
+SCAN_SERVED = (2, 8192, 16384, 16)
+SCAN_BWD = (1, 2048, 16384, 16)
+# sLSTM, (batch, S, d, R's dtype): d off the 256-thread block (1000: four
+# elements a thread), bf16 R.
+SLSTM_CASES = [(1, 1, 12, torch.float32), (2, 33, 64, torch.float32),
+               (3, 100, 768, torch.float32), (2, 20, 1000, torch.float32),
+               (2, 50, 768, torch.bfloat16)]
+# xLSTM-125M's served sLSTM layer (8 x 2048 tokens, d 768, bf16) and its
+# backward at one row.
+SLSTM_SERVED = (8, 2048, 768)
+SLSTM_BWD = (1, 2048, 768)
+# Kernel against plain version, (rtol, atol): the limit rtol x |want| +
+# atol x RMS(want) over the tensor. float32 at tests/test_torch_ssm.py's
+# routes: Mamba 1e-4 (the scan's products in another order than the plain
+# version's loop), sLSTM 2e-5 (its products the plain version's, the
+# recurrent sums in another order). A bf16 R rounds the recurrent product
+# to bf16 each step, and where the two orders of summation round to
+# neighbouring bf16 values the two trajectories part by that ulp and carry
+# it on: the attention kernels' data-scaled bf16 limit.
+SCAN_TOL = (1e-4, 1e-4)
+SLSTM_TOL = (2e-5, 2e-5)
+SLSTM_BF16_TOL = (ATTN_ROW_RTOL, ATTN_ROW_ATOL)
+# One step of a layer's training run through the launcher: xLSTM-125M whole
+# and Jamba's first layer (Mamba + dense FFN) at full width, 1 x 2048 tokens.
+RECURRENT_TRAIN_SHAPE = ShapeConfig("recurrent_train", 2048, 1, "train")
+JAMBA_TRAIN_CFG = dataclasses.replace(
+    jamba_1_5_large_398b.CONFIG, num_layers=1,
+    block_pattern=jamba_1_5_large_398b.CONFIG.block_pattern[:1])
+
+
+def hold_recurrent(what: str, got, want, tol: tuple) -> dict:
+    """``got`` within ``rtol`` x |want| + ``atol`` x RMS(want) of ``want``,
+    ``tol`` = (rtol, atol)."""
+    rtol, atol = tol
+    scale = float(want.to(torch.float32).pow(2).mean().sqrt())
+    agree, max_err, worst = compare(got, want, rtol, atol * scale)
+    if not agree or got.shape != want.shape:
+        raise AssertionError(
+            f"{what}: kernel and plain version disagree beyond rtol={rtol}, "
+            f"atol={atol} x RMS {scale} (max abs err {max_err}, largest "
+            f"error over limit {worst})")
+    return {"case": what, "max_abs_err": max_err, "err_over_limit": worst}
+
+
+def no_farther(what: str, got, plain, truth) -> dict:
+    """The bf16 rule of ``serve_check``: ``got`` no farther from the
+    float32 ``truth`` (largest absolute error) than twice ``plain`` + 1e-4
+    x RMS(truth). Where a bf16 rounding each step is part of the function,
+    two right implementations that sum in other orders part by ulps that
+    later steps carry on; each stays about as far from the float32 truth
+    as the other."""
+    scale = float(truth.to(torch.float32).pow(2).mean().sqrt())
+    got_err = float((got.float() - truth.float()).abs().max())
+    plain_err = float((plain.float() - truth.float()).abs().max())
+    limit = 2 * plain_err + 1e-4 * scale
+    if not bool(torch.isfinite(got).all()) or got_err > limit:
+        raise AssertionError(
+            f"{what}: {got_err} from the float32 truth, the plain version "
+            f"{plain_err} (limit {limit})")
+    return {"case": what, "max_abs_err": float((got - plain).abs().max()),
+            "err_to_truth": got_err, "plain_err_to_truth": plain_err,
+            "err_over_limit": got_err / limit if limit else 0.0}
+
+
+def refuse_farther(what: str, faulty, plain, truth) -> float:
+    """``no_farther`` must refuse ``faulty``; returns its error to the
+    truth over the limit."""
+    scale = float(truth.to(torch.float32).pow(2).mean().sqrt())
+    plain_err = float((plain.float() - truth.float()).abs().max())
+    limit = 2 * plain_err + 1e-4 * scale
+    err = float((faulty.float() - truth.float()).abs().max())
+    worst = err / limit if limit else (math.inf if err else 0.0)
+    if worst <= 1:
+        raise AssertionError(
+            f"{what}: the check cannot tell the kernel from a faulty plain "
+            "version")
+    return worst
+
+
+def refuse_recurrent(what: str, got, faulty, tol: tuple) -> float:
+    """The check of ``hold_recurrent`` must refuse ``faulty``; returns its
+    largest error over the limit."""
+    rtol, atol = tol
+    scale = float(faulty.to(torch.float32).pow(2).mean().sqrt())
+    agree, _, worst = compare(got, faulty, rtol, atol * scale)
+    if agree:
+        raise AssertionError(
+            f"{what}: the check cannot tell the kernel from a faulty plain "
+            "version")
+    return worst
+
+
+def scan_inputs(gen, b: int, s: int, di: int, ds: int, dtype, h0=True):
+    """The scan's inputs as Jamba's mixer makes them: u N(0, 1) in its
+    dtype; dt = softplus(N(-2, 1)); A = -(1 .. ds) (S4D-real, as
+    ``mamba_init``); B, C N(0, 1); h0 N(0, 1) or None."""
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda")
+    return {"u": randn(b, s, di).to(dtype),
+            "dt": torch.nn.functional.softplus(randn(b, s, di) - 2.0),
+            "a": a.expand(di, ds).contiguous(),
+            "bm": randn(b, s, ds), "cm": randn(b, s, ds),
+            "h0": randn(b, di, ds) if h0 else None}
+
+
+def _half(inp: dict, part: slice) -> dict:
+    return {k: (v[:, part] if k in ("u", "dt", "bm", "cm") else v)
+            for k, v in inp.items()}
+
+
+def scan_forward_check(gen, b, s, di, ds, dtype, control: bool) -> dict:
+    """The forward launch against ``ref.selective_scan_ref``; with
+    ``control``, a plain scan restarted from zero at S/2 refused."""
+    inp = scan_inputs(gen, b, s, di, ds, dtype)
+    y, h, _ = scan_mod.selective_scan_fwd(**inp)
+    want_y, want_h = ref.selective_scan_ref(**inp)
+    what = f"scan [{b}, {s}, {di}] ds {ds} {dtype}"
+    out = hold_recurrent(f"{what} y", y, want_y, SCAN_TOL)
+    out["h_max_abs_err"] = hold_recurrent(f"{what} h", h, want_h,
+                                          SCAN_TOL)["max_abs_err"]
+    if control:
+        half = s // 2
+        restarted = ref.selective_scan_ref(
+            **{**_half(inp, slice(half, None)), "h0": None})[0]
+        out["restart_refused_err_over_limit"] = refuse_recurrent(
+            what, y, torch.cat([want_y[:, :half], restarted], dim=1),
+            SCAN_TOL)
+    return out
+
+
+def scan_backward_check(gen, b, s, di, ds, dtype) -> dict:
+    """The backward launch (from the forward's checkpoints) against
+    ``ref.selective_scan_bwd_ref`` on every gradient; a plain backward
+    whose gradient carry is dropped at S/2 refused on ``du``."""
+    inp = scan_inputs(gen, b, s, di, ds, dtype)
+    dy = torch.randn((b, s, di), generator=gen, device="cuda")
+    dh = torch.randn((b, di, ds), generator=gen, device="cuda")
+    _, _, ck = scan_mod.selective_scan_fwd(**inp, save=True)
+    got = scan_mod.selective_scan_bwd(**inp, ck=ck, dy=dy, dh_last=dh)
+    want = ref.selective_scan_bwd_ref(**inp, dy=dy, dh_last=dh)
+    what = f"scan backward [{b}, {s}, {di}] ds {ds} {dtype}"
+    out = {"case": what, "max_abs_err": 0.0, "err_over_limit": 0.0}
+    for name, g, w in zip(("du", "ddt", "da", "dbm", "dcm", "dh0"),
+                          got, want):
+        held = hold_recurrent(f"{what} {name}", g, w, SCAN_TOL)
+        out[f"{name}_max_abs_err"] = held["max_abs_err"]
+        out["max_abs_err"] = max(out["max_abs_err"], held["max_abs_err"])
+        out["err_over_limit"] = max(out["err_over_limit"],
+                                    held["err_over_limit"])
+    half = s // 2
+    first, second = _half(inp, slice(None, half)), _half(inp,
+                                                         slice(half, None))
+    h_mid = ref.selective_scan_ref(**first)[1]
+    late = ref.selective_scan_bwd_ref(**{**second, "h0": h_mid},
+                                      dy=dy[:, half:], dh_last=dh)
+    early = ref.selective_scan_bwd_ref(**first, dy=dy[:, :half])
+    out["dropped_carry_refused_err_over_limit"] = refuse_recurrent(
+        what, got[0], torch.cat([early[0], late[0]], dim=1), SCAN_TOL)
+    return out
+
+
+def slstm_inputs(gen, b: int, s: int, d: int, dtype, empty=True):
+    """sLSTM's inputs as xLSTM's block makes them: pre_x N(0, 1), R
+    N(0, 1/d) in its dtype (``slstm_init``'s scale), the empty carry
+    (m = -inf) or an N(0, 1) one."""
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    carry = (ssm.slstm_init_state(b, ssm.SLSTMSpec(d, 1), "cuda") if empty
+             else {k: randn(b, d) for k in "cnhm"})
+    return {"pre_x": randn(b, s, 4 * d),
+            "r": (randn(d, 4 * d) * d**-0.5).to(dtype), "carry": carry}
+
+
+def slstm_tol(dtype) -> tuple:
+    return SLSTM_TOL if dtype == torch.float32 else SLSTM_BF16_TOL
+
+
+def slstm_forward_check(gen, b, s, d, dtype, empty, control: bool) -> dict:
+    """The forward launch against ``ref.slstm_scan_ref`` (hs and the last
+    carry); with ``control``, a plain version with R's i and f blocks
+    swapped refused."""
+    inp = slstm_inputs(gen, b, s, d, dtype, empty)
+    hs, last, _ = slstm_mod.slstm_scan_fwd(**inp)
+    want_hs, want_last = ref.slstm_scan_ref(**inp)
+    tol = slstm_tol(dtype)
+    what = f"slstm [{b}, {s}, {d}] {dtype} {'empty' if empty else 'random'}"
+    out = hold_recurrent(f"{what} hs", hs, want_hs, tol)
+    for key in "cnhm":
+        hold_recurrent(f"{what} {key}", last[key], want_last[key], tol)
+    if control:
+        r = inp["r"]
+        swapped = torch.cat([r[:, :d], r[:, 2 * d:3 * d], r[:, d:2 * d],
+                             r[:, 3 * d:]], dim=1)
+        out["gates_swapped_refused_err_over_limit"] = refuse_recurrent(
+            what, hs, ref.slstm_scan_ref(inp["pre_x"], swapped,
+                                         inp["carry"])[0], tol)
+    return out
+
+
+def slstm_backward_check(gen, b, s, d, dtype, empty: bool) -> dict:
+    """The backward launch against ``ref.slstm_scan_bwd_ref``, both from
+    the forward launch's saved tensors (where ``maximum``'s two sides are
+    nearly tied in the forward, bf16 trajectories that part by an ulp send
+    the gradient to different sides), from the empty carry (m = -inf:
+    dc0, dn0 and dm0 are zero there) or a random one: dpre and the
+    initial carry's four gradients; a plain backward whose carried
+    gradient is dropped at S/2 refused on dpre."""
+    inp = slstm_inputs(gen, b, s, d, dtype, empty)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    dhs = randn(b, s, d)
+    dlast = {k: randn(b, d) for k in "cnhm"}
+    _, _, saved = slstm_mod.slstm_scan_fwd(**inp, save=True)
+    dpre, dcarry = slstm_mod.slstm_scan_bwd(inp["r"], inp["carry"], dhs,
+                                            dlast, saved=saved)
+    want_dpre, want_dcarry = ref.slstm_scan_bwd_ref(
+        inp["pre_x"], inp["r"], inp["carry"], dhs, dlast, saved=saved)
+    tol = slstm_tol(dtype)
+    what = (f"slstm backward [{b}, {s}, {d}] {dtype} "
+            f"{'empty' if empty else 'random'}")
+    if dtype == torch.float32:
+        out = hold_recurrent(f"{what} dpre", dpre, want_dpre, tol)
+        for key in "cnhm":
+            out[f"d{key}0_max_abs_err"] = hold_recurrent(
+                f"{what} d{key}0", dcarry[key], want_dcarry[key],
+                tol)["max_abs_err"]
+    else:
+        truth, truth_carry = ref.slstm_scan_bwd_ref(
+            None, inp["r"].float(), inp["carry"], dhs, dlast, saved=saved)
+        out = no_farther(f"{what} dpre", dpre, want_dpre, truth)
+        for key in "cnhm":
+            out[f"d{key}0_err_to_truth"] = no_farther(
+                f"{what} d{key}0", dcarry[key], want_dcarry[key],
+                truth_carry[key])["err_to_truth"]
+    half = s // 2
+    pre, states = saved
+    mid = {**dict(zip("cnm", states[:, :, half - 1])),
+           "h": torch.zeros_like(inp["carry"]["h"])}
+    late = ref.slstm_scan_bwd_ref(
+        None, inp["r"], mid, dhs[:, half:], dlast,
+        saved=(pre[:, half:], states[:, :, half:]))[0]
+    early = ref.slstm_scan_bwd_ref(
+        None, inp["r"], inp["carry"], dhs[:, :half],
+        saved=(pre[:, :half], states[:, :, :half]))[0]
+    faulty = torch.cat([early, late], dim=1)
+    out["dropped_carry_refused_err_over_limit"] = (
+        refuse_recurrent(what, dpre, faulty, tol) if dtype == torch.float32
+        else refuse_farther(what, faulty, want_dpre, truth))
+    return out
+
+
+def recurrent_times(gen) -> dict:
+    """Each kernel at its main path's shape beside its bound and its plain
+    version (no PyTorch call computes either function: no library time).
+    The scan's bound: the larger of its bytes at 3.35 TB/s and its ex2 on
+    the MUFU (one a (token, channel, state), in the backward too: the
+    function needs one, though the kernel recomputes the decay); sLSTM's:
+    the larger of its bytes and its operations — the recurrent product at
+    the peak of R's dtype (bf16: the tensor cores) plus the cell's
+    elementwise work at the FP32 peak —, far from either (its steps run
+    one after another)."""
+    out = {}
+    b, s, di, ds = SCAN_SERVED
+    inp = scan_inputs(gen, b, s, di, ds, torch.bfloat16, h0=False)
+    w = scan_mod.work(inp["u"], ds)
+    by = {"bytes": w["bytes"] / PEAK_BYTES_PER_S * 1e3,
+          "operations": w["exps"] / mufu_per_s() * 1e3}
+    out["selective_scan"] = {
+        "shape": [b, s, di, ds], "dtype": "bfloat16",
+        "ms": time_cuda(lambda: scan_mod.selective_scan_fwd(**inp), reps=5),
+        "plain_ms": time_cuda(lambda: ref.selective_scan_ref(**inp), reps=2),
+        "bound_ms": max(by.values()), "bound_by": max(by, key=by.get),
+        "bound_ms_by": by, "library_ms": None}
+    del inp
+    b, s, di, ds = SCAN_BWD
+    inp = scan_inputs(gen, b, s, di, ds, torch.bfloat16, h0=False)
+    dy = torch.randn((b, s, di), generator=gen, device="cuda")
+    _, _, ck = scan_mod.selective_scan_fwd(**inp, save=True)
+    w = scan_mod.work(inp["u"], ds, "backward")
+    by = {"bytes": w["bytes"] / PEAK_BYTES_PER_S * 1e3,
+          "operations": w["exps"] / mufu_per_s() * 1e3}
+    out["selective_scan_backward"] = {
+        "shape": [b, s, di, ds], "dtype": "bfloat16",
+        "ms": time_cuda(lambda: scan_mod.selective_scan_bwd(
+            **inp, ck=ck, dy=dy), reps=5),
+        "plain_ms": time_cuda(lambda: ref.selective_scan_bwd_ref(
+            **inp, dy=dy), reps=1),
+        "bound_ms": max(by.values()), "bound_by": max(by, key=by.get),
+        "bound_ms_by": by, "library_ms": None}
+    del inp, dy, ck
+    for key, (b, s, d) in (("slstm_scan", SLSTM_SERVED),
+                           ("slstm_scan_backward", SLSTM_BWD)):
+        inp = slstm_inputs(gen, b, s, d, torch.bfloat16)
+        if key == "slstm_scan":
+            w = slstm_mod.work(inp["pre_x"], inp["r"])
+            ms = time_cuda(lambda: slstm_mod.slstm_scan_fwd(**inp), reps=3)
+            plain_ms = time_cuda(lambda: ref.slstm_scan_ref(**inp), reps=1,
+                                 warmup=0)
+        else:
+            dhs = torch.randn((b, s, d), generator=gen, device="cuda")
+            _, _, saved = slstm_mod.slstm_scan_fwd(**inp, save=True)
+            w = slstm_mod.work(inp["pre_x"], inp["r"], "backward")
+            ms = time_cuda(lambda: slstm_mod.slstm_scan_bwd(
+                inp["r"], inp["carry"], dhs, saved=saved), reps=3)
+            plain_ms = time_cuda(lambda: ref.slstm_scan_bwd_ref(
+                inp["pre_x"], inp["r"], inp["carry"], dhs, saved=saved),
+                reps=1, warmup=0)
+        product_peak = (PEAK_BF16_FLOPS if inp["r"].dtype == torch.bfloat16
+                        else PEAK_FP32_FLOPS)
+        by = {"bytes": w["bytes"] / PEAK_BYTES_PER_S * 1e3,
+              "operations": (w["product_flops"] / product_peak
+                             + (w["flops"] - w["product_flops"])
+                             / PEAK_FP32_FLOPS) * 1e3}
+        out[key] = {"shape": [b, s, d], "dtype": "bfloat16", "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": max(by.values()),
+                    "bound_by": max(by, key=by.get), "bound_ms_by": by,
+                    "library_ms": None}
+        del inp
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_train_step(cfg, seed: int) -> dict:
+    """One launcher step (``build_train_artifacts`` → ``step_fn``, one
+    agent, remat as the config's) of ``cfg`` at RECURRENT_TRAIN_SHAPE: the
+    recurrent kernels' launches by direction — a forward a recurrent layer
+    and another in the recompute, a backward a layer — the loss finite,
+    the parameters finite and moved."""
+    tcfg = dataclasses.replace(get_train_config(cfg.name),
+                               agent_layout="data_dp", microbatch=1)
+    art = train.build_train_artifacts(cfg, tcfg, RECURRENT_TRAIN_SHAPE,
+                                      launch_mesh.make_test_mesh((1, 1)))
+    stream = SyntheticTokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=RECURRENT_TRAIN_SHAPE.seq_len,
+        num_agents=1, dirichlet_alpha=0.3, seed=1))
+    batch = make_batch_fn(stream, art.batch_shapes, cfg.vocab_size)(0)
+    state = art.init_state(seed)
+    before = tree_map(lambda t: t.clone(), state["params"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_count()
+    t0 = time.perf_counter()
+    state, metrics = art.step_fn(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"selective_scan": scan_mod.launch_count_by_design(),
+                "slstm_scan": slstm_mod.launch_count_by_design()}
+    forwards = 2 if tcfg.remat != "none" else 1
+    want = {name: {"forward": forwards * n, "backward": n}
+            for name, n in recurrent_layers(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} training step: recurrent launches "
+                             f"{launches}, not {want}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"{cfg.name} training step: loss {loss}")
+    moved = 0
+    for (path, p), q in zip(tree_paths(state["params"]),
+                            tree_leaves(before)):
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{cfg.name} training step: non-finite "
+                                 f"{path}")
+        moved += int(not torch.equal(p, q))
+    if moved < len(tree_leaves(before)) // 2:
+        raise AssertionError(f"{cfg.name} training step: {moved} leaves "
+                             "moved")
+    out = {"config": cfg.name, "layers": cfg.num_layers,
+           "tokens": RECURRENT_TRAIN_SHAPE.seq_len, "remat": tcfg.remat,
+           "loss": loss, "step_ms": step_ms, "launches": launches,
+           "leaves_moved": moved,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, before, art
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent_kernels(seed: int) -> dict:
+    """Mamba's selective scan and sLSTM's recurrence, forward and backward,
+    each against its plain version on the card: the case tables, the
+    served shapes (the scan at Jamba's [2, 8192, 16384], sLSTM at xLSTM's
+    [8, 2048, 768] in bf16), both backwards at a layer's width with S cut
+    to 2048, each with a faulty plain version refused; their times beside
+    their bounds; then one launcher training step of xLSTM-125M and of
+    Jamba's first layer, which launch both backwards."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    f32, bf16 = torch.float32, torch.bfloat16
+    scan = [scan_forward_check(gen, *case, control=case[1] > 1)
+            for case in SCAN_CASES]
+    scan.append(scan_forward_check(gen, *SCAN_SERVED, bf16, control=True))
+    scan_bwd = [scan_backward_check(gen, 2, 37, 130, 16, f32),
+                scan_backward_check(gen, 1, 50, 200, 4, bf16),
+                scan_backward_check(gen, *SCAN_BWD, bf16)]
+    torch.cuda.empty_cache()
+    slstm = [slstm_forward_check(gen, *case, empty=True, control=case[1] > 1)
+             for case in SLSTM_CASES]
+    slstm.append(slstm_forward_check(gen, 2, 40, 768, f32, empty=False,
+                                     control=False))
+    slstm.append(slstm_forward_check(gen, *SLSTM_SERVED, bf16, empty=True,
+                                     control=True))
+    slstm_bwd = [slstm_backward_check(gen, 2, 33, 64, f32, empty=True),
+                 slstm_backward_check(gen, 2, 100, 768, f32, empty=True),
+                 slstm_backward_check(gen, 2, 100, 768, f32, empty=False),
+                 slstm_backward_check(gen, *SLSTM_BWD, bf16, empty=True),
+                 slstm_backward_check(gen, *SLSTM_BWD, bf16, empty=False)]
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    times = recurrent_times(gen)
+    train_steps = {cfg.name: recurrent_train_step(cfg, seed)
+                   for cfg in (xlstm_125m.CONFIG, JAMBA_TRAIN_CFG)}
+    out = {"selective_scan": scan, "selective_scan_backward": scan_bwd,
+           "slstm_scan": slstm, "slstm_scan_backward": slstm_bwd,
+           "times": times, "train_steps": train_steps,
+           "checks_seconds": checked_s,
+           "seconds": time.perf_counter() - t0}
+    emit("recurrent_kernels", **out)
+    return out
+
+
+def recurrent_kernel_entries(checked: dict, served: dict) -> list[dict]:
+    """The kernels line's entries of the two recurrent kernels: the served
+    runs' launches (Jamba's prefill for the scan, xLSTM's for sLSTM), the
+    largest error over the case tables and served shapes, the times; the
+    backward's own numbers and the training steps' launches beside."""
+    entries = []
+    for name, run in (("selective_scan", "serve_jamba"),
+                      ("slstm_scan", "serve_xlstm")):
+        fwd = checked["times"][name]
+        bwd = checked["times"][f"{name}_backward"]
+        entries.append({
+            **kernel_fields(name),
+            "launches": served[run]["launches"][name],
+            "launches_path": run,
+            "max_abs_err": max(c["max_abs_err"] for c in checked[name]),
+            **{k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape", "dtype",
+                                   "bound_ms_by")},
+            "backward": {
+                "max_abs_err": max(c["max_abs_err"]
+                                   for c in checked[f"{name}_backward"]),
+                **bwd},
+            "launches_training_steps": {
+                cfg: step["launches"][name]
+                for cfg, step in checked["train_steps"].items()},
+        })
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -6266,6 +6763,7 @@ def main(argv=None) -> int:
     dryrun_started = start_dryrun(args.seed, dryrun_core)
     checked = phase_kernel_check(args.seed)
     phase_attention_check(args.seed)
+    recurrent = phase_recurrent_kernels(args.seed)
     phase_small_reference(args.seed)
     phase_analysis()
     rollout = phase_rollout(args.profile)
@@ -6392,6 +6890,7 @@ def main(argv=None) -> int:
             else kernels[2]
         entry.setdefault("shapes", []).append(held)
         entry["max_abs_err"] = max(entry["max_abs_err"], held["max_abs_err"])
+    kernels += recurrent_kernel_entries(recurrent, served)
     for kernel in kernels:
         if kernel["launches"] < 1:
             raise AssertionError(

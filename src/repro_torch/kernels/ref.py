@@ -2,7 +2,10 @@
 
 Counterpart of the JAX package's ``kernels/ref.py``: the mixing combine
 and the two attention functions, in float32 with the kernels' mask
-constant. Two differences by design from the JAX oracles, shared with the
+constant; then the port's own recurrent kernels, which the JAX package
+leaves to XLA's scans: Mamba's selective scan and sLSTM's recurrence, each
+forward and backward (the backward as an explicit reverse recurrence, not
+autograd). Two differences by design from the JAX oracles, shared with the
 CUDA kernels: a query row with no valid key (``length = 0`` in decode, a
 row outside every key's reach in prefill) gives zeros, as the Pallas
 kernels do, where the JAX oracle softmaxes a row of ``-1e30`` into a
@@ -12,6 +15,7 @@ uniform average of V; and any ``Sq``/``Sk``/``S`` is accepted.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -135,3 +139,190 @@ def mixing_sgd_combine_stacked_ref(
     if g is not None:
         acc = acc - lr * g.to(torch.float32)
     return acc.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba's selective scan
+# ---------------------------------------------------------------------------
+
+
+def selective_scan_ref(u, dt, a, bm, cm, h0=None, chunk: int = 256):
+    """``h_t = exp(dt_t·A)·h_{t-1} + (dt_t·B_t)·u_t``, ``y_t = Σ_n h_t·C_t``
+    over ``u [B, S, di]`` (any float dtype), float32 ``dt [B, S, di]``,
+    ``a [di, ds]``, ``bm``/``cm [B, S, ds]`` and ``h0 [B, di, ds]`` (zeros
+    when None) → (``y [B, S, di]``, the last ``h``), both float32.
+
+    Runs in chunks of ``chunk`` steps along S: a chunk's decay and input
+    ``[B, L, di, ds]`` are made at once, then a loop over its steps carries
+    ``h`` with one ``addcmul`` a step."""
+    b, s, di = u.shape
+    h = (torch.zeros((b, di, a.shape[-1]), dtype=torch.float32,
+                     device=u.device) if h0 is None else h0)
+    ys = []
+    for c0 in range(0, s, chunk):
+        part = slice(c0, min(c0 + chunk, s))
+        dtc = dt[:, part, :, None]
+        decay = torch.exp(dtc * a)                              # [B,L,di,ds]
+        bu = (dtc * bm[:, part, None, :]) * u[:, part].to(
+            torch.float32)[..., None]
+        hs = []
+        for t in range(decay.shape[1]):
+            h = torch.addcmul(bu[:, t], decay[:, t], h)
+            hs.append(h)
+        del decay, bu
+        ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
+                               cm[:, part]))
+        del hs
+    y = torch.cat(ys, dim=1) if ys else u.new_zeros(u.shape, dtype=torch.float32)
+    return y, h
+
+
+def selective_scan_bwd_ref(u, dt, a, bm, cm, h0, dy, dh_last=None):
+    """The gradient of ``selective_scan_ref``'s (y, last h) as a reverse
+    recurrence: ``g_t = C_t·dy_t + exp(dt_{t+1}·A)·g_{t+1}`` from ``g`` =
+    ``dh_last`` past the end, then each input's share. Returns float32
+    (``du``, ``ddt``, ``da``, ``dbm``, ``dcm``, ``dh0``); ``h0`` None is
+    zeros."""
+    b, s, di = u.shape
+    uf = u.to(torch.float32)
+    h = (torch.zeros((b, di, a.shape[-1]), dtype=torch.float32,
+                     device=u.device) if h0 is None else h0)
+    decay = torch.exp(dt[..., None] * a)                        # [B,S,di,ds]
+    bu = (dt[..., None] * bm[:, :, None, :]) * uf[..., None]
+    hs = []
+    for t in range(s):
+        h = torch.addcmul(bu[:, t], decay[:, t], h)
+        hs.append(h)
+    del bu
+    hs = torch.stack(hs, dim=1)
+    g = torch.zeros_like(h) if dh_last is None else dh_last.to(torch.float32)
+    gs = [None] * s
+    for t in range(s - 1, -1, -1):
+        g = cm[:, t, None, :] * dy[:, t, :, None] + g
+        gs[t] = g
+        g = decay[:, t] * g
+    dh0 = g
+    gs = torch.stack(gs, dim=1)                                 # dL/dh_t
+    hprev = torch.cat([(torch.zeros_like(hs[:, :1]) if h0 is None
+                        else h0[:, None]), hs[:, :-1]], dim=1)
+    dcm = torch.einsum("bsdn,bsd->bsn", hs, dy)
+    del hs
+    dbm = torch.einsum("bsdn,bsd->bsn", gs, dt * uf)
+    du = torch.einsum("bsdn,bsn->bsd", gs, bm) * dt
+    gd = gs * hprev * decay                                     # dL/d(dt·A)
+    del hprev, decay
+    ddt = (torch.einsum("bsdn,bsn->bsd", gs, bm) * uf
+           + torch.einsum("bsdn,dn->bsd", gd, a))
+    da = torch.einsum("bsdn,bsd->dn", gd, dt)
+    return du, ddt, da, dbm, dcm, dh0
+
+
+# ---------------------------------------------------------------------------
+# sLSTM's recurrence
+# ---------------------------------------------------------------------------
+
+
+def _slstm_update(pre, state):
+    """The cell after its pre-activations ``pre [B, 4·d]`` (float32):
+    exponential gating with the stabilizer m (xLSTM eqs.)."""
+    zt, itil, ftil, ot = pre.chunk(4, dim=-1)
+    z = torch.tanh(zt)
+    o = torch.sigmoid(ot)
+    logf = F.logsigmoid(ftil)
+    m_new = torch.maximum(logf + state["m"], itil)
+    iw = torch.exp(itil - m_new)
+    fw = torch.exp(logf + state["m"] - m_new)
+    c = fw * state["c"] + iw * z
+    n = fw * state["n"] + iw
+    h = o * (c / torch.maximum(n, torch.exp(-m_new) + 1e-6))
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def slstm_step_ref(pre_x, r, state):
+    """One sLSTM step: ``pre_x [B, 4·d]`` the step's input projections
+    (float32), ``r [d, 4·d]`` the recurrent weights in the compute dtype,
+    whose product with ``h`` is rounded to that dtype before it is added;
+    ``state`` the carry ``{c, n, h, m}`` (float32) → the new carry."""
+    pre = pre_x + (state["h"].to(r.dtype) @ r).to(torch.float32)
+    return _slstm_update(pre, state)
+
+
+def slstm_scan_ref(pre_x, r, carry):
+    """``slstm_step_ref`` over ``pre_x [B, S, 4·d]`` from ``carry`` →
+    (``hs [B, S, d]`` float32, the last carry)."""
+    hs = []
+    for t in range(pre_x.shape[1]):
+        carry = slstm_step_ref(pre_x[:, t], r, carry)
+        hs.append(carry["h"])
+    return torch.stack(hs, dim=1), carry
+
+
+def _max_share(x, y):
+    """autograd's gradient share of ``x`` in ``maximum(x, y)``: 1 where it
+    is the larger, 1/2 on a tie."""
+    return (x > y).to(x.dtype) + 0.5 * (x == y).to(x.dtype)
+
+
+def slstm_scan_bwd_ref(pre_x, r, carry0, dhs, dlast=None, saved=None):
+    """The gradient of ``slstm_scan_ref``'s (hs, last carry) as a reverse
+    recurrence, with autograd's rules (``maximum``'s ties split in halves;
+    the recurrent product's gradient ``round(round(dpre_t) @ rᵀ)`` in
+    r's dtype) → (``dpre [B, S, 4·d]``, the initial carry's gradient
+    ``{c, n, h, m}``), float32. ``dlast`` is the last carry's gradient
+    (zeros when None). ``saved``: the forward's pre-activations ``[B, S,
+    4·d]`` and (c, n, m) ``[3, B, S, d]`` of every step, as the kernel's
+    forward saves them, in place of the forward recomputed from ``pre_x``
+    (a near-tie of ``maximum`` in the forward decides where the gradient
+    goes, so a backward is held on the forward it is given)."""
+    if saved is None:
+        states, pres = [carry0], []
+        for t in range(pre_x.shape[1]):
+            pre = pre_x[:, t] + (states[-1]["h"].to(r.dtype) @ r).to(
+                torch.float32)
+            pres.append(pre)
+            states.append(_slstm_update(pre, states[-1]))
+    else:
+        pre, st = saved
+        pres = pre.unbind(1)
+        states = [carry0] + [dict(zip("cnm", step))
+                             for step in st.unbind(2)]
+    s = len(pres)
+    zero = torch.zeros_like(carry0["c"])
+    grad = dict.fromkeys("cnhm", zero) if dlast is None else dlast
+    dc, dn, dm, dh_rec = grad["c"], grad["n"], grad["m"], grad["h"]
+    dpre = [None] * s
+    for t in range(s - 1, -1, -1):
+        prev, new = states[t], states[t + 1]
+        pz, pi, pf, po = pres[t].chunk(4, dim=-1)
+        z, o, lf = torch.tanh(pz), torch.sigmoid(po), F.logsigmoid(pf)
+        iw = torch.exp(pi - new["m"])
+        fw = torch.exp(lf + prev["m"] - new["m"])
+        ex = torch.exp(-new["m"])
+        floor = ex + 1e-6
+        den = torch.maximum(new["n"], floor)
+        dh = dhs[:, t] + dh_rec
+        d_o = dh * (new["c"] / den)
+        dq = dh * o
+        dc1 = dc + dq / den
+        dden = -dq * new["c"] / (den * den)
+        dn1 = dn + dden * _max_share(new["n"], floor)
+        dm1 = dm - dden * _max_share(floor, new["n"]) * ex
+        dfw = dn1 * prev["n"] + dc1 * prev["c"]
+        diw = dn1 + dc1 * z
+        dz = dc1 * iw
+        dpi = diw * iw
+        dm1 = dm1 - diw * iw
+        dfa = dfw * fw
+        dm1 = dm1 - dfa
+        fm = lf + prev["m"]
+        d_fm = dm1 * _max_share(fm, pi)
+        dpi = dpi + dm1 * _max_share(pi, fm)
+        dlf = dfa + d_fm
+        dm = dfa + d_fm
+        dpf = dlf * torch.sigmoid(-pf)
+        dpo = d_o * (1 - o) * o
+        dpz = dz * (1 - z * z)
+        dpre[t] = torch.cat([dpz, dpi, dpf, dpo], dim=-1)
+        dh_rec = (dpre[t].to(r.dtype) @ r.T).to(torch.float32)
+        dc, dn = dc1 * fw, dn1 * fw
+    return torch.stack(dpre, dim=1), {"c": dc, "n": dn, "h": dh_rec, "m": dm}

@@ -42,9 +42,11 @@ prefill or decode step, reading none of its outputs. It records:
 The reference's ``cost_bytes`` (XLA's "bytes accessed") has no
 counterpart and is left out.
 
-``device=None`` means CUDA: fake CUDA tensors, so attention and the
-gossip's combine take their kernels' fake branch (the kernel's output
-layout, the call counted, nothing launched). ``device="cpu"`` (the
+``device=None`` means CUDA: fake CUDA tensors, so attention, the gossip's
+combine and the recurrent mixers' scans take their kernels' fake branch
+(the kernel's outputs, what it saves for the backward included, the call
+counted, nothing launched): a recurrent layer is one call, not a step a
+token. ``device="cpu"`` (the
 tests) uses fake CPU tensors, where attention takes its plain version:
 ``memory`` and ``cost_flops`` then include the plain version's score
 matrices, and count no kernel launch. The card's figures are the ones
@@ -94,6 +96,8 @@ from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import mixing_combine as mixing_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import selective_scan as scan_mod
+from repro_torch.kernels import slstm_scan as slstm_mod
 from repro_torch.launch import fabric, sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import build_serve_artifacts
@@ -114,7 +118,8 @@ MEMORY_KINDS = ("parameters", "optimizer_state", "inputs", "activations",
 FABRIC_LINK_BW = roofline.H100.link_bytes_per_s
 FABRIC_CROSS_POD_BW = roofline.H100.link_bytes_per_s
 # Seconds a cell of the command line may trace before it is an error (a
-# loop over every token of a 32k prompt runs for hours on fake tensors).
+# loop of ops over every token of a 32k prompt would run for hours on fake
+# tensors).
 CELL_BUDGET_S = 1200.0
 
 
@@ -304,7 +309,9 @@ def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel and design."""
     return {"mixing_sgd_combine": ops.launch_count("mixing_sgd_combine"),
             "flash_attention": flash_mod.launch_count_by_design(),
-            "decode_attention": decode_mod.launch_count_by_design()}
+            "decode_attention": decode_mod.launch_count_by_design(),
+            "selective_scan": scan_mod.launch_count_by_design(),
+            "slstm_scan": slstm_mod.launch_count_by_design()}
 
 
 def fake_call_counts() -> dict:
@@ -312,7 +319,9 @@ def fake_call_counts() -> dict:
     ``launch_counts``' form: the launches the step would make."""
     return {"mixing_sgd_combine": mixing_mod.fake_call_count(),
             "flash_attention": flash_mod.fake_calls_by_design(),
-            "decode_attention": decode_mod.fake_calls_by_design()}
+            "decode_attention": decode_mod.fake_calls_by_design(),
+            "selective_scan": scan_mod.fake_calls_by_design(),
+            "slstm_scan": slstm_mod.fake_calls_by_design()}
 
 
 def _state_kinds(cell: Cell, state) -> dict:
@@ -491,7 +500,7 @@ def main(argv=None) -> int:
              for shape in shapes]
     # the longest traces first, so that every process is kept busy:
     # training, then prefill, long context, decode; the recurrent archs
-    # (a step a token) first, then by depth
+    # first, then by depth
     rank = {"train_4k": 0, "prefill_32k": 1, "long_500k": 2,
             "decode_32k": 3}
 

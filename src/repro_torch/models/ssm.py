@@ -19,16 +19,22 @@ state, as the reference's; the blocks write it into the caches in place.
 
 Where the port departs from the reference's calls, not its results:
 
-* Mamba's scan runs in chunks of SCAN_CHUNK steps along S. A chunk's
-  decay and input, ``[B, L, d_inner, d_state]`` float32, are made at
-  once; a loop over its steps then carries ``h [B, d_inner, d_state]``
-  with the decode form's update, one ``addcmul`` a step. The reference's
+* Mamba's scan is one kernel launch a layer on the card
+  (``ops.selective_scan``: the decay and input made in registers, the
+  state carried over S inside the kernel; its backward a second kernel
+  from checkpoints of the state every 16 steps). The reference's
   associative scan materialises ``[B, S, d_inner, d_state]`` several times
-  over (17.2 GB each at Jamba's served 2 × 8192 tokens). The products are
-  taken in another order than the scan's.
-* mLSTM's quadratic form is laid out ``[B, H, S, S]`` for batched matmuls.
-* sLSTM's four input projections are one product over all S before its
-  loop over time, its four recurrent ones one product a step.
+  over (17.2 GB each at Jamba's served 2 × 8192 tokens). On the CPU the
+  plain version runs in chunks of SCAN_CHUNK steps, a chunk's decay and
+  input made at once and one ``addcmul`` a step. Either way the products
+  are taken in another order than the scan's.
+* mLSTM's quadratic form is laid out ``[B, H, L, j]`` for batched matmuls
+  and computed in blocks of MLSTM_ROWS query rows, each over the keys up
+  to its last row, so no ``[B, H, S, S]`` matrix is held.
+* sLSTM's four input projections are one product over all S; its loop
+  over time is one kernel launch a layer on the card (``ops.slstm_scan``,
+  the four recurrent products a step inside it), a loop of torch ops on
+  the CPU.
 * ``*_prefill`` returns the train form's output and the decode state after
   the last token from the same pass: Mamba's last ``h`` and last
   ``d_conv - 1`` inputs, mLSTM's state in closed form from the last row of
@@ -44,11 +50,17 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models import sharding_hints as sh
 
-# Steps of Mamba's scan whose decay and input are made at once.
+# Steps of Mamba's plain scan (CPU tensors) whose decay and input are made
+# at once.
 SCAN_CHUNK = 256
+# Query rows of mLSTM's quadratic form a block: at xLSTM-125M × prefill_32k
+# (2 rows × 4 heads × 32 768 tokens a rank) a block's [B, H, L, S] float32
+# matrix is 1.07 GB, where the whole [B, H, S, S] was 34.4 GB.
+MLSTM_ROWS = 1024
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -154,10 +166,10 @@ def _mamba_out(params, y32, uc, z, compute_dtype, partial: bool = False):
 def mamba_prefill(params, x, spec: MambaSpec, compute_dtype):
     """x: ``[B, S, D]`` → (y ``[B, S, D]``, the decode state after token S).
     Causal depthwise conv over ``d_conv - 1`` zeros on the left, then the
-    chunked scan ``h_t = decay_t · h_{t-1} + bu_t``."""
+    scan ``h_t = decay_t · h_{t-1} + bu_t`` (``ops.selective_scan``)."""
     b, s, _ = x.shape
     params, x, partial = _mamba_local(params, x, spec)
-    ds, dc = spec.d_state, spec.d_conv
+    dc = spec.d_conv
     xz = layers.dense_apply(params["in_proj"], x, compute_dtype)
     u, z = xz.chunk(2, dim=-1)                                  # [B, S, di]
     di = u.shape[-1]                       # this rank's block under TP
@@ -167,24 +179,8 @@ def mamba_prefill(params, x, spec: MambaSpec, compute_dtype):
     uc = F.silu(uc + params["conv_bias"].to(compute_dtype))
 
     dt, a, bmat, cmat = _mamba_gates(params, uc, spec, partial)
-    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, s, SCAN_CHUNK):
-        part = slice(c0, min(c0 + SCAN_CHUNK, s))
-        dtc = dt[:, part, :, None]
-        decay = torch.exp(dtc * a)                              # [B,L,di,ds]
-        bu = (dtc * bmat[:, part, None, :]) * uc[:, part].to(
-            torch.float32)[..., None]
-        hs = []
-        for t in range(decay.shape[1]):
-            h = torch.addcmul(bu[:, t], decay[:, t], h)
-            hs.append(h)
-        del decay, bu
-        ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
-                               cmat[:, part]).to(compute_dtype))
-        del hs
-    y = _mamba_out(params, torch.cat(ys, dim=1), uc, z, compute_dtype,
-                   partial)
+    y32, h = ops.selective_scan(uc, dt, a, bmat, cmat, chunk=SCAN_CHUNK)
+    y = _mamba_out(params, y32, uc, z, compute_dtype, partial)
     return y, {"conv": upad[:, s:], "ssm": h}
 
 
@@ -289,24 +285,31 @@ def mlstm_prefill(params, x, spec: MLSTMSpec, compute_dtype):
     decode state after token S).
 
     D_ij = exp(fcum_i − fcum_j + i_j − m_i) for j ≤ i, with the row max
-    m_i as stabilizer and normalizer max(|Σ_j|, exp(−m_i)). The state is
+    m_i as stabilizer and normalizer max(|Σ_j|, exp(−m_i)), in blocks of
+    MLSTM_ROWS rows i over the keys j up to the block's last row. The state is
     the last row's: ``m = m_S``, ``c = Σ_j D_Sj k_j v_jᵀ``, ``n = Σ_j D_Sj
     k_j``, which is what S decode steps from the empty state give."""
     b, s, _ = x.shape
     q, k, v, igate, fgate, z = _mlstm_qkv(params, x, spec, compute_dtype)
     fcum = torch.cumsum(F.logsigmoid(fgate), dim=1).transpose(1, 2)
-    dmat = (fcum[..., :, None] - fcum[..., None, :]
-            + igate.transpose(1, 2)[..., None, :])          # [B, H, i, j]
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril_()
-    dmat = dmat.masked_fill(~causal, -torch.inf)
-    m = dmat.amax(dim=-1, keepdim=True)                     # [B, H, i, 1]
-    dexp = torch.exp(dmat - m)
-    del dmat
+    ig = igate.transpose(1, 2)                              # [B, H, S]
     qf, kf, vf = (t.to(torch.float32).transpose(1, 2) for t in (q, k, v))
-    wts = (qf @ kf.transpose(-1, -2)) * dexp                # [B, H, i, j]
-    norm = torch.maximum(wts.sum(dim=-1).abs(), torch.exp(-m[..., 0]))
-    y = (wts @ vf) / (norm[..., None] + 1e-6)               # [B, H, i, hd]
-    del wts
+    ys = []
+    for i0 in range(0, s, MLSTM_ROWS):
+        i1 = min(i0 + MLSTM_ROWS, s)
+        dmat = (fcum[..., i0:i1, None] - fcum[..., None, :i1]
+                + ig[..., None, :i1])                       # [B, H, i, j]
+        causal = (torch.arange(i1, device=x.device)[None, :]
+                  <= torch.arange(i0, i1, device=x.device)[:, None])
+        dmat = dmat.masked_fill(~causal, -torch.inf)
+        m = dmat.amax(dim=-1, keepdim=True)                 # [B, H, i, 1]
+        dexp = torch.exp(dmat - m)
+        del dmat
+        wts = (qf[..., i0:i1, :] @ kf[..., :i1, :].transpose(-1, -2)) * dexp
+        norm = torch.maximum(wts.sum(dim=-1).abs(), torch.exp(-m[..., 0]))
+        ys.append((wts @ vf[..., :i1, :]) / (norm[..., None] + 1e-6))
+        del wts
+    y = torch.cat(ys, dim=2)                                # [B, H, S, hd]
     y = y.to(compute_dtype).transpose(1, 2).reshape(b, s, spec.d_inner)
     out = layers.dense_apply(params["down"], y * F.silu(z), compute_dtype)
     last = dexp[..., -1, :]                                 # [B, H, j]
@@ -427,17 +430,13 @@ def _slstm_cell(pre_x, r, state, compute_dtype):
 
 
 def slstm_prefill(params, x, spec: SLSTMSpec, compute_dtype):
-    """x: [B, S, D] → (y, the loop's carry after token S); a loop over time
-    (sLSTM has no parallel form)."""
-    b, s, _ = x.shape
-    pre_x = _slstm_input(params, x)                           # [B, S, 4d]
-    r = _slstm_recurrent(params, compute_dtype)
-    state = slstm_init_state(b, spec, x.device)
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(pre_x[:, t], r, state, compute_dtype)
-        hs.append(state["h"])
-    y = torch.stack(hs, dim=1).to(compute_dtype)
+    """x: [B, S, D] → (y, the loop's carry after token S); the recurrence
+    over time (sLSTM has no parallel form) is ``ops.slstm_scan``."""
+    b = x.shape[0]
+    hs, state = ops.slstm_scan(_slstm_input(params, x),
+                               _slstm_recurrent(params, compute_dtype),
+                               slstm_init_state(b, spec, x.device))
+    y = hs.to(compute_dtype)
     return layers.dense_apply(params["out"], y, compute_dtype), state
 
 

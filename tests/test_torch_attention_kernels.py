@@ -259,6 +259,7 @@ def test_launch_counters_count_no_plain_call():
     ops.decode_attention(q[:, :, :1], k, v, 16)
     assert {name: ops.launch_count(name) for name in ops.KERNELS} == {
         "mixing_sgd_combine": 0, "flash_attention": 0, "decode_attention": 0,
+        "selective_scan": 0, "slstm_scan": 0,
     }
     with pytest.raises(KeyError):
         ops.launch_count("no_such_kernel")
