@@ -263,7 +263,18 @@ def _max_share(x, y):
     return (x > y).to(x.dtype) + 0.5 * (x == y).to(x.dtype)
 
 
-def slstm_scan_bwd_ref(pre_x, r, carry0, dhs, dlast=None, saved=None):
+def _bf16_once(x):
+    """float64 ``x`` rounded to bfloat16 in one step, to nearest with ties
+    to even: its 52-bit fraction cut to bfloat16's 7 (torch's float64 →
+    bfloat16 cast rounds to float32 first, a second rounding). Values below
+    bfloat16's normals are rounded again by the cast."""
+    bits = x.view(torch.int64)
+    bits = (bits + (1 << 44) - 1 + ((bits >> 45) & 1)) & -(1 << 45)
+    return bits.view(torch.float64).to(torch.bfloat16)
+
+
+def slstm_scan_bwd_ref(pre_x, r, carry0, dhs, dlast=None, saved=None,
+                       exact=False):
     """The gradient of ``slstm_scan_ref``'s (hs, last carry) as a reverse
     recurrence, with autograd's rules (``maximum``'s ties split in halves;
     the recurrent product's gradient ``round(round(dpre_t) @ rᵀ)`` in
@@ -273,7 +284,10 @@ def slstm_scan_bwd_ref(pre_x, r, carry0, dhs, dlast=None, saved=None):
     4·d]`` and (c, n, m) ``[3, B, S, d]`` of every step, as the kernel's
     forward saves them, in place of the forward recomputed from ``pre_x``
     (a near-tie of ``maximum`` in the forward decides where the gradient
-    goes, so a backward is held on the forward it is given)."""
+    goes, so a backward is held on the forward it is given). ``exact``: the
+    recurrent product summed in float64 and rounded to r's dtype once —
+    the exact sum's rounding, which the card's bf16 backward computes and
+    against which it is held."""
     if saved is None:
         states, pres = [carry0], []
         for t in range(pre_x.shape[1]):
@@ -323,6 +337,12 @@ def slstm_scan_bwd_ref(pre_x, r, carry0, dhs, dlast=None, saved=None):
         dpo = d_o * (1 - o) * o
         dpz = dz * (1 - z * z)
         dpre[t] = torch.cat([dpz, dpi, dpf, dpo], dim=-1)
-        dh_rec = (dpre[t].to(r.dtype) @ r.T).to(torch.float32)
+        rounded = dpre[t].to(r.dtype)
+        if exact:
+            total = rounded.double() @ r.double().T
+            dh_rec = (_bf16_once(total) if r.dtype == torch.bfloat16
+                      else total.to(r.dtype)).to(torch.float32)
+        else:
+            dh_rec = (rounded @ r.T).to(torch.float32)
         dc, dn = dc1 * fw, dn1 * fw
     return torch.stack(dpre, dim=1), {"c": dc, "n": dn, "h": dh_rec, "m": dm}

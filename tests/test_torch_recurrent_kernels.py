@@ -233,6 +233,54 @@ def test_slstm_bwd_ref_matches_autograd(s, r_dtype):
             _close(dcarry[key], w, PLAIN, key)
 
 
+def test_bf16_once_rounds_once():
+    """float64 → bfloat16 in one rounding, to nearest with ties to even:
+    just above a midpoint rounds up where the cast through float32 lands
+    on the midpoint and rounds to even; an exact midpoint goes to even;
+    and over a wide spread no bfloat16 neighbour is nearer."""
+    above = torch.tensor([1 + 2**-8 + 2**-30, -(1 + 2**-8 + 2**-30)],
+                         dtype=torch.float64)
+    assert ref._bf16_once(above).tolist() == [1 + 2**-7, -(1 + 2**-7)]
+    assert above.to(torch.bfloat16).tolist() == [1.0, -1.0]
+    ties = torch.tensor([1 + 2**-8, 1 + 3 * 2**-8], dtype=torch.float64)
+    assert ref._bf16_once(ties).tolist() == [1.0, 1 + 2**-6]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(20000)
+                         * np.exp(4 * rng.standard_normal(20000)))
+    got = ref._bf16_once(x)
+    bits = got.view(torch.int16)
+    err = (got.double() - x).abs()
+    for step in (1, -1):
+        near = (bits + step).view(torch.bfloat16).double()
+        assert not bool(((near - x).abs() < err).any())
+
+
+@pytest.mark.parametrize("r_dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_ref_exact_product(r_dtype):
+    """`exact=True` sums each step's recurrent product in float64 before its
+    one rounding to r's dtype (what the card's bf16 backward computes): the
+    initial h's gradient is the once-rounded product of step 0's rounded
+    dpre, and the whole backward stays with autograd's as the default
+    product does (float32 at PLAIN, bf16 at its 2e-2)."""
+    inp = _slstm_inputs(2, 9, 8, seed=47, r_dtype=r_dtype)
+    rng = np.random.default_rng(8)
+    carry = {k: torch.from_numpy(rng.standard_normal((2, 8)).astype(
+        np.float32)) for k in "cnhm"}
+    dpre, dcarry = ref.slstm_scan_bwd_ref(inp["pre_x"], inp["r"], carry,
+                                          inp["dhs"], inp["dlast"],
+                                          exact=True)
+    total = dpre[:, 0].to(r_dtype).double() @ inp["r"].double().T
+    want_h = (ref._bf16_once(total) if r_dtype == torch.bfloat16
+              else total.to(r_dtype)).float()
+    assert torch.equal(dcarry["h"], want_h)
+    want = _slstm_autograd(inp["pre_x"], inp["r"], carry, inp["dhs"],
+                           inp["dlast"])
+    tol = PLAIN if r_dtype == torch.float32 else 2e-2
+    _close(dpre, want[0], tol, "dpre")
+    for key, w in zip("cnhm", want[2:]):
+        _close(dcarry[key], w, tol, key)
+
+
 def test_slstm_bwd_ref_from_saved_forward():
     """Given the forward's pre-activations and (c, n, m) as the kernel
     saves them, the reverse recurrence gives what it gives recomputing the
