@@ -4902,6 +4902,26 @@ SCAN_CASES = [
 # 16, bf16 u) and its backward at a layer's width with S cut to 2048.
 SCAN_SERVED = (2, 8192, 16384, 16)
 SCAN_BWD = (1, 2048, 16384, 16)
+# The edges of the scan's plan (selective_scan.plan: 4 lanes a (row,
+# channel) at d_state 16, 1 at 4; forward blocks of 32 / 128 channels,
+# eight an SM; backward blocks of 128 channels, one an SM), (batch, S,
+# d_inner, d_state, u's dtype, h0 and dh_last given), each forward and
+# backward with its faulty control: S = 1; di 1000 and 300, off every
+# block's channels; S = 16, one whole chunk; 3 x 16384 row-channels, above
+# one wave of both kernels (the forward's 132 x 8 x 32, the backward's
+# 132 x 128); d_state 4; both dtypes; with and without the carries. Drawn
+# from a generator of their own, so the sLSTM checks after them see the
+# draws they saw before these cases were added.
+SCAN_PLAN_CASES = [
+    (1, 1, 1000, 16, torch.float32, True),
+    (2, 50, 1000, 16, torch.bfloat16, False),
+    (1, 16, 96, 16, torch.float32, False),
+    (3, 40, 16384, 16, torch.bfloat16, True),
+    (1, 33, 130, 4, torch.bfloat16, False),
+    (2, 17, 300, 4, torch.float32, True)]
+# Jamba's Mamba layer in a training step, 1 x 2048 tokens: the forward the
+# launcher runs twice a step (once more in the recompute).
+SCAN_TRAIN = (1, 2048, 16384, 16)
 # sLSTM, (batch, S, d, R's dtype): S = 1, d = 12 (12 blocks of one unit),
 # d = 1000 (U = 8, 125 blocks), bf16 R.
 SLSTM_CASES = [(1, 1, 12, torch.float32), (2, 33, 64, torch.float32),
@@ -5028,37 +5048,48 @@ def _half(inp: dict, part: slice) -> dict:
             for k, v in inp.items()}
 
 
-def scan_forward_check(gen, b, s, di, ds, dtype, control: bool) -> dict:
-    """The forward launch against ``ref.selective_scan_ref``; with
-    ``control``, a plain scan restarted from zero at S/2 refused."""
-    inp = scan_inputs(gen, b, s, di, ds, dtype)
+def scan_forward_check(gen, b, s, di, ds, dtype, control: bool,
+                       carry: bool = True) -> dict:
+    """The forward launch against ``ref.selective_scan_ref`` (from a random
+    ``h0``, else from zeros); with ``control``, a faulty plain version
+    refused: the scan restarted from zero at S/2, or at S = 1 the scan
+    without its ``h0``."""
+    inp = scan_inputs(gen, b, s, di, ds, dtype, h0=carry)
     y, h, _ = scan_mod.selective_scan_fwd(**inp)
     want_y, want_h = ref.selective_scan_ref(**inp)
-    what = f"scan [{b}, {s}, {di}] ds {ds} {dtype}"
+    what = f"scan [{b}, {s}, {di}] ds {ds} {dtype} h0 {carry}"
     out = hold_recurrent(f"{what} y", y, want_y, SCAN_TOL)
     out["h_max_abs_err"] = hold_recurrent(f"{what} h", h, want_h,
                                           SCAN_TOL)["max_abs_err"]
-    if control:
+    if control and s > 1:
         half = s // 2
         restarted = ref.selective_scan_ref(
             **{**_half(inp, slice(half, None)), "h0": None})[0]
         out["restart_refused_err_over_limit"] = refuse_recurrent(
             what, y, torch.cat([want_y[:, :half], restarted], dim=1),
             SCAN_TOL)
+    elif control and carry:
+        out["h0_dropped_refused_err_over_limit"] = refuse_recurrent(
+            what, y, ref.selective_scan_ref(**{**inp, "h0": None})[0],
+            SCAN_TOL)
     return out
 
 
-def scan_backward_check(gen, b, s, di, ds, dtype) -> dict:
+def scan_backward_check(gen, b, s, di, ds, dtype, carry: bool = True) -> dict:
     """The backward launch (from the forward's checkpoints) against
-    ``ref.selective_scan_bwd_ref`` on every gradient; a plain backward
-    whose gradient carry is dropped at S/2 refused on ``du``."""
+    ``ref.selective_scan_bwd_ref`` on every gradient, with a random ``h0``
+    and ``dh_last`` (``carry``) or with neither; a faulty plain version
+    refused: the backward whose gradient carry is dropped at S/2, on
+    ``du``, or at S = 1 the backward without ``dh_last``, on ``dh0``."""
     inp = scan_inputs(gen, b, s, di, ds, dtype)
     dy = torch.randn((b, s, di), generator=gen, device="cuda")
     dh = torch.randn((b, di, ds), generator=gen, device="cuda")
+    if not carry:
+        inp["h0"], dh = None, None
     _, _, ck = scan_mod.selective_scan_fwd(**inp, save=True)
     got = scan_mod.selective_scan_bwd(**inp, ck=ck, dy=dy, dh_last=dh)
     want = ref.selective_scan_bwd_ref(**inp, dy=dy, dh_last=dh)
-    what = f"scan backward [{b}, {s}, {di}] ds {ds} {dtype}"
+    what = f"scan backward [{b}, {s}, {di}] ds {ds} {dtype} carries {carry}"
     out = {"case": what, "max_abs_err": 0.0, "err_over_limit": 0.0}
     for name, g, w in zip(("du", "ddt", "da", "dbm", "dcm", "dh0"),
                           got, want):
@@ -5067,6 +5098,14 @@ def scan_backward_check(gen, b, s, di, ds, dtype) -> dict:
         out["max_abs_err"] = max(out["max_abs_err"], held["max_abs_err"])
         out["err_over_limit"] = max(out["err_over_limit"],
                                     held["err_over_limit"])
+    if s == 1:
+        if dh is None:
+            raise AssertionError(f"{what}: S = 1 needs dh_last for its "
+                                 "control")
+        dropped = ref.selective_scan_bwd_ref(**inp, dy=dy)[5]
+        out["dh_last_dropped_refused_err_over_limit"] = refuse_recurrent(
+            what, got[5], dropped, SCAN_TOL)
+        return out
     half = s // 2
     first, second = _half(inp, slice(None, half)), _half(inp,
                                                          slice(half, None))
@@ -5195,8 +5234,8 @@ def slstm_backward_check(gen, b, s, d, dtype, empty: bool) -> dict:
 def recurrent_times(gen) -> dict:
     """Each kernel at its main path's shape beside its bound and its plain
     version (no PyTorch call computes either function: no library time);
-    sLSTM's forward also at the training shape, each sLSTM time with its
-    plan and µs a step, and both sLSTM directions with a float32 R.
+    each forward also at the training shape, each time with its plan, each
+    sLSTM time with µs a step, and both sLSTM directions with a float32 R.
     The scan's bound: the larger of its bytes at 3.35 TB/s and its ex2 on
     the MUFU (one a (token, channel, state), in the backward too: the
     function needs one, though the kernel recomputes the decay); sLSTM's:
@@ -5205,18 +5244,23 @@ def recurrent_times(gen) -> dict:
     elementwise work at the FP32 peak —, far from either (its steps run
     one after another)."""
     out = {}
-    b, s, di, ds = SCAN_SERVED
-    inp = scan_inputs(gen, b, s, di, ds, torch.bfloat16, h0=False)
-    w = scan_mod.work(inp["u"], ds)
-    by = {"bytes": w["bytes"] / PEAK_BYTES_PER_S * 1e3,
-          "operations": w["exps"] / mufu_per_s() * 1e3}
-    out["selective_scan"] = {
-        "shape": [b, s, di, ds], "dtype": "bfloat16",
-        "ms": time_cuda(lambda: scan_mod.selective_scan_fwd(**inp), reps=5),
-        "plain_ms": time_cuda(lambda: ref.selective_scan_ref(**inp), reps=2),
-        "bound_ms": max(by.values()), "bound_by": max(by, key=by.get),
-        "bound_ms_by": by, "library_ms": None}
-    del inp
+    for key, (b, s, di, ds) in (("selective_scan", SCAN_SERVED),
+                                ("selective_scan_train", SCAN_TRAIN)):
+        inp = scan_inputs(gen, b, s, di, ds, torch.bfloat16, h0=False)
+        w = scan_mod.work(inp["u"], ds)
+        by = {"bytes": w["bytes"] / PEAK_BYTES_PER_S * 1e3,
+              "operations": w["exps"] / mufu_per_s() * 1e3}
+        plan = scan_mod.plan(b, s, di, ds, torch.bfloat16, "forward")
+        out[key] = {
+            "shape": [b, s, di, ds], "dtype": "bfloat16",
+            "ms": time_cuda(lambda: scan_mod.selective_scan_fwd(**inp),
+                            reps=5),
+            "plan": dataclasses.asdict(plan),
+            "plain_ms": time_cuda(lambda: ref.selective_scan_ref(**inp),
+                                  reps=2),
+            "bound_ms": max(by.values()), "bound_by": max(by, key=by.get),
+            "bound_ms_by": by, "library_ms": None}
+        del inp
     b, s, di, ds = SCAN_BWD
     inp = scan_inputs(gen, b, s, di, ds, torch.bfloat16, h0=False)
     dy = torch.randn((b, s, di), generator=gen, device="cuda")
@@ -5228,6 +5272,8 @@ def recurrent_times(gen) -> dict:
         "shape": [b, s, di, ds], "dtype": "bfloat16",
         "ms": time_cuda(lambda: scan_mod.selective_scan_bwd(
             **inp, ck=ck, dy=dy), reps=5),
+        "plan": dataclasses.asdict(scan_mod.plan(b, s, di, ds,
+                                                 torch.bfloat16, "backward")),
         "plain_ms": time_cuda(lambda: ref.selective_scan_bwd_ref(
             **inp, dy=dy), reps=1),
         "bound_ms": max(by.values()), "bound_by": max(by, key=by.get),
@@ -5344,9 +5390,11 @@ def phase_recurrent_kernels(seed: int) -> dict:
     each against its plain version on the card: the case tables, the
     served shapes (the scan at Jamba's [2, 8192, 16384], sLSTM at xLSTM's
     [8, 2048, 768] in bf16), both backwards at a layer's width with S cut
-    to 2048, sLSTM's partition cases (SLSTM_PLAN_CASES, both directions,
-    both dtypes, both carries), each with a faulty plain version refused;
-    sLSTM's plans at every case width; their times beside their bounds;
+    to 2048, the scan's plan cases (SCAN_PLAN_CASES, both directions, from
+    a generator of their own), sLSTM's partition cases (SLSTM_PLAN_CASES,
+    both directions, both dtypes, both carries), each with a faulty plain
+    version refused; both kernels' plans at every case width; their times
+    beside their bounds;
     then one launcher training step of xLSTM-125M and of Jamba's first
     layer, which launch both backwards."""
     t0 = time.perf_counter()
@@ -5358,6 +5406,16 @@ def phase_recurrent_kernels(seed: int) -> dict:
     scan_bwd = [scan_backward_check(gen, 2, 37, 130, 16, f32),
                 scan_backward_check(gen, 1, 50, 200, 4, bf16),
                 scan_backward_check(gen, *SCAN_BWD, bf16)]
+    scan_gen = torch.Generator(device="cuda").manual_seed(seed + 33)
+    for *case, carry in SCAN_PLAN_CASES:
+        scan.append(scan_forward_check(scan_gen, *case, control=True,
+                                       carry=carry))
+        scan_bwd.append(scan_backward_check(scan_gen, *case, carry=carry))
+    scan_plans = {
+        f"[{b}, {s}, {di}] ds {ds} {direction}": dataclasses.asdict(
+            scan_mod.plan(b, s, di, ds, dtype, direction))
+        for b, s, di, ds, dtype, _ in SCAN_PLAN_CASES
+        for direction in scan_mod.DESIGNS}
     torch.cuda.empty_cache()
     slstm = [slstm_forward_check(gen, *case, empty=True, control=case[1] > 1)
              for case in SLSTM_CASES]
@@ -5388,7 +5446,7 @@ def phase_recurrent_kernels(seed: int) -> dict:
                    for cfg in (xlstm_125m.CONFIG, JAMBA_TRAIN_CFG)}
     out = {"selective_scan": scan, "selective_scan_backward": scan_bwd,
            "slstm_scan": slstm, "slstm_scan_backward": slstm_bwd,
-           "slstm_plans": plans,
+           "slstm_plans": plans, "scan_plans": scan_plans,
            "times": times, "train_steps": train_steps,
            "checks_seconds": checked_s,
            "seconds": time.perf_counter() - t0}
@@ -5424,10 +5482,10 @@ def recurrent_kernel_entries(checked: dict, served: dict) -> list[dict]:
                 cfg: step["launches"][name]
                 for cfg, step in checked["train_steps"].items()},
         })
-    sl = entries[-1]
-    for key in ("us_per_step", "plan"):
-        sl[key] = checked["times"]["slstm_scan"][key]
-    sl["training_shape"] = checked["times"]["slstm_scan_train"]
+    for entry, name in zip(entries, ("selective_scan", "slstm_scan")):
+        entry["plan"] = checked["times"][name]["plan"]
+        entry["training_shape"] = checked["times"][f"{name}_train"]
+    entries[-1]["us_per_step"] = checked["times"]["slstm_scan"]["us_per_step"]
     return entries
 
 

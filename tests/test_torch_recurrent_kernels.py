@@ -488,7 +488,8 @@ def test_selective_scan_fake_branch(nothing_launched, dtype):
     """Inference: one forward call, no checkpoints. Training (`Scan`): the
     forward saves its checkpoints [B, ceil(S / 16), di, ds]; the backward
     gives every gradient from one fake call, its partials
-    [ceil(di / 64), B, S, 2·ds] summed."""
+    [plan(...).partials, B, S, 2·ds] summed (their shape is held in
+    tests/test_torch_scan_plan.py)."""
     b, s, di, ds = 2, 100, 130, 16
     with FakeTensorMode():
         f32 = dict(dtype=torch.float32, device="cuda")
