@@ -2145,7 +2145,7 @@ def phase_train_mesh(seed: int, mesh) -> dict:
     """The launcher's mesh path (``build_train_artifacts`` on the
     ``DeviceMesh``) for Qwen2-0.5B, unreduced, ``data_dp`` at microbatch 2,
     1 agent x 2 x 512 tokens: 1 warm-up + 2 timed steps, the batch cut to
-    the rank's part by ``sharding.shard_tree``, the gradients summed over
+    the rank's part by ``train.local_batch``, the gradients summed over
     the ``model`` group (a real NCCL all-reduce, counted by a spy). The
     parameters, momentum and losses must equal bitwise the one-card
     launcher's steps on a ``Mesh((1, 1))`` description from the same state
@@ -2184,7 +2184,7 @@ def phase_train_mesh(seed: int, mesh) -> dict:
         steps = []
         for batch in batches:
             if name == "mesh":
-                batch = sharding.shard_tree(batch, art.batch_specs, mesh)
+                batch = train.local_batch(art, batch, mesh)
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, metrics = art.step_fn(state, batch)
@@ -2437,7 +2437,7 @@ def tp_rank_train(mesh, rank: int, work: str, seed: int) -> dict:
         state = art.init_state(seed)
         steps = []
         for batch in batches:
-            local = sharding.shard_tree(batch, art.batch_specs, mesh)
+            local = train.local_batch(art, batch, mesh)
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, metrics = art.step_fn(state, local)
@@ -2943,7 +2943,7 @@ def pod_rank_train(mesh, rank: int, work: str, seed: int) -> dict:
         state = in_turn(mesh, lambda: art.init_state(seed))
         steps, counts = [], []
         for batch in batches:
-            local = sharding.shard_tree(batch, art.batch_specs, mesh)
+            local = train.local_batch(art, batch, mesh)
             sharding_hints.reset_dp_count()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -6162,13 +6162,20 @@ def phase_ffma_times(seed: int, checks: dict | None = None) -> dict:
     return out
 
 
-# The dry run on the card: rank 0 of the 16 x 16 mesh over a fake process
-# group, on fake CUDA tensors (launch/dryrun.py), for three cells; the
-# cells whose fake peak is under DRYRUN_REAL_UNDER also run rank 0's step
-# for real on the card under the same fake group.
-DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("mixtral-8x7b", "train_4k"),
-                ("mixtral-8x7b", "decode_32k"))
-DRYRUN_REAL = (("qwen2-0.5b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+# The dry run on the card: rank 0 of the 16 x 16 mesh (multi_pod False) or
+# of the 2 x 16 x 16 one (True) over a fake process group, on fake CUDA
+# tensors (launch/dryrun.py), for four cells — Qwen2 at 512 ranks is the
+# one whose 8-row microbatches do not divide its 16 "model" ranks
+# (train.RowSplit); the cells of DRYRUN_REAL whose fake peak is under
+# DRYRUN_REAL_UNDER also run rank 0's step for real on the card under the
+# same fake group. (arch, shape, multi_pod)
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False),
+                ("mixtral-8x7b", "train_4k", False),
+                ("mixtral-8x7b", "decode_32k", False),
+                ("qwen2-0.5b", "train_4k", True))
+DRYRUN_REAL = (("qwen2-0.5b", "train_4k", False),
+               ("mixtral-8x7b", "decode_32k", False),
+               ("qwen2-0.5b", "train_4k", True))
 DRYRUN_REAL_UNDER = 60e9         # bytes of fake peak a real step may take
 DRYRUN_PEAK_RATIO = (0.8, 1.25)  # real max_memory_allocated / fake peak
 # the same, the real step run under PassThrough (every op through Python)
@@ -6205,6 +6212,14 @@ def reserve_core() -> int | None:
     return cpus[-1]
 
 
+def dryrun_cell(rec: dict) -> tuple:
+    """A dry-run record's ``(arch, shape, multi_pod)``, as in
+    ``DRYRUN_CELLS``."""
+    from repro_torch.launch import dryrun
+
+    return rec["arch"], rec["shape"], rec["mesh"] == dryrun.mesh_name(True)
+
+
 def dryrun_worker(work: str, seed: int) -> None:
     """The ``dryrun`` phase's process (``--dryrun-worker DIR``, started by
     ``start_dryrun`` after the build on the core ``reserve_core`` kept,
@@ -6217,8 +6232,8 @@ def dryrun_worker(work: str, seed: int) -> None:
     from repro_torch.launch import dryrun
 
     parent = os.getppid()
-    records = [dryrun.run_cell(arch, shape, False)
-               for arch, shape in DRYRUN_CELLS]
+    records = [dryrun.run_cell(arch, shape, multi_pod)
+               for arch, shape, multi_pod in DRYRUN_CELLS]
     with open(os.path.join(work, "fake.json"), "w") as f:
         json.dump(records, f)
     deadline = time.monotonic() + DRYRUN_TIMEOUT_S
@@ -6228,12 +6243,13 @@ def dryrun_worker(work: str, seed: int) -> None:
         time.sleep(0.5)
     real, held = {}, []
     for rec in records:
-        if (rec["arch"], rec["shape"]) not in DRYRUN_REAL or \
+        if dryrun_cell(rec) not in DRYRUN_REAL or \
                 rec["status"] != "ok" or \
                 rec["memory"]["peak"] >= DRYRUN_REAL_UNDER:
             continue
-        dm = dryrun.open_mesh(False)
-        cell = dryrun.build_cell(rec["arch"], rec["shape"], False, dm)
+        arch, shape, multi_pod = dryrun_cell(rec)
+        dm = dryrun.open_mesh(multi_pod)
+        cell = dryrun.build_cell(arch, shape, multi_pod, dm)
         seen = {}
         spies = {name: getattr(ops, name)
                  for name in ("flash_attention", "decode_attention")}
@@ -6258,7 +6274,8 @@ def dryrun_worker(work: str, seed: int) -> None:
         torch.distributed.destroy_process_group()
         gen = torch.Generator(device="cuda").manual_seed(seed)
         for (name, qs, ks, dt), (q, k, v, args, kwargs) in seen.items():
-            what = f"dryrun {rec['arch']} {rec['shape']} {name} q={list(qs)}"
+            what = (f"dryrun {arch} {shape} {rec['mesh']} {name} "
+                    f"q={list(qs)}")
             if name == "decode_attention":
                 # the step's caches were empty: held with N(0, 1) values in
                 # its layouts, every slot of the cache valid
@@ -6273,11 +6290,15 @@ def dryrun_worker(work: str, seed: int) -> None:
             held.append({"kernel": name, "case": what, "q": list(qs),
                          "k": list(ks), "dtype": dt, **res})
         del seen
-        real[f"{rec['arch']} x {rec['shape']}"] = got
+        real[dryrun_key(rec)] = got
         torch.cuda.empty_cache()
     with open(os.path.join(work, "real.json"), "w") as f:
         json.dump({"real": real, "held": held,
                    "cpus": sorted(os.sched_getaffinity(0))}, f)
+
+
+def dryrun_key(rec: dict) -> str:
+    return f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
 
 
 def start_dryrun(seed: int, core: int | None):
@@ -6300,7 +6321,7 @@ def start_dryrun(seed: int, core: int | None):
 
 def phase_dryrun(started) -> dict:
     """``launch/dryrun.run_cell`` on fake CUDA tensors for
-    ``DRYRUN_CELLS`` at 256 ranks (each must end ``ok``); then rank 0's
+    ``DRYRUN_CELLS`` at 256 or 512 ranks (each must end ``ok``); then rank 0's
     step for real on the card for ``DRYRUN_REAL``: its peak within
     ``DRYRUN_PEAK_RATIO`` of the fake pass's, its kernel launches by
     design and collective bytes by kind equal to the fake pass's."""
@@ -6327,12 +6348,12 @@ def phase_dryrun(started) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     for rec in records:
         if rec["status"] != "ok":
-            raise AssertionError(f"dryrun {rec['arch']} x {rec['shape']}: "
+            raise AssertionError(f"dryrun {dryrun_key(rec)}: "
                                  f"{rec.get('error')}\n"
                                  f"{rec.get('traceback', '')}")
     cells = {}
     for rec in records:
-        key = f"{rec['arch']} x {rec['shape']}"
+        key = dryrun_key(rec)
         cell = {"trace_s": rec["trace_s"], "memory": rec["memory"],
                 "cost_flops": rec["cost_flops"],
                 "kernel_flops": rec["kernel_flops"],
@@ -6342,7 +6363,7 @@ def phase_dryrun(started) -> dict:
                     "compute_s", "memory_s", "collective_s", "dominant",
                     "bound_s", "roofline_fraction",
                     "collective_bytes_per_chip")}}
-        if (rec["arch"], rec["shape"]) in DRYRUN_REAL:
+        if dryrun_cell(rec) in DRYRUN_REAL:
             real = got["real"].get(key)
             if real is None:
                 raise AssertionError(f"dryrun {key}: no real rank-0 run "

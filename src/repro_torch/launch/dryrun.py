@@ -16,7 +16,12 @@ collective returns at once), builds the cell's artifacts on that
 ``DeviceMesh`` as the launcher does, gives rank 0 its state as empty
 tensors of its local shapes under ``FakeTensorMode`` (no random draw: a
 full-size tree is never materialised) and runs one training step, or one
-prefill or decode step, reading none of its outputs. It records:
+prefill or decode step, reading none of its outputs. A training step
+takes the rank's part of the batch as the launcher hands it
+(``train.local_batch``): of a microbatch of mb rows over the batch role's
+n ranks, mb / gcd(mb, n) rows — one row of 8 over 16 ranks at
+``pod2x16x16``, where the reference's spec drops the split and each rank
+would hold all 8. It records:
 
 * ``memory`` — rank 0's peak live bytes (``StepCount``) by kind:
   ``parameters`` and ``optimizer_state`` (the state handed in),
@@ -101,7 +106,7 @@ from repro_torch.kernels import slstm_scan as slstm_mod
 from repro_torch.launch import fabric, sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import build_serve_artifacts
-from repro_torch.launch.train import build_train_artifacts
+from repro_torch.launch.train import build_train_artifacts, local_batch
 from repro_torch.models import model as M
 from repro_torch.optim import sgd
 from repro_torch.roofline import analysis as roofline
@@ -244,7 +249,7 @@ def make_cell(cfg, shape, dm, device=None, tcfg=None,
         art = build_train_artifacts(cfg, tcfg, shape, dm, w, device=dev)
         params = sharding.shard_tree(art.state_shapes["params"],
                                      art.param_specs, dm)
-        batch = sharding.shard_tree(art.batch_shapes, art.batch_specs, dm)
+        batch = local_batch(art, art.batch_shapes, dm)
 
         def make_state(seed=None):
             p = (_empty_like_tree(params, dev) if seed is None

@@ -20,25 +20,29 @@ Counterpart of the JAX package's ``launch/train.py``. One step per agent
   ``[1, …]`` of one agent — whole under ``data_dp``, its ``model`` part
   under ``data`` (``sharding.shard_tree(state, art.param_specs, mesh)``
   of the stacked tree; tensor parallelism, ``models/sharding_hints.py``).
-  The step takes the rank's part of the batch (``sharding.shard_tree(
-  batch, art.batch_specs, mesh)``): ``tokens[agent, :, model-slice, :]``
-  under ``data_dp``, where each rank's gradients are accumulated in
-  float32, scaled to its share of the microbatch, cast to bf16 and summed
-  over the ``model`` group; the agent's whole microbatch on each of its
-  ``model`` ranks under ``data``, whose replicated leaves (norms, the
+  The step takes the rank's part of the batch (``local_batch(art, batch,
+  mesh)``): its agent's rows and, of every microbatch, the rows
+  ``RowSplit`` gives it over the batch role's n ranks (``model`` under
+  ``data_dp``, ``data`` under ``pod``, none under ``data``). A microbatch
+  of mb rows lies in g = gcd(mb, n) equal parts, each held by n / g of
+  those ranks: one row a rank for 8 rows over 16 ranks, where the
+  reference's spec drops the split and every rank runs all 8. Each rank's
+  loss weighs 1/n, so a row held by n / g ranks counts once in the sum.
+  Under ``data_dp`` each rank's gradients are accumulated in float32,
+  scaled by that weight, cast to bf16 and summed over the ``model`` group
+  (where g = 1 < n every rank holds the whole microbatch and keeps its
+  gradient unsummed); under ``data`` the replicated leaves (norms, the
   router) get the same gradient on every rank through the conjugate pair.
   Under ``pod`` one agent spans a pod's ``data`` × ``model`` ranks: each
   holds its FSDP × TP part of every leaf (experts split along E over
-  ``data`` where E divides: expert parallelism) and its ``data`` share of
-  every microbatch (all of it where the microbatch does not divide), its
-  loss weighted 1/|data|; the FSDP leaves' gradients are summed by their
-  gather's reduce-scatter, the experts' by the all-to-all back to their
-  owner, and only the leaves whole over ``data`` are all-reduced over it
-  (float32). The sparse gossip crosses ranks by point-to-point exchanges
-  (``gossip.mix_sparse_flat`` under ``data_dp``, ``gossip.mix_sparse_p2p``
-  under ``data`` and ``pod``, each coordinate off the agent axes
-  gossiping its part of every leaf); the loss in the metrics is the mean
-  over every rank.
+  ``data`` where E divides: expert parallelism); the FSDP leaves'
+  gradients are summed by their gather's reduce-scatter, the experts' by
+  the all-to-all back to their owner, and only the leaves whole over
+  ``data`` are all-reduced over it (float32). The sparse gossip crosses
+  ranks by point-to-point exchanges (``gossip.mix_sparse_flat`` under
+  ``data_dp``, ``gossip.mix_sparse_p2p`` under ``data`` and ``pod``, each
+  coordinate off the agent axes gossiping its part of every leaf); the
+  loss in the metrics is the mean over every rank.
 
 State: ``{"params": [A, ...], "opt": {"momentum": [A, ...]}, "step": int}``
 — A agents stacked (A = 1 on a rank); the step counter is a Python int on
@@ -53,6 +57,7 @@ state and the global batch (``meta`` tensors), their partition specs
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -82,6 +87,7 @@ class TrainArtifacts:
     init_state: Callable[[int], Any]  # seed -> concrete state on device
     param_specs: Any           # sharding.P per stacked parameter leaf
     batch_specs: Any           # sharding.P per batch leaf (microbatch dim)
+    row_split: RowSplit        # a microbatch's rows over the batch role
 
 
 def _batch_shapes(
@@ -152,6 +158,66 @@ def _batch_specs(batch_shapes: dict, mesh, layout: str) -> dict:
             for k, spec in specs.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """How a microbatch's ``rows`` lie over the ``ranks`` ranks of the
+    batch role's ``axes``: in g = gcd(rows, ranks) equal parts
+    (``groups``), the rank at index i over the axes holding part
+    i // (ranks / g), so that each row is held by ranks / g ranks. g =
+    ranks is the reference's split (its spec names the axes); g = 1 every
+    rank holding every row (its spec drops them; it never pads)."""
+    axes: tuple[str, ...]
+    ranks: int
+    rows: int
+
+    @property
+    def groups(self) -> int:
+        return math.gcd(self.rows, self.ranks)
+
+    @property
+    def copied(self) -> bool:
+        """Whether every rank of several holds the whole microbatch."""
+        return self.groups == 1 and self.ranks > 1
+
+    @property
+    def weight(self) -> float:
+        """Each rank's loss weight in the sum over the ranks: 1/ranks."""
+        return 1.0 / self.ranks
+
+    def rows_at(self, index: int) -> slice:
+        """The rows of a microbatch that the rank at ``index`` holds."""
+        per = self.rows // self.groups
+        part = index // (self.ranks // self.groups)
+        return slice(part * per, (part + 1) * per)
+
+
+def row_split(batch_shapes: dict, mesh, layout: str) -> RowSplit:
+    """The ``RowSplit`` of ``batch_shapes``' microbatch over the batch
+    role's axes: ``data`` under ``pod``, ``model`` under ``data_dp``, none
+    under ``data``."""
+    axes = {"pod": ("data",), "data_dp": ("model",), "data": ()}[layout]
+    sizes = mesh_lib.axis_sizes(mesh)
+    return RowSplit(axes, math.prod(sizes[a] for a in axes),
+                    batch_shapes["tokens"].shape[2])
+
+
+def local_batch(art: TrainArtifacts, batch: dict,
+                mesh: mesh_lib.Mesh | DeviceMesh,
+                coords: dict[str, int] | None = None) -> dict:
+    """The rank's part of the global ``batch`` (at ``coords``, the calling
+    rank's on a ``DeviceMesh`` when None): its agent's rows
+    (``art.batch_specs``' agent entry) and, of every microbatch, the rows
+    ``art.row_split`` gives its index over the batch role's axes. Views,
+    with no communication; leaves may be tensors or numpy arrays."""
+    coords = mesh_lib.coordinate(mesh) if coords is None else coords
+    agent = {k: sharding.P(spec[0], *[None] * (len(spec) - 1))
+             for k, spec in art.batch_specs.items()}
+    mine = sharding.shard_tree(batch, agent, mesh, coords)
+    split = art.row_split
+    rows = split.rows_at(mesh_lib.agent_index(mesh, split.axes, coords))
+    return {k: v[:, :, rows] for k, v in mine.items()}
+
+
 def _reduce_gradients(grads, group) -> None:
     """Sum every gradient leaf of ``grads`` (a tree or a list) over
     ``group`` in place (the ``model`` group under ``data_dp``; the leaves
@@ -190,6 +256,7 @@ def build_train_artifacts(
     param_specs = sharding.param_specs_train(
         state_shapes["params"], mesh, layout)
     batch_specs = _batch_specs(batch_shapes, mesh, layout)
+    split = row_split(batch_shapes, mesh, layout)
     on_ranks = isinstance(mesh, DeviceMesh)
     mode, w_arr = resolve_gossip(tcfg.gossip, mixing_matrix, m)
     plan = dpsgd.mixing_plan(w_arr, dev) if w_arr is not None else None
@@ -273,7 +340,7 @@ def build_train_artifacts(
 
     if on_ranks:
         step_fn = _mesh_step(
-            mesh, layout, mode, w_arr, plan, batch_specs, param_specs,
+            mesh, layout, mode, w_arr, plan, split, param_specs,
             grads_fn, lr_fn, tcfg.momentum, dev)
     agents_here = 1 if on_ranks else m
 
@@ -300,10 +367,11 @@ def build_train_artifacts(
         init_state=init_state,
         param_specs=param_specs,
         batch_specs=batch_specs,
+        row_split=split,
     )
 
 
-def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, param_specs,
+def _mesh_step(mesh, layout, mode, w_arr, plan, split, param_specs,
                grads_fn, lr_fn, momentum, dev) -> Callable:
     """The step of one rank of a ``DeviceMesh`` (module docstring)."""
     agent_axes = mesh_lib.agent_axes(mesh, layout)
@@ -312,28 +380,25 @@ def _mesh_step(mesh, layout, mode, w_arr, plan, batch_specs, param_specs,
     reduced = tree_map(lambda _: True, param_specs)
     share, reduce_group, fsdp = 1.0, None, None
     if layout == "pod":
-        # Each data rank's loss weighs 1/|data| (its share of the rows, or
-        # one of |data| copies of them); only the leaves whole over "data"
-        # are summed over it here.
-        share = 1.0 / sizes["data"]
+        # Each data rank's loss weighs 1/|data| (``split.weight``); only
+        # the leaves whole over "data" are summed over it here.
+        share = split.weight
         if sizes["data"] > 1:
             reduce_group = mesh_lib.axis_group(mesh, ("data",))
             reduced = tree_map(
                 lambda s: not sharding.split_over(s, mesh, ("data",)),
                 param_specs)
             fsdp = sharding.fsdp_plan(param_specs, mesh, ("data",), lead=1)
-    elif batch_specs["tokens"][2] is not None:
-        # data_dp: each "model" rank holds 1/M of every microbatch and the
-        # gradients are summed over the "model" group.
-        split = batch_specs["tokens"][2]
-        share = 1.0 / sizes[split]
-        reduce_group = mesh_lib.axis_group(mesh, (split,))
+    elif layout == "data_dp" and not split.copied:
+        # data_dp: each "model" rank holds its part of every microbatch
+        # and the gradients are summed over the "model" group.
+        share = split.weight
+        reduce_group = mesh_lib.axis_group(mesh, split.axes)
     schedule = gossip.build_schedule(w_arr) if mode == "sparse" else None
     # The reference's activation hints per layout: the batch role on
     # "data" (pod), on the repurposed "model" axis (data_dp) or nowhere
     # (data); FSDP and EP over "data" under pod.
-    role_axes = {"batch": {"pod": ("data",), "data_dp": ("model",),
-                           "data": ()}[layout],
+    role_axes = {"batch": split.axes,
                  "tp": () if layout == "data_dp" else ("model",),
                  "seq": () if layout == "data_dp" else ("model",)}
     if layout == "pod":

@@ -20,7 +20,11 @@ tensor parallelism) or `pod_units` (a (2, 1) mesh: FSDP's gather, EP's
 all-to-all pair and the load-balance loss over split rows), `dryrun_pod`
 (a (2, 2, 2) mesh: one step of smoke Mixtral in the `pod` layout) or
 `dryrun_serve` (a (2, 2) mesh: a prefill and a decode step of smoke
-Mixtral under 1-D TP), each run by `launch/dryrun.py`'s `real_pass` — or,
+Mixtral under 1-D TP), each run by `launch/dryrun.py`'s `real_pass`,
+`split_pod` (a (2, 4, 1) mesh: smoke Mixtral in the `pod` layout, E = 4
+over 4 data ranks) or `split_data_dp` (a (2, 4) mesh: smoke Qwen2 in
+`data_dp`), each with microbatches of 2 rows over 4 ranks of the batch
+role, so that each pair of ranks holds one row (`train.RowSplit`) — or,
 with INIT_METHOD `fake`, as rank RANK of a fake group of WORLD ranks on
 fake tensors (`fake_pass`). INPUTS is
 the test's `npz` (the reference's initial parameters, tokens, W). The rank
@@ -39,7 +43,10 @@ writes that run's results under `fault/<FAULT>/`:
 * `fsdp_own_part` — FSDP's backward keeps the rank's own part of the
   gradient without the sum over the "data" ranks;
 * `per_rank_me` — the load-balance loss's top-1 share of tokens taken
-  over the rank's own rows (the mean over the ranks left out).
+  over the rank's own rows (the mean over the ranks left out);
+* `weight_over_groups` — each rank's loss weighted 1/g (g the groups of
+  rows a microbatch lies in) in place of 1/n (n the batch role's ranks);
+* `same_rows` — every group of ranks handed the first group's rows.
 """
 
 import dataclasses
@@ -89,6 +96,8 @@ MESHES = {
     "pod_units": ((2, 1), ("data", "model")),
     "dryrun_pod": ((2, 2, 2), ("pod", "data", "model")),
     "dryrun_serve": ((2, 2), ("data", "model")),
+    "split_pod": ((2, 4, 1), ("pod", "data", "model")),
+    "split_data_dp": ((2, 4), ("data", "model")),
 }
 TRAIN_MODES = {  # case -> [(mode name, gossip asked, W key)]
     "train_data": [("sparse", "sparse", "w_ring"), ("dense", "dense", "w_ring"),
@@ -121,6 +130,10 @@ POD_TRAIN_SEQ = 16
 POD_AUX = 1.0                        # the load-balance loss's weight
 POD_SERVE_RUNS = ("mixtral:2", "mixtral:1", "jamba:2", "jamba:1")  # arch:B
 TWO_D_PARAMS = 10**12   # parameter_count reported, so 2-D is picked
+SPLIT_RUNS = {"split_pod": ("mixtral", "pod"),      # case -> arch, layout
+              "split_data_dp": ("qwen2", "data_dp")}
+SPLIT_CFGS = {"mixtral": mixtral_8x7b.SMOKE_CONFIG, "qwen2": CFG}
+SPLIT_BATCH = 8   # 2 agents x 2 microbatches of 2 rows, over 4 ranks
 W_PAIR = np.asarray([[0.75, 0.25], [0.25, 0.75]])   # dryrun_pod's 2 agents
 DRYRUN_RUNS = {   # case -> [(run name, shape), ...] of smoke Mixtral
     "dryrun_pod": [("train", base.ShapeConfig("pod", POD_TRAIN_SEQ, 8,
@@ -249,8 +262,8 @@ def run_train(case, mesh, inputs, out, key, fault):
         losses = []
         for k in range(STEPS):
             tokens = inputs[f"tokens/{case}/{k}"]
-            local = sharding.shard_tree({"tokens": tokens}, art.batch_specs,
-                                        mesh, batch_coords)
+            local = train.local_batch(art, {"tokens": tokens}, mesh,
+                                      batch_coords)
             mesh_lib.reset_collective_stats()
             state, met = art.step_fn(state, local)
             if k == 0:
@@ -373,9 +386,8 @@ def run_tp_train(mesh, inputs, out, key, fault):
         losses = []
         for k in range(STEPS):
             moe.route = spy if k == 0 else real_route
-            local = sharding.shard_tree(
-                {"tokens": inputs[f"tokens/{arch}/{k}"]}, art.batch_specs,
-                mesh)
+            local = train.local_batch(
+                art, {"tokens": inputs[f"tokens/{arch}/{k}"]}, mesh)
             mesh_lib.reset_collective_stats()
             state, met = art.step_fn(state, local)
             if k == 0:
@@ -557,14 +569,13 @@ def run_pod_train(mesh, inputs, out, key, fault):
                 batch["patch_embeds"] = inputs[f"patches/{run}/{k}"]
             sh.reset_dp_count()
             state, met = art.step_fn(
-                state, sharding.shard_tree(batch, art.batch_specs, mesh))
+                state, train.local_batch(art, batch, mesh))
             if k == 0:
                 counts = _dp_counts()
             losses.append(float(met["loss"]))
         out[f"{key}{run}/resolved"] = np.asarray(art.gossip)
         out[f"{key}{run}/losses"] = np.asarray(losses)
-        out[f"{key}{run}/split"] = np.asarray(
-            art.batch_specs["tokens"][2] is not None)
+        out[f"{key}{run}/split"] = np.asarray(art.row_split.groups > 1)
         out[f"{key}{run}/dp_counts"] = np.asarray(
             [counts[n] for n in sorted(counts)])
         for part, tree in (("params", state["params"]),
@@ -572,6 +583,45 @@ def run_pod_train(mesh, inputs, out, key, fault):
             whole = sharding.gather_tree(tree, art.param_specs, mesh)
             for path, leaf in tree_paths(convert.params_to_jax(whole)):
                 out[f"{key}{run}/{part}/{path}"] = leaf
+
+
+def run_split_train(case, mesh, inputs, out, key, fault):
+    """3 steps of ``SPLIT_RUNS[case]`` at microbatches of 2 rows over the
+    batch role's 4 ranks: the rows the rank held, and the whole trees
+    gathered back."""
+    arch, layout = SPLIT_RUNS[case]
+    cfg = SPLIT_CFGS[arch]
+    tcfg = base.TrainConfig(agent_layout=layout, gossip="sparse",
+                            microbatch=2, learning_rate=0.05,
+                            moe_aux_weight=POD_AUX)
+    art = train.build_train_artifacts(
+        cfg, tcfg, base.ShapeConfig("split", POD_TRAIN_SEQ, SPLIT_BATCH,
+                                    "train"), mesh, inputs["w_pair"],
+        device="cpu")
+    whole = convert.params_from_jax(
+        nest(section(inputs, f"init/{arch}/")), cfg, "cpu")
+    stacked = dpsgd.replicate_for_agents(whole, art.num_agents)
+    params = tree_map(lambda p: p.clone(), sharding.shard_tree(
+        stacked, art.param_specs, mesh))
+    state = {"params": params, "opt": sgd.init(params), "step": 0}
+    losses = []
+    for k in range(STEPS):
+        local = train.local_batch(
+            art, {"tokens": inputs[f"tokens/{arch}/{k}"]}, mesh)
+        state, met = art.step_fn(state, local)
+        losses.append(float(met["loss"]))
+    split = art.row_split
+    rows = split.rows_at(mesh_lib.agent_index(mesh, split.axes))
+    out[f"{key}resolved"] = np.asarray(art.gossip)
+    out[f"{key}split"] = np.asarray([split.ranks, split.rows, split.groups,
+                                     rows.start, rows.stop])
+    out[f"{key}local_rows"] = np.asarray(local["tokens"].shape[2])
+    out[f"{key}losses"] = np.asarray(losses)
+    for part, tree in (("params", state["params"]),
+                       ("momentum", state["opt"]["momentum"])):
+        whole = sharding.gather_tree(tree, art.param_specs, mesh)
+        for path, leaf in tree_paths(convert.params_to_jax(whole)):
+            out[f"{key}{part}/{path}"] = leaf
 
 
 def run_pod_serve(mesh, inputs, out, key, fault):
@@ -759,7 +809,7 @@ def run_world1(mesh, inputs, out, key, fault):
         for k in range(STEPS):
             batch = {"tokens": inputs[f"tokens/train_data_dp/{k}"][:1]}
             if name == "mesh":
-                batch = sharding.shard_tree(batch, art.batch_specs, mesh)
+                batch = train.local_batch(art, batch, mesh)
             state, met = art.step_fn(state, batch)
             losses[name].append(float(met["loss"]))
         states[name] = state
@@ -813,6 +863,7 @@ def main(argv):
     real_local, real_layers = ssm._mamba_local, attention.layers
     real_exchange, real_mean = sh._exchange, sh.batch_mean
     real_backward = sh._GatherFromFSDP.backward
+    real_weight, real_rows = train.RowSplit.weight, train.RowSplit.rows_at
     for fault in [None, *faults]:
         key = "" if fault is None else f"fault/{fault}/"
         train._reduce_gradients, gossip.build_schedule = (
@@ -820,6 +871,13 @@ def main(argv):
         ssm._mamba_local, attention.layers = real_local, real_layers
         sh._exchange, sh.batch_mean = real_exchange, real_mean
         sh._GatherFromFSDP.backward = real_backward
+        train.RowSplit.weight, train.RowSplit.rows_at = real_weight, real_rows
+        if fault == "weight_over_groups":
+            train.RowSplit.weight = property(lambda split: 1.0 / split.groups)
+        if fault == "same_rows":
+            train.RowSplit.rows_at = (
+                lambda split, i: real_rows(split,
+                                           i % (split.ranks // split.groups)))
         if fault == "ep_wrong_rows":
             sh._exchange = ep_wrong_rows(real_exchange)
         if fault == "fsdp_own_part":
@@ -855,6 +913,8 @@ def main(argv):
             run_pod_serve(mesh, inputs, out, key, fault)
         elif case == "pod_units":
             run_pod_units(mesh, inputs, out, key, fault)
+        elif case in SPLIT_RUNS:
+            run_split_train(case, mesh, inputs, out, key, fault)
         else:
             run_train(case, mesh, inputs, out, key, fault)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

@@ -13,6 +13,10 @@
     `dryrun_serve` at (2, 2)).
 (c) A production cell at 256 ranks ends `ok` with the reference's record
     keys, and an unsupported one is `skipped` with the reference's reason.
+    Qwen2-0.5B × `train_4k` at 512 ranks, whose 8-row microbatches do not
+    divide its 16 `model` ranks: rank 0 holds one row of each (the
+    launcher's `RowSplit`), as at 256 ranks, and peaks within 1.25× of
+    its 256-rank cell.
 (d) The kernel wrappers on fake CUDA tensors: the kernel path's output
     layout, one fake call of the design a real call takes, nothing
     launched and no launch counted."""
@@ -23,16 +27,19 @@ import os
 import pathlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch.configs.base import get_config, get_shape, get_train_config
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import mixing_combine as mixing_mod
 from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, train
 from repro_torch.roofline.analysis import COLLECTIVES
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -169,6 +176,35 @@ def test_production_decode_cell_is_ok_at_256_ranks(cells):
 def test_unsupported_cell_is_skipped_with_the_references_reason(cells):
     assert cells[1] == cells[2]
     assert cells[1]["status"] == "skipped" and cells[1]["reason"]
+
+
+def test_rows_that_do_not_divide_split_at_512_ranks(monkeypatch):
+    """Qwen2-0.5B × ``train_4k`` (``data_dp``, one microbatch an agent) on
+    fake CPU tensors: 16 rows an agent over 16 ``model`` ranks at
+    ``pod16x16``, 8 rows at ``pod2x16x16`` (32 agents), where rank 0 now
+    holds one row (g = 8) in place of all 8: an eighth of the agent's
+    batch, and its peak within 1.25× of the 256-rank cell's."""
+    arch = "qwen2-0.5b"
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the cells' processes
+    with ThreadPoolExecutor(2) as pool:
+        recs = list(pool.map(
+            lambda mp: dryrun.run_cell_process(arch, "train_4k", mp,
+                                               device="cpu",
+                                               budget_s=TIMEOUT),
+            (False, True)))
+    for rec in recs:
+        assert rec["status"] == "ok", rec.get("traceback", rec.get("error"))
+    one, two = recs
+    assert two["num_agents"] == 32 and two["chips"] == 512
+    shape, tcfg = get_shape("train_4k"), get_train_config(arch)
+    agent = train._batch_shapes(get_config(arch), shape, 32,
+                                tcfg.microbatch)["tokens"]
+    k, mb = agent.shape[1:3]
+    assert (k, mb) == (1, 8)
+    agent_bytes = math.prod(agent.shape[1:]) * 4
+    assert two["memory"]["inputs"] * 8 == agent_bytes
+    assert one["memory"]["inputs"] == two["memory"]["inputs"]
+    assert two["memory"]["peak"] <= 1.25 * one["memory"]["peak"]
 
 
 # ---------------------------------------------------------------------------
